@@ -1,0 +1,108 @@
+"""Build helper for the port's hand-written CUDA kernels.
+
+Each kernel library is one ``.cu`` source with a plain C entry point,
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library and
+loaded with :mod:`ctypes` — no PyTorch headers, so a build takes seconds.
+Libraries are built at first use, all at once (one ``nvcc`` process per
+source, started together), into ``build/repro_torch/`` at the repository
+root, named by a hash of the sources and flags so an edited source
+rebuilds and an unchanged one is reused.  Importing this module runs
+nothing; building without ``nvcc`` raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "build", "nvcc_path", "build_logs"]
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# <repo>/build/repro_torch (this file is <repo>/src/repro_torch/kernels/)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under ``CUDA_HOME`` (or
+    the toolkit's default prefix)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of repro_torch are compiled at "
+        "first use and need the CUDA toolkit (set CUDA_HOME)")
+
+
+def _target(name: str, sources) -> Path:
+    h = hashlib.sha256()
+    for flag in NVCC_FLAGS:
+        h.update(flag.encode())
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(libs: dict) -> dict:
+    """Build and load every library in ``libs`` (name -> list of ``.cu``
+    sources) that is not loaded yet; returns name -> ``ctypes.CDLL``.
+
+    Missing libraries compile in parallel; a failed compile raises with
+    the compiler's output.  ``ptxas -v`` resource lines are kept beside
+    each library as ``<lib>.log`` (see :func:`build_logs`).
+    """
+    pending = {}
+    for name, sources in libs.items():
+        if name in _LOADED:
+            continue
+        so = _target(name, sources)
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                   *map(str, sources)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            pending[name] = (proc, tmp, so)
+        else:
+            pending[name] = (None, None, so)
+    errors = []
+    for name, (proc, tmp, so) in pending.items():
+        if proc is None:
+            continue
+        out, _ = proc.communicate()
+        so.with_suffix(".log").write_text(out)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name} "
+                          f"(exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, so)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    for name, (_, _, so) in pending.items():
+        _LOADED[name] = ctypes.CDLL(str(so))
+    return {name: _LOADED[name] for name in libs}
+
+
+def build_logs(libs: dict) -> dict:
+    """The compiler's ``ptxas -v`` output of each built library in
+    ``libs`` ("" where the library was reused from an earlier build)."""
+    out = {}
+    for name, sources in libs.items():
+        log = _target(name, sources).with_suffix(".log")
+        out[name] = log.read_text() if log.exists() else ""
+    return out

@@ -2,6 +2,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU (the test skips without one)")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
