@@ -15,14 +15,28 @@ final result line):
 2. each kernel against its plain PyTorch version on the card, on the
    ``scale_free`` family with 4 cells: K1 (``edge_relax_blocks``) for every
    min/max builtin, bitwise; K2 (``edge_relax_scan``) for the push_share
-   emit, bitwise, and bitwise run to run;
+   emit, bitwise, and bitwise run to run, and in its pre-emitted input
+   mode; K3 (``edge_relax_push_blocks``) for every min/max builtin at three
+   frontiers (one vertex, 1 %, all vertices), bitwise on its raw outputs and
+   after phase 2;
 3. the main path at a real size: ``DiffusionSession.from_edges`` on the
    Graph500 RMAT graph (default scale 20, edge factor 16) over 4 cells, then
    ``query`` for sssp (2 sources), bfs, cc, ppr and pagerank, with the
    kernels' launch counters zeroed just before and read just after, and
    the results checked against scipy on the host;
-4. each kernel timed at the main path's shapes against its plain version,
-   its bound and one PyTorch library call computing the same function.
+3b. the push and auto sweeps on the same session: sssp, bfs and cc, each
+   bitwise equal to phase 3's pull results (values, parents, rounds, local
+   iterations, actions), with K3 launched;
+4a. K1 and K2 timed at the main path's shapes against their plain
+   versions, their bounds and one PyTorch library call each;
+3c. the commit path at full width: with sssp, bfs, cc and ppr cached, three
+   commits (256 edge adds; 256 edge deletes, 32 of them SSSP tree edges;
+   16 vertex adds with 4 edges each, 8 vertex deletes and 16 touches), each
+   repair held against a fresh diffusion of the committed graph, and scipy's
+   Dijkstra after the last;
+4b. K3 timed at the shape of the first repair sub-iteration and at a full
+   frontier, beside the frontier selector (``active_push_blocks`` and the
+   compaction) at the same shapes.
 
 Any failed check raises, so the script exits nonzero and prints no result.
 Without a CUDA device it exits 2 before doing anything.
@@ -152,6 +166,76 @@ def compare_k2(sess, prog, vstate, senders):
     return float((v1 - vr).abs().max())
 
 
+def push_inputs(sess, prog, vstate, senders, cap=None):
+    """The compaction and the arguments the push sweep hands K3 for this
+    frontier, at ``cap`` or (None) the ladder rung the engine would
+    pick."""
+    from repro_torch.core.diffuse import sweep_streams
+    from repro_torch.core.relax import (
+        active_push_blocks,
+        push_caps,
+        select_bucket,
+    )
+    from repro_torch.kernels.edge_relax import kernel, ref
+
+    sgd, _ = sweep_streams(sess.sg, with_push=True)
+    be = kernel.BLOCK_E
+    nb = sgd["push_src"].shape[-1] // be
+    if cap is None:
+        count = int(active_push_blocks(senders, sgd["push_src"], be).max())
+        cap = push_caps(nb)[select_bucket(count, nb, "push")]
+    idx, valid = ref.compact_push_blocks(senders, sgd["push_src"], be, cap)
+    args = (prog, vstate, senders, sgd["gid"], sgd["push_key"],
+            sgd["push_src"], sgd["push_weight"], sgd["push_dst_gid"], idx)
+    return sgd, idx, valid, args
+
+
+def compare_k3(sess, prog, vstate, senders, cap=None):
+    """K3 against its plain version on the same inputs: bitwise on the raw
+    outputs (fill slots included) and after phase 2."""
+    from repro_torch.kernels.edge_relax import kernel, ops, ref
+
+    _, idx, valid, args = push_inputs(sess, prog, vstate, senders, cap)
+    got = kernel.edge_relax_push_blocks(*args)
+    want = ref.edge_relax_push_blocks_ref(*args, block_e=kernel.BLOCK_E)
+    sync(senders.device)
+    err = 0.0
+    for g, w, what in zip(got, want, ("part", "cnt", "uniq", "pay")):
+        if w is None:
+            check(g is None, f"K3 {prog.name}: unexpected {what}")
+            continue
+        check(torch.equal(g, w), f"K3 {prog.name}: raw {what} differs from "
+                                 f"the plain version")
+        fin = torch.isfinite(w.float())
+        if fin.any():
+            err = max(err, float((g.float() - w.float())[fin].abs().max()))
+    n_keys = sess.sg.n_shards * sess.sg.n_per_shard
+    tg = ops._combine_blocks(*ops._mask_fill_blocks(*got, valid), n_keys,
+                             prog.combine)
+    tw = ops._combine_blocks(*ops._mask_fill_blocks(*want, valid), n_keys,
+                             prog.combine)
+    sync(senders.device)
+    for g, w in zip(tg, tw):
+        check((g is None and w is None) or torch.equal(g, w),
+              f"K3 {prog.name}: phase-2 tables differ from the plain version")
+    return {"cap": int(idx.shape[-1]), "fill_slots": int((~valid).sum()),
+            "max_abs_err": err}
+
+
+def compare_k2_pre(sess, prog, vstate, senders):
+    """K2's pre-emitted mode against ``ref.stream_scan``: bitwise."""
+    from repro_torch.kernels.edge_relax import kernel, ref
+
+    skey, args = stream_inputs(sess, prog, vstate, senders)
+    cand, send, _ = ref.edge_messages(*args)
+    v1, c1, _ = kernel.edge_relax_scan_pre(prog.monoid, cand, send, skey)
+    vr, cr, _ = ref.stream_scan(prog.monoid, cand, send, skey)
+    sync(senders.device)
+    check(torch.equal(v1, vr) and torch.equal(c1, cr),
+          "K2 pre-emitted mode differs from the plain scan")
+    return float((v1 - vr).abs().max())
+
+
 def random_senders(sess, seed: int, p: float = 0.5):
     rng = np.random.default_rng(seed)
     mask = rng.random(tuple(sess.sg.node_ok.shape)) < p
@@ -162,7 +246,10 @@ def phase_kernels(sess, device) -> dict:
     """Phase 2: every kernel against its plain version."""
     from repro_torch.core.programs import PROGRAMS
 
-    out = {"k1": {}, "k2": {}}
+    out = {"k1": {}, "k2": {}, "k2_pre": {}, "k3": {}}
+    one = torch.zeros_like(sess.sg.node_ok)
+    one[sess.ns.resolve(0)] = True
+    frontiers = {"one": one, "1pct": None, "all": sess.sg.node_ok.clone()}
     for i, (name, kw) in enumerate(MINMAX_CASES):
         prog = PROGRAMS[name].factory(**kw)
         sess.query(name, **kw)
@@ -170,6 +257,10 @@ def phase_kernels(sess, device) -> dict:
         tag = f"{name}{'+pay' if prog.with_payload else ''}"
         out["k1"][tag] = compare_k1(sess, prog, vstate,
                                     random_senders(sess, i))
+        for f, senders in frontiers.items():
+            if senders is None:
+                senders = random_senders(sess, 100 + i, p=0.01)
+            out["k3"][f"{tag}/{f}"] = compare_k3(sess, prog, vstate, senders)
     for name, kw in (("ppr", {"source": 0}), ("pagerank", {})):
         prog = PROGRAMS[name].factory(**kw)
         vstate, _ = prog.init(sess.sg)
@@ -179,6 +270,8 @@ def phase_kernels(sess, device) -> dict:
         vstate = dict(vstate, residual=torch.from_numpy(res * 1e-3).to(device))
         out["k2"][name] = compare_k2(sess, prog, vstate,
                                      random_senders(sess, 11))
+        out["k2_pre"][name] = compare_k2_pre(sess, prog, vstate,
+                                             random_senders(sess, 12, p=0.05))
     return out
 
 
@@ -279,8 +372,13 @@ def phase_main(args, device):
     src, dst, w, n = make_graph_family("graph500", 1 << args.scale, seed=0)
     gen_s = time.perf_counter() - t
     t = time.perf_counter()
+    # free capacity for phase 3c's commits: >= 4096 edge and 64 vertex
+    # slots (1 % of the edges and 0.01 % of the vertices at scale 20)
+    edge_slack = max(0.01, 4096 / src.shape[0])
+    node_slack = max(1e-4, 64 / n)
     sess = DiffusionSession.from_edges(src, dst, n, w, n_cells=4,
-                                       device=device)
+                                       edge_slack=edge_slack,
+                                       node_slack=node_slack, device=device)
     sync(device)
     build_s = time.perf_counter() - t
     rng = np.random.default_rng(args.seed)
@@ -290,7 +388,9 @@ def phase_main(args, device):
     emit({"phase": "main_setup", "graph": "graph500", "scale": args.scale,
           "n": n, "edges": int(src.shape[0]), "cells": 4,
           "n_per_shard": sess.sg.n_per_shard,
+          "edges_per_shard": sess.sg.edges_per_shard,
           "stream_width": int(sess.sg.csr_key.shape[-1]),
+          "edge_slack": edge_slack, "node_slack": node_slack,
           "generate_s": gen_s, "partition_upload_s": build_s,
           "sources": sources})
 
@@ -310,7 +410,7 @@ def phase_main(args, device):
         dt = time.perf_counter() - t
         st = res.stats
         key = (name,) + tuple(v for k, v in kw.items() if k == "source")
-        results[key] = res
+        results[key] = trim(res, n)
         rows.append({"query": name, **kw, "wall_s": dt,
                      "rounds": int(st.rounds),
                      "local_iters": int(st.local_iters),
@@ -321,17 +421,231 @@ def phase_main(args, device):
                      "k2_launches": kernel.LAUNCHES["edge_relax_scan"]
                      - before["edge_relax_scan"]})
     launches = dict(kernel.LAUNCHES)
+    walls = {}
+    for (name, kw), r in zip(queries, rows):
+        walls[(name,) + tuple(kw.values())] = r["wall_s"]
     for r in rows:
         emit({"phase": "main_query", **r})
     emit({"phase": "main_launches", **launches})
-    if device.type == "cuda":
-        for k, v in launches.items():
-            check(v > 0, f"kernel {k} was not launched on the main path")
+    if device.type == "cuda":              # the pull sweep: K1 and K2
+        for k in ("edge_relax_blocks", "edge_relax_scan"):
+            check(launches[k] > 0, f"kernel {k} was not launched on the "
+                                   f"main path")
     for r in rows:
         check(r["converged"], f"{r['query']} did not converge")
     report = scipy_checks(src, dst, w, n, results, sources)
     emit({"phase": "main_checks", "ok": True, **report})
-    return sess, launches, sources
+    return sess, launches, sources, results, walls, (src, dst, w, n)
+
+
+def trim(res, n: int):
+    """A Result cut to the graph's first ``n`` ids (the rest are the free
+    vertex slots reserved for commits)."""
+    return type(res)(values=res.values[:n], stats=res.stats,
+                     extra={k: v[:n] for k, v in res.extra.items()})
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def phase_push(sess, results, walls, sources, n, device) -> dict:
+    """Phase 3b: the push and auto sweeps through ``query(sweep=...)``,
+    each bitwise equal to phase 3's pull result."""
+    from repro_torch.kernels.edge_relax import kernel
+
+    s0 = sources[0]
+    rows = []
+    sync(device)
+    kernel.reset_launches()
+    for sweep in ("push", "auto"):
+        for name, kw in (("sssp", {"source": s0}), ("bfs", {"source": s0}),
+                         ("cc", {})):
+            before = dict(kernel.LAUNCHES)
+            sync(device)
+            t = time.perf_counter()
+            res = trim(sess.query(name, sweep=sweep, refresh=True, **kw), n)
+            sync(device)
+            dt = time.perf_counter() - t
+            key = (name,) + tuple(kw.values())
+            pull = results[key]
+            what = f"{name} sweep={sweep}"
+            check(same_bits(res.values, pull.values), f"{what}: values "
+                  f"differ from the pull sweep")
+            for k in pull.extra:
+                check(same_bits(res.extra[k], pull.extra[k]),
+                      f"{what}: {k} differs from the pull sweep")
+            for f in ("rounds", "local_iters", "actions"):
+                check(int(getattr(res.stats, f)) == int(getattr(pull.stats,
+                                                                f)),
+                      f"{what}: stats.{f} differs from the pull sweep")
+            rows.append({"query": name, "sweep": sweep, **kw, "wall_s": dt,
+                         "pull_wall_s": walls[key],
+                         "rounds": int(res.stats.rounds),
+                         "local_iters": int(res.stats.local_iters),
+                         "push_iters": int(res.stats.push_iters),
+                         "actions": int(res.stats.actions),
+                         **{f"{k}_launches": kernel.LAUNCHES[k] - before[k]
+                            for k in kernel.LAUNCHES}})
+    launches = dict(kernel.LAUNCHES)
+    for r in rows:
+        emit({"phase": "push_query", **r})
+    emit({"phase": "push_launches", **launches})
+    if device.type == "cuda":
+        check(launches["edge_relax_push_blocks"] > 0,
+              "K3 was not launched by the push/auto queries")
+    return launches
+
+
+def parents_tight(sess, vstate, source: int) -> bool:
+    """On the device: every reached live vertex but the source has its
+    parent on a live in-edge with dist[parent] + w == dist[v] (float32)."""
+    sg = sess.sg
+    dist, par = vstate["dist"], vstate["parent"]
+    cells = torch.arange(sg.n_shards, device=dist.device)[:, None]
+    sl = sg.src_local.long()
+    ds, dl = sg.dst_shard.long(), sg.dst_local.long()
+    tight = (sg.edge_ok & (sg.gid[cells, sl] == par[ds, dl])
+             & (dist[cells, sl] + sg.weight == dist[ds, dl]))
+    flat = (ds * sg.n_per_shard + dl)[tight]
+    has = torch.zeros(sg.n_shards * sg.n_per_shard, dtype=torch.bool,
+                      device=dist.device)
+    has[flat] = True
+    need = sg.node_ok & torch.isfinite(dist) & (sg.gid != source)
+    return bool((has.view_as(need) | ~need).all())
+
+
+def commit_batches(sess, src, dst, n, sources, rng):
+    """The three commits of phase 3c, as (label, script) pairs; each
+    script queues its ops on the session."""
+    s0 = sources[0]
+
+    def adds(s):
+        u = rng.integers(0, n, 256)
+        v = rng.integers(0, n, 256)
+        w = (1 + 7 * rng.random(256)).astype(np.float32)
+        for a, b, x in zip(u, v, w):
+            s.add_edge(int(a), int(b), float(x))
+        return {"edge_adds": 256, "frontier": u}
+
+    def deletes(s):
+        par = s.to_global(s.vertex_state("sssp", source=s0)["parent"])[:n]
+        reached = np.nonzero((par >= 0) & (np.arange(n) != s0))[0]
+        tree = rng.choice(reached, 32, replace=False)
+        for v in tree:
+            s.delete_edge(int(par[v]), int(v))
+        for i in rng.choice(src.shape[0], 224, replace=False):
+            s.delete_edge(int(src[i]), int(dst[i]))
+        return {"edge_deletes": 256, "tree_edges": 32}
+
+    def mixed(s):
+        for _ in range(16):
+            g = s.add_vertex()
+            for a in rng.integers(0, n, 2):
+                s.add_edge(g, int(a), 2.0)
+                s.add_edge(int(rng.integers(0, n)), g, 3.0)
+        deg = np.bincount(src, minlength=n)
+        pool = np.setdiff1d(np.nonzero(deg > 0)[0], sources)
+        for g in rng.choice(pool, 8, replace=False):
+            s.delete_vertex(int(g))
+        for g in rng.integers(0, n, 16):
+            s.touch(int(g))
+        return {"vertex_adds": 16, "edge_adds": 64, "vertex_deletes": 8,
+                "touches": 16}
+    return [("adds", adds), ("deletes", deletes), ("mixed", mixed)]
+
+
+def phase_commits(args, sess, data, sources, device) -> dict:
+    """Phase 3c: three commits at full width, each repair held against a
+    fresh diffusion of the committed graph."""
+    from repro_torch.core import diffuse
+    from repro_torch.core.programs import PROGRAMS
+    from repro_torch.kernels.edge_relax import kernel
+
+    src, dst, w, n = data
+    s0 = sources[0]
+    cached = [("sssp", {"source": s0}), ("bfs", {"source": s0}), ("cc", {}),
+              ("ppr", {"source": s0})]
+    # exactly these four entries: refreshing them evicts the rest
+    sess.max_cache_entries = len(cached)
+    for name, kw in cached:
+        sess.query(name, refresh=True, **kw)
+    rng = np.random.default_rng(args.seed + 1)
+    sync(device)
+    kernel.reset_launches()
+    k3_total = 0
+    frontier0 = None
+    for label, script in commit_batches(sess, src, dst, n, sources, rng):
+        ops = script(sess)
+        if "frontier" in ops:           # the first repair's sources
+            frontier0 = ops.pop("frontier")
+        before = dict(kernel.LAUNCHES)
+        info = sess.commit()
+        k3 = (kernel.LAUNCHES["edge_relax_push_blocks"]
+              - before["edge_relax_push_blocks"])
+        k3_total += k3
+        repairs = {}
+        for key, (strategy, st) in info.repairs.items():
+            repairs[key[0]] = {"strategy": strategy,
+                               "rounds": int(st.rounds),
+                               "local_iters": int(st.local_iters),
+                               "push_iters": int(st.push_iters),
+                               "actions": int(st.actions)}
+        checks = {}
+        for name, kw in cached:
+            spec = PROGRAMS[name]
+            got = sess.vertex_state(name, **kw)
+            fresh, _ = diffuse(sess.sg, spec.factory(**kw))
+            vk = spec.value_key
+            live = sess.sg.node_ok
+            if name == "ppr":           # default eps 1e-4: n * eps L1
+                l1 = float((got[vk] - fresh[vk]).abs()[live].sum())
+                limit = int(live.sum()) * 1e-4
+                check(l1 <= limit, f"commit {label}: ppr L1 {l1} > {limit}")
+                checks[name] = {"l1": l1, "limit": limit}
+                continue
+            check(torch.equal(torch.where(live, got[vk], 0),
+                              torch.where(live, fresh[vk], 0)),
+                  f"commit {label}: repaired {name} differs from a fresh "
+                  f"diffusion")
+            checks[name] = "bitwise"
+            if name == "sssp":
+                check(parents_tight(sess, got, s0),
+                      f"commit {label}: a repaired parent is not a tight "
+                      f"in-edge")
+                checks["sssp_parents"] = "tight"
+        emit({"phase": "commit", "batch": label, **ops,
+              "apply_s": info.apply_s, "repair_s": info.repair_s,
+              "k3_launches": k3,
+              "launches": {k: kernel.LAUNCHES[k] - before[k]
+                           for k in kernel.LAUNCHES},
+              "delta_count": sess.sg.delta_count.tolist(),
+              "tomb_count": sess.sg.tomb_count.tolist(),
+              "repairs": repairs, "checks": checks})
+    if device.type == "cuda":
+        check(k3_total > 0, "K3 was not launched by the commit repairs")
+    # scipy Dijkstra on the committed graph
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+
+    es, ed, ew = sess.edge_list()
+    m = sess.n_ids
+    a = sp.csr_matrix((ew.astype(np.float64), (es, ed)), shape=(m, m))
+    ref = dijkstra(a, directed=True, indices=s0)
+    got = sess.query("sssp", source=s0).values
+    live = sess.live_ids()
+    fin = np.isfinite(ref) & live
+    check(np.array_equal(np.isfinite(got) & live, fin),
+          "committed sssp: reachability differs from scipy")
+    rel = np.abs(got[fin] - ref[fin]) / np.maximum(ref[fin], 1.0)
+    check(rel.max(initial=0.0) <= 1e-5,
+          f"committed sssp: rel error {rel.max()} > 1e-5")
+    launches = {"edge_relax_push_blocks": k3_total}
+    emit({"phase": "commit_checks", "ok": True, "k3_launches": k3_total,
+          "sssp_max_rel_err": float(rel.max(initial=0.0)),
+          "reached": int(fin.sum())})
+    return launches, frontier0
 
 
 # --------------------------------------------------------------------------
@@ -406,25 +720,124 @@ def phase_timing(sess, launches, sources, device, reps: int) -> list:
     return rows
 
 
-def phase_profile(sess, sources) -> list:
-    """Where the time of a query goes: one ``torch.profiler`` trace per
-    query (device time by kernel, device busy share of the wall time)."""
+def phase_k3_timing(sess, launches, sources, frontier0, device,
+                    reps: int) -> tuple:
+    """Phase 4b: K3 at the shape of the first repair sub-iteration (the
+    first commit's sssp repair: the added edges' sources on the committed
+    graph) and at a full frontier (cap = nb), beside the frontier selector
+    at the same shapes.  Returns (the kernels-line row at the full
+    frontier, the per-shape detail)."""
+    from repro_torch.core.programs import PROGRAMS
+    from repro_torch.core.relax import active_push_blocks
+    from repro_torch.kernels.edge_relax import kernel, ref
+
+    clock = Clock(device)
+    sg = sess.sg
+    S, Np = sg.n_shards, sg.n_per_shard
+    n_keys = S * Np
+    be = kernel.BLOCK_E
+    kw = {"source": sources[0]}
+    prog = PROGRAMS["sssp"].factory(**kw)
+    vstate = sess.vertex_state("sssp", **kw)
+    first = torch.zeros_like(sg.node_ok)
+    for u in frontier0:
+        first[sess.ns.resolve(int(u))] = True
+    first &= sg.node_ok
+    nb = sg.csr_key.shape[-1] // be
+    detail, row = {}, None
+    for label, senders, cap in (("first_repair", first, None),
+                                ("full", sg.node_ok.clone(), nb)):
+        check_k3 = compare_k3(sess, prog, vstate, senders, cap)
+        sgd, idx, valid, args = push_inputs(sess, prog, vstate, senders, cap)
+        cap = int(idx.shape[-1])
+        kernel.reset_launches()              # timing launches never count
+        k_ms = clock.ms(lambda: kernel.edge_relax_push_blocks(*args), reps)
+        p_ms = clock.ms(lambda: ref.edge_relax_push_blocks_ref(
+            *args, block_e=be), max(2, reps // 10), warmup=1)
+        sel_ms = clock.ms(lambda: active_push_blocks(
+            senders, sgd["push_src"], be), reps)
+        cmp_ms = clock.ms(lambda: ref.compact_push_blocks(
+            senders, sgd["push_src"], be, cap), reps)
+        g, _ = ref.push_gather(sgd, idx, be)
+        cand, send, _ = ref.edge_messages(prog, vstate, senders, sgd["gid"],
+                                          g["key"], g["src"], g["weight"],
+                                          g["dst_gid"])
+        ids = torch.where(send, g["key"], n_keys).long()
+        ids = ids + torch.arange(S, device=device)[:, None] * (n_keys + 1)
+        flat_c, flat_i = cand.reshape(-1), ids.reshape(-1)
+        table = torch.empty(S * (n_keys + 1), dtype=cand.dtype,
+                            device=device)
+        lib_ms = clock.ms(lambda: table.fill_(float("inf")).scatter_reduce_(
+            0, flat_i, flat_c, "amin"), reps)
+        # bytes each read once: the block list, the swept (real) blocks'
+        # key/src/weight, each distinct source vertex's senders/dist/gid,
+        # and the [S, cap, 128] outputs (part/cnt/uniq/pay)
+        n_real = int(valid.sum())
+        keyed = g["src"].clamp(min=0) + torch.arange(
+            S, device=device)[:, None] * Np
+        distinct = int(torch.unique(keyed[g["key"] >= 0]).numel())
+        nbytes = (S * cap * 4 + n_real * be * 12 + distinct * 9
+                  + S * cap * be * 16)
+        ops = S * cap * be * 6
+        r = kernel_row(
+            "edge_relax_push_blocks", "src/repro_torch/kernels/edge_relax/"
+            "csrc/edge_relax_push_blocks.cu",
+            "src/repro/kernels/edge_relax/kernel.py:155",
+            launches, check_k3["max_abs_err"], k_ms, p_ms, nbytes, ops,
+            lib_ms)
+        detail[label] = {**r, "cap": cap, "active_blocks": n_real,
+                         "fill_slots": int((~valid).sum()),
+                         "frontier": int(senders.sum()),
+                         "selector_ms": sel_ms, "compaction_ms": cmp_ms}
+        emit({"phase": "k3_timing", "shape": label, **detail[label]})
+        if label == "full":
+            row = r
+    return row, detail
+
+
+def phase_profile(sess, sources, n: int) -> list:
+    """Where the time goes: one ``torch.profiler`` trace per query (device
+    time by kernel, device busy share of the wall time), and one of a
+    commit's push repair (64 edge adds, sssp alone cached) with the device
+    time under the frontier selector's and the compaction's ranges."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    s0 = sources[0]
+    rng = np.random.default_rng(99)
+
+    def commit():
+        sess.max_cache_entries = 1           # sssp alone is repaired
+        sess.query("sssp", refresh=True, source=s0)
+        torch.cuda.synchronize()
+        for a, b in rng.integers(0, n, (64, 2)):
+            sess.add_edge(int(a), int(b), 2.0)
+        return sess.commit
+
     out = []
-    for name, kw in (("sssp", {"source": sources[0]}),
-                     ("pagerank", {"eps": 1e-7})):
+    for name, run in (("sssp", lambda: sess.query("sssp", refresh=True,
+                                                  source=s0)),
+                      ("pagerank", lambda: sess.query("pagerank",
+                                                      refresh=True,
+                                                      eps=1e-7)),
+                      ("commit_repair", None)):
+        if run is None:
+            run = commit()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            sess.query(name, refresh=True, **kw)
+            run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         avg = prof.key_averages()
         dev = lambda e: getattr(e, "self_device_time_total",
                                 getattr(e, "self_cuda_time_total", 0))
+        tot = lambda e: getattr(e, "device_time_total",
+                                getattr(e, "cuda_time_total", 0))
+        ranges = {e.key: {"device_ms": tot(e) / 1e3, "calls": e.count,
+                          "cpu_ms": e.cpu_time_total / 1e3}
+                  for e in avg if e.key.startswith("repro_torch.")}
         # device-side events only: an aten op's row repeats its kernels' time
         rows = sorted(((e.key, dev(e) / 1e3, e.count) for e in avg
                        if e.device_type == DeviceType.CUDA and dev(e) > 0),
@@ -436,6 +849,7 @@ def phase_profile(sess, sources) -> list:
         out.append({"phase": "profile", "query": name, "wall_ms": wall * 1e3,
                     "device_busy_ms": busy_ms,
                     "device_busy_share": busy_ms / (wall * 1e3),
+                    "ranges": ranges,
                     "top": [{"kernel": k[:80], "ms": ms, "calls": n}
                             for k, ms, n in rows[:10]]})
     return out
@@ -464,8 +878,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one sssp and one pagerank query with "
-                         "torch.profiler (tables under chiprun_out/)")
+                    help="also trace one sssp query, one pagerank query and "
+                         "one commit's push repair with torch.profiler "
+                         "(tables under chiprun_out/)")
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the path on the CPU with the plain versions "
                          "(tiny sizes); exits 3 and prints no result")
@@ -517,12 +932,21 @@ def main(argv=None) -> int:
           "n": args.kernel_n, "cells": 4, "bitwise": True, **errs})
     del ksess
 
-    sess, launches, sources = phase_main(args, device)
+    sess, launches, sources, results, walls, data = phase_main(args, device)
+    push_launches = phase_push(sess, results, walls, sources, data[3],
+                               device)
     rows = phase_timing(sess, launches, sources, device, args.reps)
+    commit_launches, frontier0 = phase_commits(args, sess, data, sources,
+                                               device)
+    k3_launches = (push_launches["edge_relax_push_blocks"]
+                   + commit_launches["edge_relax_push_blocks"])
+    k3_row, k3_detail = phase_k3_timing(sess, k3_launches, sources,
+                                        frontier0, device, args.reps)
+    rows.append(k3_row)
     if args.profile and device.type == "cuda":
-        for line in phase_profile(sess, sources):
+        for line in phase_profile(sess, sources, data[3]):
             emit(line)
-    detail = {"nvidia_smi": smi, "kernels": rows,
+    detail = {"nvidia_smi": smi, "kernels": rows, "k3": k3_detail,
               "seconds": time.perf_counter() - t0}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -1,11 +1,13 @@
-# The diffusive-computation engine on PyTorch: the query side of the
-# session, the logical sharded engine (pull sweep), and the programs, with
-# the relaxation step on hand-written CUDA kernels (kernels/edge_relax).
+# The diffusive-computation engine on PyTorch: the session (queries, graph
+# mutation and incremental repair at commit), the logical sharded engine
+# (pull, push and auto sweeps), and the programs, with the relaxation step
+# on hand-written CUDA kernels (kernels/edge_relax).
 from .api import (
     Result,
     bfs,
     build,
     connected_components,
+    incremental_sssp,
     pagerank,
     personalized_pagerank,
     reachable,
@@ -14,6 +16,7 @@ from .api import (
     widest_path,
 )
 from .diffuse import DiffuseStats, diffuse, diffuse_from
+from .dynamic import NameServer
 from .graph import Graph, ShardedGraph, from_edges
 from .monoid import MONOIDS, Monoid, register_monoid
 from .partition import Partitioned, partition
@@ -32,7 +35,13 @@ from .programs import (
     sssp_program,
     widest_program,
 )
-from .session import DiffusionSession, ProgramSpec, register_program
+from .session import (
+    CommitInfo,
+    DiffusionSession,
+    ProgramSpec,
+    register_program,
+)
+from .updates import AppliedUpdates, UpdateBatch
 
 __all__ = [
     "Result", "bfs", "build", "connected_components", "personalized_pagerank",
@@ -43,5 +52,6 @@ __all__ = [
     "VertexProgram", "DiffusiveProgram", "Field", "KernelEmit", "BoundQuery",
     "diffusive", "bfs_program", "cc_program", "ppr_program", "sssp_program",
     "pagerank_program", "widest_program", "reach_program",
-    "DiffusionSession", "ProgramSpec", "register_program",
+    "DiffusionSession", "ProgramSpec", "register_program", "CommitInfo",
+    "UpdateBatch", "AppliedUpdates", "NameServer", "incremental_sssp",
 ]

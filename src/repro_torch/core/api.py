@@ -2,11 +2,14 @@
 (PyTorch port of ``repro.core.api``).  Each call builds a transient
 session, so the one-shot style (``sssp(part, 0)``) and the session share
 one execution path.  A list-valued ``source`` asks for multi-query lanes,
-which arrive with the lanes slice.
+which arrive with the lanes slice.  Every wrapper passes ``sweep=`` ("pull"
+| "push" | "auto") through; :func:`~.dynamic.incremental_sssp` repairs an
+SSSP fixed point after edge updates.
 """
 
 from __future__ import annotations
 
+from .dynamic import incremental_sssp
 from .graph import from_edges
 from .partition import Partitioned, partition
 from .programs import VertexProgram
@@ -15,6 +18,7 @@ from .session import DiffusionSession, Result
 __all__ = [
     "build", "run", "sssp", "bfs", "connected_components",
     "personalized_pagerank", "pagerank", "widest_path", "reachable", "Result",
+    "incremental_sssp",
 ]
 
 

@@ -12,10 +12,13 @@ logical sharded engine of ``repro.core.diffuse``).
 * Termination is global quiescence: no vertex active, no message in
   flight (termination.py).
 
-The loops are host ``while`` loops that read one flag from the device per
-sub-iteration (is any vertex still active); every statistic stays on the
-device until the caller reads it.  Not yet ported: the delta-stepping
-gate, lanes, hub replicas, push/auto sweeps and the SPMD engine.
+The loops are host ``while`` loops that read from the device once per
+sub-iteration: whether any vertex is still active and, for the push and
+auto sweeps, the max over cells of the active push-block count, in one
+transfer — the host then picks the sweep's compaction bucket
+(``relax.select_bucket``).  Every statistic stays on the device until the
+caller reads it.  Not yet ported: the delta-stepping gate, lanes, hub
+replicas and the SPMD engine.
 """
 
 from __future__ import annotations
@@ -27,7 +30,14 @@ import torch
 from .graph import ShardedGraph
 from .partition import Partitioned
 from .programs import VertexProgram
-from .relax import RELAX_SWEEPS, make_relax
+from .relax import (
+    DEFAULT_PUSH_THRESHOLD,
+    RELAX_SWEEPS,
+    active_push_blocks,
+    make_relax,
+    push_caps,
+    select_bucket,
+)
 
 __all__ = ["diffuse", "diffuse_from", "exact_streams_for", "DiffuseStats",
            "FRONTIER_LOG_CAP", "sweep_streams"]
@@ -47,13 +57,15 @@ class DiffuseStats(NamedTuple):
     operons_sent: torch.Tensor      # coalesced cross-cell mailbox entries
     operons_delivered: torch.Tensor  # ... and delivered (equal)
     max_frontier: torch.Tensor      # peak active count
-    push_iters: torch.Tensor        # sub-iterations swept via push (0)
+    push_iters: torch.Tensor        # sub-iterations swept via push
     frontier_log: torch.Tensor      # [FRONTIER_LOG_CAP] active per round
-    dir_log: torch.Tensor           # [FRONTIER_LOG_CAP] 0 pull, -1 n/a
+    dir_log: torch.Tensor           # [FRONTIER_LOG_CAP] a round's opening
+                                    #   sweep: 1 push, 0 pull, -1 n/a
     converged: torch.Tensor         # bool: quiescent, not cut by budget
 
 
-def _local_iter(prog: VertexProgram, sgd, st, relax, mine, diag):
+def _local_iter(prog: VertexProgram, sgd, st, relax, mine, diag,
+                bucket=None):
     """One local relaxation sub-iteration of every cell at once.
 
     ``relax`` maps the cells' vertex blocks and streams to the [S, S, Np]
@@ -65,7 +77,7 @@ def _local_iter(prog: VertexProgram, sgd, st, relax, mine, diag):
     ident = monoid.identity(prog.msg_dtype)
 
     senders = active
-    table, cnt, pay = relax(vstate, senders, sgd)
+    table, cnt, pay = relax(vstate, senders, sgd, bucket)
     inbox = table[diag, diag]
     has_local = cnt[diag, diag] > 0
     pay_in = pay[diag, diag] if prog.with_payload else None
@@ -92,24 +104,30 @@ def _local_iter(prog: VertexProgram, sgd, st, relax, mine, diag):
     return (vstate, activated, outbox, outbox_has, outbox_pay), counts
 
 
-def _sg_as_dict(sg: ShardedGraph):
+def _sg_as_dict(sg: ShardedGraph, with_push: bool = False):
     """ShardedGraph (with views) -> the engine-facing tensor dict: the
     vertex block (``node_ok``/``gid``/``out_degree``) plus the pull
-    streams."""
+    streams, and — for a sweep that can compact — the push streams (an
+    O(E) gather through ``push_perm``, made once per diffusion)."""
     d = {"node_ok": sg.node_ok, "gid": sg.gid, "out_degree": sg.out_degree}
     d.update(sg.csr_view())
+    if with_push:
+        d.update(sg.push_view())
     return d
 
 
-def sweep_streams(sg: ShardedGraph):
+def sweep_streams(sg: ShardedGraph, with_push: bool = False):
     """The tensor dict one relaxation sweep reads, and the width of the
-    staged delta segment it carries.  Without a staged edge (one host read
-    of the per-cell counters) the delta segment holds only ``-1`` keys,
-    whose messages every combine drops, so the streams end at the sorted
-    region: views of the ``[S, W]`` rows, no copy."""
+    staged delta segment its ``csr_*`` streams carry.  Without a staged
+    edge (one host read of the per-cell counters) the delta segment holds
+    only ``-1`` keys, whose messages every combine drops, so the pull
+    streams end at the sorted region: views of the ``[S, W]`` rows, no
+    copy.  The push streams (``with_push``) keep the full width: the
+    compaction ladder and auto's threshold count its blocks, as the JAX
+    package's do."""
     if sg.csr_perm is None:
         sg = sg.with_csr()
-    sgd = _sg_as_dict(sg)
+    sgd = _sg_as_dict(sg, with_push)
     if sg.delta_width and not bool(sg.delta_count.any()):
         es = sg.sorted_width
         sgd = {k: v[..., :es] if k.startswith("csr_") else v
@@ -119,10 +137,15 @@ def sweep_streams(sg: ShardedGraph):
 
 
 def _run_rounds(sg: ShardedGraph, prog: VertexProgram, vstate0, active0,
-                max_local_iters: int, max_rounds: int):
+                max_local_iters: int, max_rounds: int, sweep: str = "pull",
+                push_threshold: float = DEFAULT_PUSH_THRESHOLD):
     S, Np = sg.n_shards, sg.n_per_shard
-    sgd, delta_e = sweep_streams(sg)
-    relax = make_relax(prog, S, Np, sg.csr_block, delta_e=delta_e)
+    sgd, delta_e = sweep_streams(sg, with_push=sweep != "pull")
+    block = sg.csr_block
+    relax = make_relax(prog, S, Np, block, delta_e=delta_e, sweep=sweep)
+    # push blocks of the full-width push stream, and the ladder's rungs
+    nb = sgd["push_src"].shape[-1] // block if sweep != "pull" else 0
+    n_caps = len(push_caps(nb)) if nb else 0
     dev = sg.device
     monoid = prog.monoid
     ident = monoid.identity(prog.msg_dtype)
@@ -134,6 +157,18 @@ def _run_rounds(sg: ShardedGraph, prog: VertexProgram, vstate0, active0,
                if prog.with_payload else None)
         return box, has, pay
 
+    def poll(active):
+        """One device read: is any vertex active, and (push/auto) the
+        sweep's bucket from the max over cells of the active-block
+        count."""
+        if sweep == "pull":
+            return bool(active.any()), None
+        with torch.profiler.record_function("repro_torch.push_selector"):
+            count = active_push_blocks(active, sgd["push_src"], block).max()
+            live, count = torch.stack([active.any().to(count.dtype),
+                                       count]).tolist()
+        return bool(live), select_bucket(count, nb, sweep, push_threshold)
+
     mine = torch.eye(S, dtype=torch.bool, device=dev)[:, :, None]
     diag = torch.arange(S, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -144,26 +179,31 @@ def _run_rounds(sg: ShardedGraph, prog: VertexProgram, vstate0, active0,
 
     vstate, active = vstate0, active0
     outbox, outbox_has, outbox_pay = empty_outbox()
-    rounds = local_iters = 0
+    rounds = local_iters = push_iters = 0
     # the outbox is empty at every round start, so "not quiescent" reads
-    # as "some vertex active": one device flag per round and per
+    # as "some vertex active": one device read per round and per
     # sub-iteration
-    while rounds < max_rounds and bool(active.any()):
+    live, bucket = poll(active)
+    while rounds < max_rounds and live:
         li = min(rounds, FRONTIER_LOG_CAP - 1)
         frontier_log[li] = active.sum()
         liters = 0
-        while liters < max_local_iters and (liters == 0
-                                            or bool(active.any())):
+        while liters < max_local_iters and live:
+            is_push = int(sweep != "pull" and bucket < n_caps)
             if liters == 0:
-                dir_log[li] = 0                # the opening sweep pulls
+                dir_log[li] = is_push          # the round's opening sweep
             st = (vstate, active, outbox, outbox_has, outbox_pay)
-            st, counts = _local_iter(prog, sgd, st, relax, mine, diag)
+            st, counts = _local_iter(prog, sgd, st, relax, mine, diag,
+                                     bucket)
             vstate, active, outbox, outbox_has, outbox_pay = st
             local_iters += 1
+            push_iters += is_push
             liters += 1
             actions = actions + counts["actions"]
             remote = remote + counts["remote"]
             max_frontier = torch.maximum(max_frontier, active.sum())
+            if liters < max_local_iters:
+                live, bucket = poll(active)
         # ---- exchange: deliver every outbox to its destination cell ----
         operons = operons + outbox_has.sum()
         inbox = monoid.reduce_rows(outbox, outbox_has, dim=0)
@@ -178,14 +218,16 @@ def _run_rounds(sg: ShardedGraph, prog: VertexProgram, vstate0, active0,
         outbox, outbox_has, outbox_pay = empty_outbox()
         rounds += 1
         max_frontier = torch.maximum(max_frontier, active.sum())
+        if rounds < max_rounds:
+            live, bucket = poll(active)
 
     as_t = lambda x: torch.tensor(x, dtype=torch.int64, device=dev)
     stats = DiffuseStats(
         rounds=as_t(rounds), local_iters=as_t(local_iters), actions=actions,
         remote_actions=remote, operons_sent=operons,
         operons_delivered=operons, max_frontier=max_frontier,
-        push_iters=zero, frontier_log=frontier_log, dir_log=dir_log,
-        converged=~active.any())
+        push_iters=as_t(push_iters), frontier_log=frontier_log,
+        dir_log=dir_log, converged=~active.any())
     return vstate, stats
 
 
@@ -203,10 +245,6 @@ def exact_streams_for(sg: ShardedGraph, prog: VertexProgram) -> ShardedGraph:
 def _check_ported(prog: VertexProgram, delta, sweep: str, sg: ShardedGraph):
     if sweep not in RELAX_SWEEPS:
         raise ValueError(f"sweep must be one of {RELAX_SWEEPS}, got {sweep!r}")
-    if sweep != "pull":
-        raise NotImplementedError(
-            f"sweep={sweep!r} arrives with the push kernel K3; only 'pull' "
-            f"is ported")
     if delta is not None:
         raise NotImplementedError(
             "the delta-stepping priority gate (delta=) arrives with the "
@@ -220,26 +258,34 @@ def _check_ported(prog: VertexProgram, delta, sweep: str, sg: ShardedGraph):
 
 def diffuse(part: Partitioned | ShardedGraph, prog: VertexProgram,
             max_local_iters: int = 64, max_rounds: int = 10_000,
-            delta=None, sweep: str = "pull"):
+            delta=None, sweep: str = "pull",
+            push_threshold: float = DEFAULT_PUSH_THRESHOLD):
     """Run a diffusive computation to quiescence.
 
     Returns (vertex-state dict of [S, Np] tensors, :class:`DiffuseStats`)
-    — the paper's ``hpx_diffuse``.  ``sweep`` must be ``"pull"`` (push and
-    auto sweeps are a later slice); ``delta`` must be None.
+    — the paper's ``hpx_diffuse``.  ``sweep`` picks the direction — dense
+    pull, frontier-compacted push, or the per-sub-iteration ``auto``
+    selector (relax.py); every choice reaches the same fixed point
+    bitwise.  ``delta`` must be None (the gate is a later slice).
     """
     sg = part.sg if isinstance(part, Partitioned) else part
     _check_ported(prog, delta, sweep, sg)
     sg = exact_streams_for(sg, prog)
     vstate0, active0 = prog.init(sg)   # unsplit: the graph is its own view
     return _run_rounds(sg, prog, vstate0, active0, max_local_iters,
-                       max_rounds)
+                       max_rounds, sweep, push_threshold)
 
 
 def diffuse_from(part: Partitioned | ShardedGraph, prog: VertexProgram,
                  vstate, active, max_local_iters: int = 64,
-                 max_rounds: int = 10_000, delta=None, sweep: str = "pull"):
-    """Resume a diffusion from an explicit (state, frontier)."""
+                 max_rounds: int = 10_000, delta=None, sweep: str = "pull",
+                 push_threshold: float = DEFAULT_PUSH_THRESHOLD):
+    """Resume a diffusion from an explicit (state, frontier) — the commit
+    repairs' entry.  Repairs resume from a tiny frontier, which is where
+    ``sweep="push"`` turns the O(E) sweep into O(frontier-adjacent
+    edges)."""
     sg = part.sg if isinstance(part, Partitioned) else part
     _check_ported(prog, delta, sweep, sg)
     sg = exact_streams_for(sg, prog)
-    return _run_rounds(sg, prog, vstate, active, max_local_iters, max_rounds)
+    return _run_rounds(sg, prog, vstate, active, max_local_iters, max_rounds,
+                       sweep, push_threshold)

@@ -7,9 +7,12 @@
   edges live with the cell that owns their *source* vertex.
 
 Both blocked-CSR views (the destination-sorted pull stream and its
-source-sorted push twin) are rebuilt here by the full stable sort only;
-the incremental tombstone/delta maintenance and its merge compaction
-arrive with the commit slice.
+source-sorted push twin) are maintained incrementally between rebuilds:
+deletes tombstone stream positions and adds stage into a delta segment
+(:meth:`ShardedGraph.with_edge_tombstones`, ``with_slot_tombstones``,
+``with_staged_edges``), each an O(batch) scatter.  Compaction
+(:meth:`ShardedGraph.with_csr`) is the full stable sort; the JAX
+package's merge compaction is not ported.
 """
 
 from __future__ import annotations
@@ -21,15 +24,18 @@ import torch
 
 __all__ = ["Graph", "ShardedGraph", "from_edges", "build_csr",
            "build_push_csr", "DEFAULT_EDGE_BLOCK", "DELTA_BLOCK_FRACTION",
-           "default_delta_blocks"]
+           "TOMBSTONE_COMPACT_FRACTION", "default_delta_blocks"]
 
 # Edge-block width of the blocked-CSR view: the relaxation kernels combine
 # within blocks of exactly this many edges (one CUDA thread per edge).
 DEFAULT_EDGE_BLOCK = 128
 
-# A rebuild reserves staged delta blocks for this fraction of the sorted
-# stream (>= 1 block) — the layout the commit slice fills.
+# Delta-segment policy: a rebuild reserves staged delta blocks for this
+# fraction of the sorted stream (>= 1 block), and the update layer
+# compacts once a cell's tombstones exceed the same fraction of its edge
+# slots — the incremental views' extra sweep cost stays bounded.
 DELTA_BLOCK_FRACTION = 0.25
+TOMBSTONE_COMPACT_FRACTION = 0.25
 
 
 def default_delta_blocks(edges_per_shard: int, block: int) -> int:
@@ -89,6 +95,23 @@ def build_push_csr(src_local, edge_ok, csr_perm, n_per_shard: int,
     pad = eb - ep
     return (_pad_last(perm.to(torch.int32), pad, 0),
             _pad_last(ssrc, pad, -1), _pad_last(pos, pad, -1))
+
+
+def _scatter_drop(a: torch.Tensor, rows, cols, vals) -> torch.Tensor:
+    """``a[rows, cols] = vals`` into a copy of the ``[S, W]`` tensor
+    ``a``, where a column index ``W`` drops its entry (JAX's
+    ``mode="drop"``): the write goes to a spare column that is cut off,
+    never onto a real position."""
+    s_, w = a.shape
+    out = torch.empty((s_, w + 1), dtype=a.dtype, device=a.device)
+    out[:, :w] = a
+    out[rows.long(), cols.long()] = vals
+    return out[:, :w].contiguous()
+
+
+def _count_per_cell(counts: torch.Tensor, shard, ok) -> torch.Tensor:
+    """``counts[shard] += ok`` (int32, per op, duplicates accumulate)."""
+    return counts.index_add(0, shard.long(), ok.to(counts.dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,6 +321,72 @@ class ShardedGraph:
                                    push_perm=None, push_src=None,
                                    push_pos=None, push_inv=None,
                                    delta_count=None, tomb_count=None)
+
+    # -- incremental view maintenance ----------------------------------
+
+    def with_edge_tombstones(self, shard, slot, ok) -> "ShardedGraph":
+        """Tombstone K edges at ``(shard, slot)`` (``ok`` masks no-ops) in
+        both views: O(K) scatters through the slot -> position inverses.
+        The dense position keeps its structural ``csr_key`` and drops
+        ``csr_live``; the push position drops ``push_src`` to ``-1``."""
+        ep = self.edges_per_shard
+        w = self.csr_key.shape[-1]
+        sh = shard.long()
+        sl = slot.clamp(0, ep - 1).long()
+        dpos = torch.where(ok, self.csr_inv[sh, sl], w)
+        ppos = torch.where(ok, self.push_inv[sh, sl], w)
+        return dataclasses.replace(
+            self,
+            csr_live=_scatter_drop(self.csr_live, sh, dpos, False),
+            push_src=_scatter_drop(self.push_src, sh, ppos, -1),
+            tomb_count=_count_per_cell(self.tomb_count, sh, ok),
+        )
+
+    def with_slot_tombstones(self, dead) -> "ShardedGraph":
+        """Tombstone every edge slot in the ``dead`` [S, Ep] mask (the
+        vertex-delete path): one O(E) elementwise pass over both views,
+        no sort."""
+        ep = self.edges_per_shard
+        at = lambda perm: torch.gather(dead, -1, perm.clamp(0, ep - 1).long())
+        at_dense = at(self.csr_perm)
+        newly = self.csr_live & at_dense
+        at_push = at(self.push_perm) & (self.push_src >= 0)
+        return dataclasses.replace(
+            self,
+            csr_live=self.csr_live & ~at_dense,
+            push_src=torch.where(at_push, -1, self.push_src),
+            tomb_count=self.tomb_count + newly.sum(-1, dtype=torch.int32),
+        )
+
+    def with_staged_edges(self, shard, slot, src_local, dst_key, rank,
+                          ok) -> "ShardedGraph":
+        """Stage K freshly written edges (``(shard, slot)`` already hold
+        their fields) into the delta segment of both views at position
+        ``sorted_width + delta_count[shard] + rank`` (``rank`` = the op's
+        index among this batch's adds to the same cell).  O(K) scatters;
+        the caller has checked capacity (``delta_count + adds-per-cell <=
+        delta_width``)."""
+        es = self.sorted_width
+        w = self.csr_key.shape[-1]
+        ep = self.edges_per_shard
+        sh = shard.long()
+        dpos = torch.where(ok, es + self.delta_count[sh] + rank, w)
+        islot = torch.where(ok, slot, ep)
+        i32 = lambda a: a.to(torch.int32)
+        inv = lambda a: _scatter_drop(a, sh, islot, i32(dpos))
+        stage = lambda a, v: _scatter_drop(a, sh, dpos, v)
+        return dataclasses.replace(
+            self,
+            csr_perm=stage(self.csr_perm, i32(slot)),
+            csr_key=stage(self.csr_key, i32(dst_key)),
+            csr_live=stage(self.csr_live, True),
+            csr_inv=inv(self.csr_inv),
+            push_perm=stage(self.push_perm, i32(slot)),
+            push_src=stage(self.push_src, i32(src_local)),
+            push_pos=stage(self.push_pos, i32(dpos)),
+            push_inv=inv(self.push_inv),
+            delta_count=_count_per_cell(self.delta_count, sh, ok),
+        )
 
     def csr_view(self) -> dict:
         """The destination-sorted edge streams the relax kernels consume:

@@ -1,4 +1,4 @@
-"""DiffusionSession — the query side of the front door (PyTorch port of
+"""DiffusionSession — the front door (PyTorch port of
 ``repro.core.session``).
 
 The session owns the partitioned graph and a cache of per-program fixed
@@ -6,23 +6,44 @@ points; ``session.query("sssp", source=0)`` runs (or serves from the LRU
 cache) any registered program on the logical sharded engine, with the
 relaxation step on the hand-written CUDA kernels when the graph lives on a
 GPU (the default) and on their plain versions when it lives on the CPU.
+``sweep="pull" | "push" | "auto"`` picks the sweep direction (relax.py);
+every choice gives the same fixed point bitwise.
+
+Mutations (``add_vertex``/``delete_vertex``/``add_edge``/``delete_edge``/
+``touch``, or a whole ``update()`` batch) apply at ``commit()``, which then
+repairs every cached fixed point incrementally, per the program's repair
+strategy:
+
+* ``frontier``  — insert-only batches on monotone programs: re-diffuse
+  from the inserted edges' sources, touched and new vertices.
+* ``parents``   — SSSP with parent pointers: invalidate the subtrees
+  hanging off deleted tree edges / deleted vertices, re-emit from every
+  still-finite vertex.
+* ``component`` — CC: reset the affected components to their init labels;
+  all live vertices re-emit.
+* ``restart``   — residual-push programs (PPR / PageRank) rerun from
+  scratch.
+
+Warm repairs resume from a tiny frontier and so default to the push sweep.
 
 Not ported yet, each raising :class:`NotImplementedError` that names its
-slice: multi-query lanes (a pluralized lane parameter), mutations and
-``commit()``, ``save``/``open``, the ``spmd`` and ``event`` engines,
-``delta=`` gating, push/auto sweeps, and the ``triangles`` query.
+slice: multi-query lanes (a pluralized lane parameter), ``save``/``open``
+and the write-ahead journal, the ``spmd`` and ``event`` engines,
+``delta=`` gating, and the ``triangles`` query.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
-from .diffuse import diffuse, exact_streams_for
+from .diffuse import diffuse, diffuse_from, exact_streams_for
+from .dynamic import NameServer, _invalidate_subtrees
 from .graph import from_edges
 from .partition import Partitioned, partition
 from .programs import (
@@ -35,9 +56,10 @@ from .programs import (
     register_program,
 )
 from .relax import RELAX_SWEEPS
+from .updates import AppliedUpdates, UpdateBatch
 
-__all__ = ["DiffusionSession", "Result", "ProgramSpec", "register_program",
-           "PROGRAMS", "ENGINES"]
+__all__ = ["DiffusionSession", "Result", "CommitInfo", "ProgramSpec",
+           "register_program", "PROGRAMS", "ENGINES"]
 
 ENGINES = ("sharded", "event", "spmd")
 
@@ -65,24 +87,43 @@ register_program(ProgramSpec("triangles", None, "", run_fn=_run_triangles))
 class _Entry:
     """One cached (program, kwargs) fixed point."""
 
+    spec: ProgramSpec
     prog: VertexProgram
     value_key: str
     vstate: Any
     stats: Any
+    sweep: str | None = None     # explicit sweep knob; None = defaulted
+                                 #   (queries use the session's, repairs
+                                 #   default to the push sweep)
+
+
+class CommitInfo(NamedTuple):
+    applied: AppliedUpdates
+    repairs: dict               # query key -> (strategy, stats)
+    apply_s: float = 0.0        # host seconds of the batch apply and of
+    repair_s: float = 0.0       #   the repairs, each ending in a device sync
+
+
+def _check_sweep(sweep: str):
+    if sweep not in RELAX_SWEEPS:
+        raise ValueError(f"sweep must be one of {RELAX_SWEEPS}, "
+                         f"got {sweep!r}")
 
 
 class DiffusionSession:
-    """Stateful front door: build once, query many times."""
+    """Stateful front door: build once, query / mutate / commit."""
 
-    def __init__(self, part: Partitioned, engine: str = "sharded",
-                 sweep: str = "pull", max_local_iters: int = 64,
-                 max_rounds: int = 10_000,
+    def __init__(self, part: Partitioned, ns: NameServer | None = None,
+                 engine: str = "sharded", sweep: str = "pull",
+                 max_local_iters: int = 64, max_rounds: int = 10_000,
                  max_cache_entries: int | None = None):
         self._check_engine(engine)
+        _check_sweep(sweep)
         if max_cache_entries is not None and max_cache_entries < 1:
             raise ValueError("max_cache_entries must be >= 1 (or None "
                              "for an unbounded cache)")
         self.part = part
+        self._ns = ns                # built on first mutation
         self.engine = engine
         self.sweep = sweep
         self.max_local_iters = max_local_iters
@@ -91,6 +132,7 @@ class DiffusionSession:
         # reinsert); evicted entries recompute on their next query
         self.max_cache_entries = max_cache_entries
         self._cache: dict[tuple, _Entry] = {}
+        self._pending: UpdateBatch | None = None
 
     @staticmethod
     def _check_engine(engine: str):
@@ -129,6 +171,13 @@ class DiffusionSession:
         return self.part.sg
 
     @property
+    def ns(self) -> NameServer:
+        """The global namespace (built on first mutation/resolution)."""
+        if self._ns is None:
+            self._ns = NameServer(self.part)
+        return self._ns
+
+    @property
     def device(self) -> torch.device:
         return self.sg.device
 
@@ -139,13 +188,24 @@ class DiffusionSession:
     @property
     def n_ids(self) -> int:
         """Size of the global id space."""
+        if self._ns is not None:
+            return int(self._ns.owner.shape[0])
         return int(self.part.owner.shape[0])
+
+    def _layout(self):
+        """(owner, local) id maps as device index tensors — the name
+        server's once it exists (it grows with ``add_vertex``)."""
+        if self._ns is None:
+            return self.part.owner.long(), self.part.local.long()
+        dev = self.device
+        return (torch.from_numpy(self._ns.owner).to(dev).long(),
+                torch.from_numpy(self._ns.local).to(dev).long())
 
     def to_global(self, values) -> np.ndarray:
         """[S, Np] shard layout -> [n_ids] gid order, on the host.  Dead
         ids may alias a live vertex's value — mask with :meth:`live_ids`."""
-        return values[self.part.owner.long(),
-                      self.part.local.long()].cpu().numpy()
+        owner, local = self._layout()
+        return values[owner, local].cpu().numpy()
 
     def live_ids(self) -> np.ndarray:
         """[n_ids] bool: ids currently naming a live vertex."""
@@ -168,8 +228,15 @@ class DiffusionSession:
     # queries
     # ------------------------------------------------------------------
 
-    def _key(self, name: str, engine: str, kwargs: dict) -> tuple:
-        return (name, engine, freeze_kwargs(kwargs))
+    def _key(self, name: str, engine: str, kwargs: dict,
+             sweep: str = "pull") -> tuple:
+        # sweep variants are bitwise-identical fixed points, but they key
+        # separately so a caller can hold both warm; pull keys keep the
+        # plain shape
+        key = (name, engine, freeze_kwargs(kwargs))
+        if sweep != "pull":
+            key = key + (("sweep", sweep),)
+        return key
 
     def _cache_get(self, key) -> _Entry | None:
         """Cache lookup that refreshes recency."""
@@ -213,16 +280,15 @@ class DiffusionSession:
         "pagerank", "widest", "reach"), a handle or bound query from
         :func:`~.programs.diffusive`, or a raw :class:`VertexProgram`
         (then ``value_key`` selects the result field).  Fixed points are
-        cached per (program, kwargs); ``refresh=True`` recomputes.
+        cached per (program, kwargs, sweep) and repaired by ``commit()``;
+        ``refresh=True`` recomputes.  ``sweep`` ("pull" | "push" |
+        "auto") picks the direction; all give the same bits.
         """
         engine = engine or self.engine
+        explicit_sweep = sweep
         sweep = sweep or self.sweep
         self._check_engine(engine)
-        if sweep not in RELAX_SWEEPS:
-            raise ValueError(f"sweep must be one of {RELAX_SWEEPS}, "
-                             f"got {sweep!r}")
-        if sweep != "pull":
-            _later(f"sweep={sweep!r}", "push/auto sweeps (K3)")
+        _check_sweep(sweep)
         if delta is not None:
             _later("delta-stepping (delta=)", "gate/watchdog")
         spec, name, kwargs, adhoc = self._resolve(prog, kwargs)
@@ -239,27 +305,34 @@ class DiffusionSession:
         if lane_kw and lane_kw in kwargs:
             _later(f"multi-query lanes ({lane_kw}=[...])", "lanes")
 
-        key = self._key(name, engine, kwargs)
+        key = self._key(name, engine, kwargs, sweep)
         if not refresh:
             hit = self._cache_get(key)
             if hit is not None:
                 return self._result(hit)
         program = adhoc if adhoc is not None else spec.factory(**kwargs)
-        vstate, stats = self._run_diffusion(program)
-        entry = _Entry(program, value_key or spec.value_key, vstate, stats)
+        vstate, stats = self._run_diffusion(program, sweep)
+        entry = _Entry(spec, program, value_key or spec.value_key, vstate,
+                       stats, sweep=explicit_sweep)
         self._cache_put(key, entry)
-        if not bool(stats.converged):
-            warnings.warn(
-                f"query {name!r} exhausted max_rounds={self.max_rounds} "
-                f"before quiescence — the fixed point is PARTIAL")
+        self._warn_budget(stats, f"query {name!r}")
         return self._result(entry)
 
-    def _run_diffusion(self, program: VertexProgram):
-        # a sum-combine program must see compacted streams; persist the
-        # compaction so later queries reuse it
+    def _warn_budget(self, stats, context: str):
+        if not bool(stats.converged):
+            warnings.warn(
+                f"{context} exhausted max_rounds={self.max_rounds} before "
+                f"quiescence — the fixed point is PARTIAL")
+
+    def _compact_for(self, program: VertexProgram):
+        """A sum-combine program must see compacted streams; persist the
+        compaction so later queries and repairs reuse it."""
         self.part.sg = exact_streams_for(self.sg, program)
+
+    def _run_diffusion(self, program: VertexProgram, sweep: str = "pull"):
+        self._compact_for(program)
         return diffuse(self.sg, program, max_local_iters=self.max_local_iters,
-                       max_rounds=self.max_rounds)
+                       max_rounds=self.max_rounds, sweep=sweep)
 
     def _result(self, entry: _Entry) -> Result:
         values = self.to_global(entry.vstate[entry.value_key])
@@ -268,9 +341,23 @@ class DiffusionSession:
         extra["live"] = self.live_ids()
         return Result(values=values, stats=entry.stats, extra=extra)
 
-    def vertex_state(self, name: str, engine: str | None = None, **kwargs):
+    def adopt(self, name: str, vstate, stats=None, engine: str = "sharded",
+              sweep: str | None = None, **kwargs) -> tuple:
+        """Register an existing fixed point with the session so commit()
+        repairs it; returns the cache key."""
+        self._check_engine(engine)
+        spec = PROGRAMS[name]
+        key = self._key(name, engine, kwargs, sweep or self.sweep)
+        self._cache_put(key, _Entry(spec, spec.factory(**kwargs),
+                                    spec.value_key, vstate, stats,
+                                    sweep=sweep))
+        return key
+
+    def vertex_state(self, name: str, engine: str | None = None,
+                     sweep: str | None = None, **kwargs):
         """The cached [S, Np]-layout vertex-state dict of a query."""
-        key = self._key(name, engine or self.engine, kwargs)
+        key = self._key(name, engine or self.engine, kwargs,
+                        sweep or self.sweep)
         entry = self._cache_get(key)
         if entry is None:
             raise KeyError(
@@ -282,13 +369,17 @@ class DiffusionSession:
     def peek(self, u: int, prog="sssp", **kwargs) -> torch.Tensor:
         """The paper's peek primitive: u's per-out-edge neighbour values of
         a cached program's result ([Ep], NaN on other slots)."""
+        from .dynamic import peek as _peek
+
         engine = kwargs.pop("engine", None) or self.engine
+        sweep_kw = kwargs.pop("sweep", None)
+        sweep = sweep_kw or self.sweep
         spec, name, kwargs, adhoc = self._resolve(prog, kwargs)
         if adhoc is not None or spec.run_fn is not None:
             raise ValueError(
                 "peek reads a cached vertex state of a registered diffusive "
                 "program")
-        key = self._key(name, engine, kwargs)
+        key = self._key(name, engine, kwargs, sweep)
         if key not in self._cache:
             # the unique cached variant of this program serves a plain
             # peek instead of paying a fresh diffusion
@@ -298,40 +389,209 @@ class DiffusionSession:
             if len(same) == 1:
                 key = same[0]
             else:
-                self.query(name, engine=engine, **kwargs)
+                self.query(name, engine=engine, sweep=sweep_kw, **kwargs)
         entry = self._cache_get(key)
-        values = entry.vstate[entry.value_key]
+        return _peek(self.sg, entry.vstate[entry.value_key], self.ns, u)
+
+    # ------------------------------------------------------------------
+    # the seven primitives, batched
+    # ------------------------------------------------------------------
+
+    def update(self) -> UpdateBatch:
+        """The pending mutation batch (created lazily)."""
+        if self._pending is None:
+            self._pending = UpdateBatch(self.ns)
+        return self._pending
+
+    def add_vertex(self, shard: int | None = None) -> int:
+        return self.update().add_vertex(shard)
+
+    def delete_vertex(self, gid: int):
+        self.update().delete_vertex(gid)
+        return self
+
+    def add_edge(self, u: int, v: int, w: float = 1.0):
+        self.update().add_edge(u, v, w)
+        return self
+
+    def delete_edge(self, u: int, v: int):
+        self.update().delete_edge(u, v)
+        return self
+
+    def touch(self, gid: int):
+        self.update().touch_vertex(gid)
+        return self
+
+    # ------------------------------------------------------------------
+    # commit: apply the batch + incremental repair
+    # ------------------------------------------------------------------
+
+    def commit(self, max_local_iters: int | None = None) -> CommitInfo:
+        """Apply the pending batch and repair every cached fixed point by
+        frontier re-diffusion (the write-ahead journal of the JAX package
+        belongs to the durability slice)."""
+        return self._commit(max_local_iters)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _commit(self, max_local_iters: int | None = None) -> CommitInfo:
+        mli = max_local_iters or self.max_local_iters
+        t0 = time.perf_counter()
+        if self._pending is None or len(self._pending) == 0:
+            applied = AppliedUpdates((), (), (), (), ())
+        else:
+            self.part.sg, applied = self._pending.apply(self.part.sg)
+            self._pending = None
+        self._sync()
+        t1 = time.perf_counter()
+        repairs = {}
+        for key, entry in list(self._cache.items()):
+            if applied.n_ops == 0:
+                repairs[key] = ("noop", None)
+                continue
+            repairs[key] = self._repair_entry(entry, applied, mli)
+        self._sync()
+        t2 = time.perf_counter()
+        for key, (strategy, stats) in repairs.items():
+            if stats is not None:
+                self._warn_budget(stats, f"commit repair ({strategy}) of "
+                                         f"{key[0]!r}")
+        return CommitInfo(applied=applied, repairs=repairs, apply_s=t1 - t0,
+                          repair_s=t2 - t1)
+
+    def _repair_entry(self, entry: _Entry, applied: AppliedUpdates,
+                      mli: int):
+        strategy = entry.spec.repair
+        if not applied.has_deletes and entry.spec.monotone:
+            strategy = "frontier"
+        elif strategy == "parents" and "parent" not in entry.vstate:
+            strategy = "restart"
+
+        if strategy == "restart":
+            self._compact_for(entry.prog)
+            vstate, stats = diffuse(self.sg, entry.prog, max_local_iters=mli,
+                                    max_rounds=self.max_rounds,
+                                    sweep=entry.sweep or self.sweep)
+            entry.vstate, entry.stats = vstate, stats
+            return ("restart", stats)
+
+        vstate, active = self._warm_state(entry, applied, strategy)
+        # warm repairs resume from a tiny frontier, so they default to the
+        # frontier-compacted push sweep (an explicit query sweep wins)
+        vstate, stats = diffuse_from(self.sg, entry.prog, vstate, active,
+                                     max_local_iters=mli,
+                                     max_rounds=self.max_rounds,
+                                     sweep=entry.sweep or "push")
+        entry.vstate, entry.stats = vstate, stats
+        return (strategy, stats)
+
+    # -- repair state builders -------------------------------------------
+
+    def _slots(self, gids) -> tuple[torch.Tensor, torch.Tensor]:
+        pairs = [self.ns.resolve(g) for g in gids]
+        dev = self.device
+        s = torch.tensor([p[0] for p in pairs], dtype=torch.long, device=dev)
+        l = torch.tensor([p[1] for p in pairs], dtype=torch.long, device=dev)
+        return s, l
+
+    def _splice_init(self, entry: _Entry, vstate, gids):
+        """Reset the given vertices' state to the program's init values
+        (fresh slots may hold stale state from a deleted occupant)."""
+        if not gids:
+            return vstate
+        init_v, _ = entry.prog.init(self.sg)
+        s, l = self._slots(gids)
+        out = {}
+        for k, cur in vstate.items():
+            cur = cur.clone()
+            cur[s, l] = init_v[k][s, l]
+            out[k] = cur
+        return out
+
+    def _base_frontier(self, applied: AppliedUpdates):
+        """Insert source endpoints + touched + newly added vertices."""
         sg = self.sg
-        su = int(self.part.owner_np[u])
-        lu = int(self.part.local_np[u])
-        mine = (sg.src_local[su] == lu) & sg.edge_ok[su]
-        nb = values[sg.dst_shard[su].long(), sg.dst_local[su].long()]
-        return torch.where(mine, nb.to(torch.float32), float("nan"))
+        active = torch.zeros((sg.n_shards, sg.n_per_shard), dtype=torch.bool,
+                             device=sg.device)
+        gids = ([u for u, _, _ in applied.edge_adds]
+                + list(applied.touched)
+                + [g for g, _, _ in applied.vertex_adds])
+        if gids:
+            s, l = self._slots(gids)
+            active[s, l] = True
+        return active & sg.node_ok
+
+    def _at(self, values, gids) -> np.ndarray:
+        """``values`` [S, Np] at the given gids, in one host read."""
+        s, l = self._slots(gids)
+        return values[s, l].cpu().numpy()
+
+    def _warm_state(self, entry: _Entry, applied: AppliedUpdates,
+                    strategy: str):
+        sg = self.sg
+        vstate = entry.vstate
+        # new vertices (and reused slots) start from init state
+        fresh = [g for g, _, _ in applied.vertex_adds]
+        vstate = self._splice_init(entry, vstate, fresh)
+        active = self._base_frontier(applied)
+
+        if strategy == "frontier":
+            return vstate, active
+
+        if strategy == "parents":
+            # roots: deleted tree edges + orphans of deleted vertices
+            parent = vstate["parent"]
+            roots = []
+            dead = set(applied.vertex_deletes)
+            if applied.edge_deletes:
+                par_v = self._at(parent, [v for _, v in applied.edge_deletes])
+                roots = [v for (u, v), p in zip(applied.edge_deletes, par_v)
+                         if int(p) == u]
+            if dead:
+                par_np = self.to_global(parent)
+                orphan = np.isin(par_np, np.fromiter(dead, np.int64))
+                orphan[np.fromiter(dead, np.int64)] = False
+                roots += np.flatnonzero(orphan).tolist()
+            dist = vstate["dist"]
+            parent_a = parent
+            if roots or dead:
+                all_roots = list(dict.fromkeys(roots)) + list(dead)
+                invalid = _invalidate_subtrees(self.part, self.ns, vstate,
+                                               all_roots)
+                dist = torch.where(invalid, float("inf"), dist)
+                parent_a = torch.where(invalid, -1, parent_a)
+                # every still-finite vertex re-emits once; receivers'
+                # predicates discard non-improvements
+                active = active | (torch.isfinite(dist) & sg.node_ok)
+            out = dict(vstate)
+            out["dist"], out["parent"] = dist, parent_a
+            return out, active
+
+        if strategy == "component":
+            comp = vstate[entry.value_key]
+            ends = [g for e in applied.edge_deletes for g in e]
+            ends += list(applied.vertex_deletes)
+            affected = sorted({int(c) for c in self._at(comp, ends)}) \
+                if ends else []
+            if affected:
+                init_v, _ = entry.prog.init(sg)
+                aff = torch.isin(comp, torch.tensor(affected, dtype=comp.dtype,
+                                                    device=comp.device))
+                comp = torch.where(aff, init_v[entry.value_key], comp)
+                # all live vertices re-emit so cross-component inflow
+                # re-arrives; min-combine discards non-improvements
+                active = active | sg.node_ok
+            out = dict(vstate)
+            out[entry.value_key] = comp
+            return out, active
+
+        raise ValueError(f"unknown repair strategy {strategy!r}")
 
     # ------------------------------------------------------------------
     # later slices
     # ------------------------------------------------------------------
-
-    def update(self):
-        _later("mutation batches", "commit")
-
-    def add_vertex(self, shard: int | None = None):
-        _later("add_vertex", "commit")
-
-    def delete_vertex(self, gid: int):
-        _later("delete_vertex", "commit")
-
-    def add_edge(self, u: int, v: int, w: float = 1.0):
-        _later("add_edge", "commit")
-
-    def delete_edge(self, u: int, v: int):
-        _later("delete_edge", "commit")
-
-    def touch(self, gid: int):
-        _later("touch", "commit")
-
-    def commit(self, max_local_iters: int | None = None):
-        _later("commit()", "commit")
 
     def save(self, directory: str | None = None):
         _later("save()", "durability")

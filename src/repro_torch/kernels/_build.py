@@ -1,6 +1,7 @@
 """Build helper for the port's hand-written CUDA kernels.
 
-Each kernel library is one ``.cu`` source with a plain C entry point,
+Each kernel library is one ``.cu`` source (it may include ``.cuh``
+headers beside it) with plain C entry points,
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library and
 loaded with :mod:`ctypes` — no PyTorch headers, so a build takes seconds.
 Libraries are built at first use, all at once (one ``nvcc`` process per
@@ -52,7 +53,10 @@ def _target(name: str, sources) -> Path:
     h = hashlib.sha256()
     for flag in NVCC_FLAGS:
         h.update(flag.encode())
-    for src in sources:
+    # the sources and every header beside them (quoted includes)
+    headers = sorted({hdr for src in sources
+                      for hdr in Path(src).parent.glob("*.cuh")})
+    for src in [*sources, *headers]:
         h.update(Path(src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,0 +1,240 @@
+// The per-block relaxation body shared by K1 (edge_relax_blocks.cu, the
+// dense sweep over every block of the destination-sorted stream) and K3
+// (edge_relax_push_blocks.cu, the push sweep over a compacted list of
+// blocks of the source-sorted stream).  Each including file defines its own
+// extern "C" entry point; this header defines nothing outside an anonymous
+// namespace.
+//
+// One CTA of 128 threads per (block slot, cell).  Each thread loads its
+// key/src (and weight where the emit form reads it), gathers senders[src]
+// and the emit field at src from the cell's vertex block (L2-resident in
+// place of the TPU's pinned VMEM copy), applies the templated emit form and
+// the send/validity mask, and the block then:
+//   * ranks the runs of equal adjacent keys with warp ballots + popc and a
+//     4-entry cross-warp prefix (dense rank = the one-hot column of the
+//     TPU kernel).  Ranks come from `key != prev` alone, never from
+//     sortedness: a push block (source-sorted) or a staged delta block may
+//     hold one destination in several runs, which phase 2's order-free
+//     min/max scatter merges;
+//   * reduces each run serially in the thread that starts it (min/max are
+//     order-free, so the result is bitwise the plain version's), writing
+//     column `rank`; columns past the last run get identity/0/-1/-1.
+//
+// PUSH = false: block slot x of cell s is block x of the stream.
+// PUSH = true:  block slot x reads idx[s * gridDim.x + x] and sweeps block
+//               min(idx, nb - 1) — a fill slot (idx == nb) recomputes the
+//               last block, exactly as the TPU kernel's clamped index map
+//               does; the caller neutralises fill slots afterwards.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cmath>
+
+namespace {
+
+constexpr int kBlockE = 128;
+constexpr int kWarps = kBlockE / 32;
+
+enum EmitForm : int { kAddWeight = 0, kAddConst = 1, kCopy = 2, kMinWeight = 3 };
+
+template <typename T, bool MAX>
+struct Combine;
+
+template <>
+struct Combine<float, false> {
+  static __device__ __forceinline__ float ident() { return INFINITY; }
+  static __device__ __forceinline__ float op(float a, float b) { return fminf(a, b); }
+};
+template <>
+struct Combine<float, true> {
+  static __device__ __forceinline__ float ident() { return -INFINITY; }
+  static __device__ __forceinline__ float op(float a, float b) { return fmaxf(a, b); }
+};
+template <>
+struct Combine<int, false> {
+  static __device__ __forceinline__ int ident() { return INT_MAX; }
+  static __device__ __forceinline__ int op(int a, int b) { return min(a, b); }
+};
+template <>
+struct Combine<int, true> {
+  static __device__ __forceinline__ int ident() { return INT_MIN; }
+  static __device__ __forceinline__ int op(int a, int b) { return max(a, b); }
+};
+
+template <typename T, bool MAX, int EMIT, bool PAY, bool PUSH>
+__global__ void __launch_bounds__(kBlockE)
+blocks_kernel(const T* __restrict__ field, const bool* __restrict__ senders,
+              const int* __restrict__ gid, const int* __restrict__ key,
+              const int* __restrict__ src, const float* __restrict__ weight,
+              const int* __restrict__ idx, T* __restrict__ part,
+              int* __restrict__ cnt, int* __restrict__ uniq,
+              int* __restrict__ pay, int np, int nb, long long stride,
+              float emit_const) {
+  using C = Combine<T, MAX>;
+  __shared__ int s_key[kBlockE];
+  __shared__ int s_rank[kBlockE];
+  __shared__ T s_cand[kBlockE];
+  __shared__ int s_send[kBlockE];
+  __shared__ int s_pay[kBlockE];
+  __shared__ int s_warp[kWarps];
+
+  const int t = threadIdx.x;
+  const int cell = blockIdx.y;
+  long long blk = blockIdx.x;
+  if constexpr (PUSH) {
+    blk = min(idx[(long long)cell * gridDim.x + blockIdx.x], nb - 1);
+  }
+  const long long e = cell * stride + blk * kBlockE + t;
+  const long long vbase = (long long)cell * np;
+
+  const int k = key[e];
+  const bool valid = k >= 0;
+  bool send = false;
+  T cand = C::ident();
+  int p = -1;
+  if (valid) {
+    const long long v = vbase + src[e];
+    send = senders[v];
+    if (send) {
+      const T x = field[v];
+      if constexpr (EMIT == kAddWeight) {
+        cand = x + weight[e];
+      } else if constexpr (EMIT == kAddConst) {
+        cand = x + emit_const;
+      } else if constexpr (EMIT == kMinWeight) {
+        cand = fminf(x, weight[e]);
+      } else {
+        cand = x;
+      }
+      if constexpr (PAY) p = gid[v];
+    }
+  }
+  s_key[t] = k;
+  s_cand[t] = cand;
+  s_send[t] = send ? 1 : 0;
+  s_pay[t] = p;
+  __syncthreads();
+
+  // dense rank of the run each valid element belongs to
+  const bool new_seg = valid && (t == 0 || k != s_key[t - 1]);
+  const unsigned ball = __ballot_sync(0xffffffffu, new_seg);
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (lane == 0) s_warp[warp] = __popc(ball);
+  __syncthreads();
+  int before = 0, runs = 0;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) {
+    const int c = s_warp[i];
+    before += (i < warp) ? c : 0;
+    runs += c;
+  }
+  const unsigned le = (2u << lane) - 1u;  // lanes 0..lane
+  const int rank = valid ? before + __popc(ball & le) - 1 : -1;
+  s_rank[t] = rank;
+  __syncthreads();
+
+  const long long ob = ((long long)cell * gridDim.x + blockIdx.x) * kBlockE;
+  if (new_seg) {
+    T acc = cand;
+    int c = s_send[t];
+    int j = t + 1;
+    while (j < kBlockE && s_rank[j] == rank) {
+      acc = C::op(acc, s_cand[j]);
+      c += s_send[j];
+      ++j;
+    }
+    part[ob + rank] = acc;
+    cnt[ob + rank] = c;
+    uniq[ob + rank] = k;
+    if constexpr (PAY) {
+      int best = -1;
+      for (int i = t; i < j; ++i) {
+        if (s_send[i] && s_cand[i] == acc) best = max(best, s_pay[i]);
+      }
+      pay[ob + rank] = best;
+    }
+  }
+  if (t >= runs) {
+    part[ob + t] = C::ident();
+    cnt[ob + t] = 0;
+    uniq[ob + t] = -1;
+    if constexpr (PAY) pay[ob + t] = -1;
+  }
+}
+
+// The launch arguments of one sweep.  The grid is (slots, n_cells): slots =
+// width / 128 for the dense sweep, cap for the push sweep.
+struct BlockArgs {
+  const void* field;
+  const bool* senders;
+  const int* gid;
+  const int* key;
+  const int* src;
+  const float* weight;
+  const int* idx;
+  void* part;
+  int* cnt;
+  int* uniq;
+  int* pay;
+  int n_cells;
+  int np;
+  int nb;
+  long long slots;
+  long long stride;
+  float emit_const;
+  cudaStream_t stream;
+};
+
+template <typename T, bool MAX, int EMIT, bool PAY, bool PUSH>
+cudaError_t launch(const BlockArgs& a) {
+  const dim3 grid((unsigned)a.slots, (unsigned)a.n_cells);
+  blocks_kernel<T, MAX, EMIT, PAY, PUSH><<<grid, kBlockE, 0, a.stream>>>(
+      static_cast<const T*>(a.field), a.senders, a.gid, a.key, a.src,
+      a.weight, a.idx, static_cast<T*>(a.part), a.cnt, a.uniq, a.pay, a.np,
+      a.nb, a.stride, a.emit_const);
+  return cudaGetLastError();
+}
+
+template <typename T, int EMIT, bool PUSH>
+cudaError_t dispatch_comb(int combine_max, int with_payload,
+                          const BlockArgs& a) {
+  if (combine_max) {
+    if (with_payload) return launch<T, true, EMIT, true, PUSH>(a);
+    return launch<T, true, EMIT, false, PUSH>(a);
+  }
+  if (with_payload) return launch<T, false, EMIT, true, PUSH>(a);
+  return launch<T, false, EMIT, false, PUSH>(a);
+}
+
+// msg_is_int selects int32 messages (only the copy form); emit_form is an
+// EmitForm.  Returns a cudaError_t.
+template <bool PUSH>
+int dispatch(int msg_is_int, int combine_max, int emit_form, int with_payload,
+             const BlockArgs& a) {
+  if (msg_is_int) {
+    if (emit_form != kCopy) return (int)cudaErrorInvalidValue;
+    return (int)dispatch_comb<int, kCopy, PUSH>(combine_max, with_payload, a);
+  }
+  switch (emit_form) {
+    case kAddWeight:
+      return (int)dispatch_comb<float, kAddWeight, PUSH>(combine_max,
+                                                         with_payload, a);
+    case kAddConst:
+      return (int)dispatch_comb<float, kAddConst, PUSH>(combine_max,
+                                                        with_payload, a);
+    case kCopy:
+      return (int)dispatch_comb<float, kCopy, PUSH>(combine_max, with_payload,
+                                                    a);
+    case kMinWeight:
+      return (int)dispatch_comb<float, kMinWeight, PUSH>(combine_max,
+                                                         with_payload, a);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace

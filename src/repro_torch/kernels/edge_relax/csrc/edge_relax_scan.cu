@@ -26,6 +26,14 @@
 // in-tile tree keeps the partial sums in shared memory; pass (b) reads one
 // aggregate per tile and pass (c) touches only the leading open runs.
 //
+// Input modes (template flag PRE of scan_tiles, same tile/tree/carry
+// order, so each is bitwise ref.stream_scan of its messages):
+//   * emit (edge_relax_scan_launch): gathers senders/residual/deg at src
+//     and computes push_share itself — the dense pull sweep;
+//   * pre-emitted (edge_relax_scan_pre_launch): reads the message and send
+//     streams (cand f32, send bool, [S, E]) that the push sweep scattered
+//     back into the destination-sorted layout (ref.edge_relax_push_stream).
+//
 // Compile without fast math: push_share's division must be IEEE.
 
 #include <cuda_runtime.h>
@@ -34,14 +42,16 @@ namespace {
 
 constexpr int kTile = 1024;
 
+template <bool PRE>
 __global__ void __launch_bounds__(kTile)
 scan_tiles(const float* __restrict__ residual, const float* __restrict__ deg,
            const bool* __restrict__ senders, const int* __restrict__ key,
            const int* __restrict__ skey, const int* __restrict__ src,
+           const float* __restrict__ cand, const bool* __restrict__ send,
            float* __restrict__ v_out, int* __restrict__ c_out,
            float* __restrict__ agg_v, int* __restrict__ agg_c,
-           int* __restrict__ first, int np, long long stride, int es,
-           float scale) {
+           int* __restrict__ first, int np, long long stride,
+           long long msg_stride, int es, float scale) {
   __shared__ float sv[kTile];
   __shared__ int sc[kTile];
   __shared__ int sf[kTile];
@@ -59,7 +69,11 @@ scan_tiles(const float* __restrict__ residual, const float* __restrict__ deg,
   int f = 1;  // padding past the region counts as a run start
   if (i < es) {
     f = (i == 0) || (skey[e] != skey[e - 1]);
-    if (key[e] >= 0) {
+    if constexpr (PRE) {
+      const long long m = cell * msg_stride + i;
+      v = cand[m];
+      c = send[m] ? 1 : 0;
+    } else if (key[e] >= 0) {
       const long long vb = (long long)cell * np + src[e];
       if (senders[vb]) {
         v = (scale * residual[vb]) / deg[vb];
@@ -165,6 +179,32 @@ apply_carry(float* __restrict__ v_out, int* __restrict__ c_out,
   }
 }
 
+// The three passes of one scan; scratch agg_v/agg_c/first/carry_v/carry_c
+// is [S, ceil(es / 1024)].
+template <bool PRE>
+int scan_passes(const float* residual, const float* deg, const bool* senders,
+                const int* key, const int* skey, const int* src,
+                const float* cand, const bool* send, float* v_out, int* c_out,
+                float* agg_v, int* agg_c, int* first, float* carry_v,
+                int* carry_c, int n_cells, int np, long long stride,
+                long long msg_stride, int es, float scale, cudaStream_t s) {
+  if (n_cells <= 0 || es < 0) return (int)cudaErrorInvalidValue;
+  if (es == 0) return 0;
+  const int nt = (es + kTile - 1) / kTile;
+  const dim3 grid((unsigned)nt, (unsigned)n_cells);
+  scan_tiles<PRE><<<grid, kTile, 0, s>>>(
+      residual, deg, senders, key, skey, src, cand, send, v_out, c_out, agg_v,
+      agg_c, first, np, stride, msg_stride, es, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  carry<<<n_cells, 32, 0, s>>>(agg_v, agg_c, first, carry_v, carry_c, nt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  apply_carry<<<grid, kTile, 0, s>>>(v_out, c_out, carry_v, carry_c, first,
+                                     es);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns a cudaError_t (0 = launched).  Inputs key/skey/src are [S, stride]
@@ -177,20 +217,22 @@ extern "C" int edge_relax_scan_launch(
     float* agg_v, int* agg_c, int* first, float* carry_v, int* carry_c,
     int n_cells, int np, long long stride, int es, float scale,
     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_cells <= 0 || es < 0) return (int)cudaErrorInvalidValue;
-  if (es == 0) return 0;
-  const int nt = (es + kTile - 1) / kTile;
-  const dim3 grid((unsigned)nt, (unsigned)n_cells);
-  scan_tiles<<<grid, kTile, 0, s>>>(residual, deg, senders, key, skey, src,
-                                    v_out, c_out, agg_v, agg_c, first, np,
-                                    stride, es, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  carry<<<n_cells, 32, 0, s>>>(agg_v, agg_c, first, carry_v, carry_c, nt);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  apply_carry<<<grid, kTile, 0, s>>>(v_out, c_out, carry_v, carry_c, first,
-                                     es);
-  return (int)cudaGetLastError();
+  return scan_passes<false>(residual, deg, senders, key, skey, src, nullptr,
+                            nullptr, v_out, c_out, agg_v, agg_c, first,
+                            carry_v, carry_c, n_cells, np, stride, 0, es,
+                            scale, static_cast<cudaStream_t>(stream));
+}
+
+// The pre-emitted mode: cand [S, msg_stride] f32 and send [S, msg_stride]
+// bool rows (the first `es` scanned) replace the emit; skey is [S, stride]
+// rows as above.  Same outputs and scratch as edge_relax_scan_launch.
+extern "C" int edge_relax_scan_pre_launch(
+    const float* cand, const bool* send, const int* skey, float* v_out,
+    int* c_out, float* agg_v, int* agg_c, int* first, float* carry_v,
+    int* carry_c, int n_cells, long long stride, long long msg_stride, int es,
+    void* stream) {
+  return scan_passes<true>(nullptr, nullptr, nullptr, nullptr, skey, nullptr,
+                           cand, send, v_out, c_out, agg_v, agg_c, first,
+                           carry_v, carry_c, n_cells, 0, stride, msg_stride,
+                           es, 0.0f, static_cast<cudaStream_t>(stream));
 }

@@ -11,6 +11,8 @@ return the combined per-destination message table over the flat key space
 
 Min/max programs take the blocked kernel K1 and a cross-block scatter;
 sum programs take the fixed-order scan kernel K2 and the run-end gather.
+The frontier-compacted push sweep (:func:`edge_relax_push`) takes K3 and
+the same scatter for min/max, and K2's pre-emitted mode for sum.
 Phase 2 is plain torch, as the JAX package also runs it outside its Pallas
 kernels.  Which of each kernel or its plain version runs follows the
 tensors' device (see kernel.py).
@@ -21,15 +23,22 @@ from __future__ import annotations
 import torch
 
 from ...core.msg import segment_combine
-from .kernel import edge_relax_blocks, edge_relax_scan
+from .kernel import (
+    edge_relax_blocks,
+    edge_relax_push_blocks,
+    edge_relax_scan,
+    edge_relax_scan_pre,
+)
 from .ref import (
+    compact_push_blocks,
     delta_tables,
     edge_messages,
+    edge_relax_push_stream,
     gather_runs,
     merge_tables,
 )
 
-__all__ = ["edge_relax"]
+__all__ = ["edge_relax", "edge_relax_push"]
 
 
 def _combine_blocks(part, cnt, uniq, pay, n_keys: int, combine: str):
@@ -81,4 +90,48 @@ def edge_relax(prog, vstate, senders, gid, key, src, weight, dst_gid,
         return out
     part, cnt, uniq, pay = edge_relax_blocks(
         prog, vstate, senders, gid, key, src, weight, dst_gid, block_e)
+    return _combine_blocks(part, cnt, uniq, pay, n_keys, prog.combine)
+
+
+def _mask_fill_blocks(part, cnt, uniq, pay, valid):
+    """Neutralize the fill slots of a compaction bucket (``cap`` above a
+    cell's active count: they recomputed the last block, whose
+    contribution must not repeat): keys off-range and counts zero, so the
+    phase-2 scatter drops them."""
+    v = valid[..., None]
+    uniq = torch.where(v, uniq, -1)
+    cnt = torch.where(v, cnt, 0)
+    if pay is not None:
+        pay = torch.where(v, pay, -1)
+    return part, cnt, uniq, pay
+
+
+def edge_relax_push(prog, vstate, senders, gid, sg_push, csr_key,
+                    n_keys: int, block_e: int, cap: int, skey=None,
+                    delta_e: int = 0):
+    """Frontier-compacted push sweep of every cell — the sparse twin of
+    :func:`edge_relax`, same (table, cnt, pay) contract.
+
+    ``sg_push`` holds the full-width source-sorted streams
+    (``ShardedGraph.push_view``); ``cap`` is the compaction bucket and
+    must bound every cell's active-block count.  Min/max programs run K3
+    over the compacted blocks, mask the fill slots and take the shared
+    phase-2 scatter; sum programs scatter their compacted messages back
+    into the destination-sorted layout of ``csr_key`` and scan it with
+    K2's pre-emitted mode (``ref.edge_relax_push_stream``)."""
+    if senders.ndim != csr_key.ndim:
+        raise NotImplementedError(
+            "lane-stacked vertex blocks arrive with the lanes slice")
+    if prog.combine == "sum":
+        return edge_relax_push_stream(
+            prog, vstate, senders, gid, sg_push, csr_key, n_keys, block_e,
+            cap, skey=skey, delta_e=delta_e, scan=edge_relax_scan_pre)
+    with torch.profiler.record_function("repro_torch.push_compaction"):
+        idx, valid = compact_push_blocks(senders, sg_push["push_src"],
+                                         block_e, cap)
+    part, cnt, uniq, pay = edge_relax_push_blocks(
+        prog, vstate, senders, gid, sg_push["push_key"],
+        sg_push["push_src"], sg_push["push_weight"],
+        sg_push["push_dst_gid"], idx, block_e)
+    part, cnt, uniq, pay = _mask_fill_blocks(part, cnt, uniq, pay, valid)
     return _combine_blocks(part, cnt, uniq, pay, n_keys, prog.combine)

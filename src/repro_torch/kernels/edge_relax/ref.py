@@ -18,7 +18,12 @@ along that dimension instead of ``vmap``-ing them.
   the JAX package's ``lax.associative_scan`` tree a float sum agrees only
   to rounding.
 * :func:`gather_runs`, :func:`delta_tables`, :func:`merge_tables`,
-  :func:`flat_combine` — the phase-2 combines shared by both.
+  :func:`flat_combine`, :func:`stream_combine` — the phase-2 combines
+  shared by both.
+* :func:`compact_push_blocks`, :func:`push_gather`,
+  :func:`edge_relax_push_blocks_ref` (the plain version of K3,
+  ``edge_relax_push_blocks``) and :func:`edge_relax_push_stream` — the
+  frontier-compacted push sweep over the source-sorted stream.
 """
 
 from __future__ import annotations
@@ -38,6 +43,11 @@ __all__ = [
     "gather_runs",
     "delta_tables",
     "merge_tables",
+    "stream_combine",
+    "compact_push_blocks",
+    "push_gather",
+    "edge_relax_push_blocks_ref",
+    "edge_relax_push_stream",
 ]
 
 # Tile width of the scan's fixed association order (one CUDA thread block).
@@ -51,12 +61,14 @@ def _take(a, idx):
 def edge_messages(prog, vstate, senders, gid, key, src, weight, dst_gid):
     """Gather + emit along the destination-sorted edge stream: per edge,
     gather the source vertex state, run the program's ``emit``, and mask
-    non-sending / dead (``key < 0``) edges to the monoid identity.
+    non-sending / dead (``key < 0``) edges to the monoid identity.  A
+    dead position's ``src`` may be ``-1`` (the push stream's sentinel):
+    it gathers slot 0, and the key masks the result.
 
     Returns (cand [..., E] msg_dtype, send [..., E] bool,
     pay [..., E] int32 | None).
     """
-    idx = src.long()
+    idx = src.long().clamp(min=0)
     src_state = {k: _take(v, idx) for k, v in vstate.items()}
     src_gid = _take(gid, idx)
     send = _take(senders, idx) & (key >= 0)
@@ -245,3 +257,128 @@ def merge_tables(prog, a, b):
         pay = torch.maximum(torch.where((t1 == table) & (c1 > 0), p1, -1),
                             torch.where((t2 == table) & (c2 > 0), p2, -1))
     return table, cnt, pay
+
+
+def stream_combine(prog, cand, send, pay, key, skey, n_keys: int,
+                   delta_e: int, scan=stream_scan):
+    """The sorted-region/delta-segment split of a full-width message
+    stream: the segmented ``scan`` (:func:`stream_scan`, or K2's
+    pre-emitted mode on the card) + :func:`gather_runs` over
+    ``[..., :es]`` against the structural ``skey``, with the staged delta
+    segment (``delta_e`` trailing positions, unsorted) folded in through
+    :func:`delta_tables` and merged by the monoid."""
+    es = key.shape[-1] - delta_e
+    sl = lambda a: None if a is None else a[..., :es]
+    scanned = scan(prog.monoid, cand[..., :es], send[..., :es],
+                   skey[..., :es], sl(pay))
+    out = gather_runs(scanned, skey[..., :es], n_keys, prog.monoid,
+                      prog.msg_dtype)
+    if delta_e:
+        dl = lambda a: None if a is None else a[..., es:]
+        out = merge_tables(prog, out, delta_tables(
+            prog, cand[..., es:], send[..., es:], dl(pay), key[..., es:],
+            n_keys))
+    return out
+
+
+# --------------------------------------------------------------------------
+# push (frontier-compacted) sweep — work proportional to the active
+# frontier's out-edge blocks instead of the whole stream
+# --------------------------------------------------------------------------
+
+def compact_push_blocks(senders, push_src, block_e: int, cap: int):
+    """Compact each cell's frontier out-edge blocks to ``cap`` slots.
+
+    The push stream is source-sorted, so a block is *active* iff one of
+    its edges' sources sends.  Active block ids compact to the front in
+    ascending order (stable argsort); fill slots carry ``nb``.  ``cap``
+    must bound every cell's active count (the engine picks it from the
+    measured count).  Returns (idx [S, cap] int32, valid [S, cap] bool).
+    """
+    nb = push_src.shape[-1] // block_e
+    ok = push_src >= 0
+    act = torch.gather(senders, -1, push_src.clamp(min=0).long()) & ok
+    blk = act.reshape(act.shape[:-1] + (nb, block_e)).any(dim=-1)
+    order = torch.argsort((~blk).to(torch.int8), dim=-1, stable=True)
+    idx = order[..., :cap]
+    valid = torch.gather(blk, -1, idx)
+    return torch.where(valid, idx, nb).to(torch.int32), valid
+
+
+def _block_positions(idx, nb: int, block_e: int):
+    """[S, cap] block ids -> [S, cap * block_e] stream positions, fill
+    slots (``idx == nb``) clamped to the last block."""
+    base = idx.clamp(0, nb - 1).long()[..., None] * block_e
+    pos = base + torch.arange(block_e, device=idx.device)
+    return pos.reshape(idx.shape[:-1] + (-1,))
+
+
+def push_gather(sg_push, idx, block_e: int):
+    """Gather the compacted blocks' edge streams ([S, cap] block ids ->
+    [S, cap * block_e] element streams).  Fill blocks clamp to the last
+    block and are neutralized by the returned ``valid`` mask, which the
+    key carries too (``-1`` on dead and fill positions)."""
+    nb = sg_push["push_src"].shape[-1] // block_e
+    pos = _block_positions(idx, nb, block_e)
+    g = lambda a: torch.gather(a, -1, pos)
+    src = g(sg_push["push_src"])
+    blk_ok = (idx < nb).repeat_interleave(block_e, dim=-1)
+    valid = blk_ok & (src >= 0)
+    return {
+        "src": src,
+        "key": torch.where(valid, g(sg_push["push_key"]), -1),
+        "weight": g(sg_push["push_weight"]),
+        "dst_gid": g(sg_push["push_dst_gid"]),
+        "pos": g(sg_push["push_pos"]),
+    }, valid
+
+
+def edge_relax_push_blocks_ref(prog, vstate, senders, gid, key, src, weight,
+                               dst_gid, idx, block_e: int):
+    """Plain version of K3: gather the ``idx`` blocks (``[S, cap]``, fill
+    slots clamped to the last block) of the push streams ``[S, W]``, then
+    the K1 body — :func:`edge_messages` + :func:`block_combine`.  Returns
+    (part, cnt, uniq, pay | None) each ``[S, cap, block_e]``."""
+    nb = key.shape[-1] // block_e
+    pos = _block_positions(idx, nb, block_e)
+    g = lambda a: torch.gather(a, -1, pos)
+    return edge_relax_blocks_ref(prog, vstate, senders, gid, g(key), g(src),
+                                 g(weight), g(dst_gid), block_e)
+
+
+def edge_relax_push_stream(prog, vstate, senders, gid, sg_push, csr_key,
+                           n_keys: int, block_e: int, cap: int, skey=None,
+                           delta_e: int = 0, scan=stream_scan):
+    """Frontier-compacted push sweep for sum programs: compact -> gather
+    -> emit -> scatter the messages back into the destination-sorted
+    stream layout (through ``push_pos``) -> :func:`stream_combine`.
+
+    The rebuilt stream holds the identity wherever no gathered edge sends
+    — what the dense sweep holds there — so the scan's fixed order keeps
+    push bitwise-equal to pull; only the gather/emit work shrinks.  The
+    dense layout is ``csr_key``'s width: positions past it (the empty
+    delta segment of a clean graph, left out of the sweep) and fill
+    positions are dropped.
+    """
+    if skey is None:
+        skey = csr_key
+    idx, _ = compact_push_blocks(senders, sg_push["push_src"], block_e, cap)
+    g, valid = push_gather(sg_push, idx, block_e)
+    cand, send, pay = edge_messages(prog, vstate, senders, gid, g["key"],
+                                    g["src"], g["weight"], g["dst_gid"])
+    e = csr_key.shape[-1]
+    dpos = torch.where(valid & (g["pos"] < e), g["pos"], e).long()
+    ident = prog.monoid.identity(prog.msg_dtype)
+    lead = cand.shape[:-1]
+
+    def scat(fill, v, dtype):
+        # one spare column takes every dropped position
+        full = torch.full(lead + (e + 1,), fill, dtype=dtype,
+                          device=cand.device)
+        return full.scatter_(-1, dpos, v)[..., :e]
+
+    cand_full = scat(ident, cand, prog.msg_dtype)
+    send_full = scat(False, send, torch.bool)
+    pay_full = None if pay is None else scat(-1, pay, torch.int32)
+    return stream_combine(prog, cand_full, send_full, pay_full, csr_key,
+                          skey, n_keys, delta_e, scan=scan)

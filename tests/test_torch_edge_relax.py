@@ -1,6 +1,8 @@
 """The edge_relax kernels' plain versions against the JAX package's Pallas
 kernels (interpret mode) — K1 per block and bitwise, the ops-level sweep,
-K2's scan within a stated tolerance — and the port's own fixed scan order.
+K2's scan within a stated tolerance, K3 (the push sweep's blocks) and the
+frontier compaction bitwise at caps with fill slots — and the port's own
+fixed scan order, which its push sweep reproduces bit for bit.
 
 Tolerance: K2 sums in the port's fixed tile/tree order, not in the order of
 JAX's ``lax.associative_scan``; float32 sums of at most a few hundred
@@ -22,6 +24,7 @@ from repro.kernels.edge_relax import ref as jref
 from repro_torch.core import programs as tprograms
 from repro_torch.core.diffuse import _sg_as_dict as t_sg_as_dict
 from repro_torch.core.graph import ShardedGraph
+from repro_torch.core.relax import active_push_blocks, push_caps, select_bucket
 from repro_torch.kernels.edge_relax import kernel as tkernel
 from repro_torch.kernels.edge_relax import ops as tops
 from repro_torch.kernels.edge_relax import ref as tref
@@ -334,3 +337,130 @@ def test_cuda_refuses_programs_without_kernel_emit():
                           n_keys=tsg.n_shards * tsg.n_per_shard,
                           block_e=128)
     assert out[0].shape == (tsg.n_shards, tsg.n_shards * tsg.n_per_shard)
+
+
+def _push_inputs(jsg, tsg, name, kw, frac, seed=5):
+    """Random state as in :func:`_inputs`, a frontier of ``frac`` of the
+    vertices, and both packages' stream dicts with the push streams."""
+    jprog, tprog, state, _, _, _, tstate, _ = _inputs(jsg, tsg, name, kw,
+                                                      seed)
+    shape = (jsg.n_shards, jsg.n_per_shard)
+    senders = np.random.default_rng(seed + 1).random(shape) < frac
+    return (jprog, tprog, state, senders, j_sg_as_dict(jsg, with_push=True),
+            t_sg_as_dict(tsg, with_push=True), tstate,
+            torch.from_numpy(senders))
+
+
+def _caps(tsend, tsgd):
+    """The ladder rung the engine picks for this frontier, and the full
+    width; at both, cells with fewer active blocks get fill slots."""
+    nb = tsgd["push_src"].shape[-1] // 128
+    count = int(active_push_blocks(tsend, tsgd["push_src"], 128).max())
+    return sorted({push_caps(nb)[select_bucket(count, nb, "push")], nb})
+
+
+PUSH_KEYS = ("push_key", "push_src", "push_weight", "push_dst_gid")
+
+
+# one program per emit form and combine (K3's body is K1's, held against
+# the Pallas kernel for every builtin above)
+K3_CASES = [MINMAX[0], MINMAX[3], MINMAX[5]]
+
+
+@pytest.mark.parametrize("name,kw", K3_CASES, ids=IDS(K3_CASES))
+def test_k3_plain_and_compaction_match_pallas(graphs, name, kw):
+    jsg, tsg = graphs
+    jprog, tprog, state, senders, jsgd, tsgd, tstate, tsend = _push_inputs(
+        jsg, tsg, name, kw, 0.05)
+    n_keys = jsg.n_shards * jsg.n_per_shard
+    nb = tsgd["push_src"].shape[-1] // 128
+    fills = 0
+    for cap in _caps(tsend, tsgd):
+        idx, valid = tref.compact_push_blocks(tsend, tsgd["push_src"], 128,
+                                              cap)
+        fills += int((~valid).sum())
+        args = (tprog, tstate, tsend, tsgd["gid"]) + tuple(
+            tsgd[k] for k in PUSH_KEYS)
+        got = tref.edge_relax_push_blocks_ref(*args, idx, 128)
+        before = dict(tkernel.LAUNCHES)
+        via_wrapper = tkernel.edge_relax_push_blocks(*args, idx)
+        assert tkernel.LAUNCHES == before    # CPU tensors launch nothing
+        for g, v in zip(got, via_wrapper):
+            assert (g is None and v is None) or torch.equal(g, v)
+        tables = tops.edge_relax_push(
+            tprog, tstate, tsend, tsgd["gid"], tsgd, tsgd["csr_key"],
+            n_keys=n_keys, block_e=128, cap=cap, skey=tsgd["csr_skey"],
+            delta_e=tsg.delta_width)
+        pull = tops.edge_relax(
+            *_targs(tprog, tstate, tsend, tsgd), n_keys=n_keys, block_e=128,
+            skey=tsgd["csr_skey"], delta_e=tsg.delta_width)
+        for g, w in zip(tables, pull):
+            assert (g is None and w is None) or torch.equal(g, w)
+        for c in range(jsg.n_shards):
+            jsend = jnp.asarray(senders[c])
+            jidx, jvalid = jref.compact_push_blocks(
+                jsend, jsgd["push_src"][c], 128, cap)
+            assert_bits(idx[c], jidx, "idx")
+            assert_bits(valid[c], jvalid, "valid")
+            jstate = {k: jnp.asarray(v[c]) for k, v in state.items()}
+            want = jkernel.edge_relax_push_blocks(
+                jprog, jstate, jsend, jsgd["gid"][c],
+                *(jsgd[k][c] for k in PUSH_KEYS), jidx, 128, interpret=True)
+            for g, w, what in zip(got, want, ("part", "cnt", "uniq", "pay")):
+                assert (g is None) == (w is None), what
+                if w is not None:       # raw outputs, fill slots included
+                    assert_bits(g[c], w, f"cell {c} {what}")
+            if cap == nb:
+                continue            # the ops-level check runs at the rung
+            jpush = {k: jsgd[k][c] for k in PUSH_KEYS + ("push_pos",)}
+            jt = jops.edge_relax_push(
+                jprog, jstate, jsend, jsgd["gid"][c], jpush,
+                jsgd["csr_key"][c], n_keys=n_keys, block_e=128, cap=cap,
+                backend="pallas", interpret=True, skey=jsgd["csr_skey"][c],
+                delta_e=jsg.delta_width)
+            for g, w in zip(tables, jt):
+                assert (g is None) == (w is None)
+                if w is not None:
+                    assert_bits(g[c], w, f"cell {c} table")
+    assert fills > 0
+
+
+@pytest.mark.parametrize("name,kw", SUMS, ids=IDS(SUMS))
+def test_push_stream_equals_the_pull_scan_bitwise(graphs, name, kw):
+    """The sum programs' push sweep rebuilds the destination-sorted stream
+    and scans it with K2's pre-emitted mode in the same fixed order: the
+    tables equal the pull sweep's bit for bit (and JAX's push sweep within
+    the scan tolerance)."""
+    jsg, tsg = graphs
+    jprog, tprog, state, senders, jsgd, tsgd, tstate, tsend = _push_inputs(
+        jsg, tsg, name, kw, 0.05)
+    n_keys = jsg.n_shards * jsg.n_per_shard
+    pull = tops.edge_relax(
+        *_targs(tprog, tstate, tsend, tsgd), n_keys=n_keys, block_e=128,
+        skey=tsgd["csr_skey"], delta_e=tsg.delta_width)
+    for cap in _caps(tsend, tsgd):
+        before = dict(tkernel.LAUNCHES)
+        push = tops.edge_relax_push(
+            tprog, tstate, tsend, tsgd["gid"], tsgd, tsgd["csr_key"],
+            n_keys=n_keys, block_e=128, cap=cap, skey=tsgd["csr_skey"],
+            delta_e=tsg.delta_width)
+        assert tkernel.LAUNCHES == before
+        assert torch.equal(push[0], pull[0]) and torch.equal(push[1], pull[1])
+    for c in range(jsg.n_shards):            # JAX's push sweep at the rung
+        jpush = {k: jsgd[k][c] for k in PUSH_KEYS + ("push_pos",)}
+        jt, jn, _ = jops.edge_relax_push(
+            jprog, {k: jnp.asarray(v[c]) for k, v in state.items()},
+            jnp.asarray(senders[c]), jsgd["gid"][c], jpush,
+            jsgd["csr_key"][c], n_keys=n_keys, block_e=128,
+            cap=_caps(tsend, tsgd)[0], skey=jsgd["csr_skey"][c],
+            delta_e=jsg.delta_width)
+        assert_bits(pull[1][c], jn, "cnt")
+        np.testing.assert_allclose(np_of(pull[0][c]), np_of(jt), rtol=0,
+                                   atol=SCAN_ATOL)
+    # K2's pre-emitted mode takes the plain scan for CPU tensors
+    cand = torch.rand(3, 700)
+    send = cand > 0.3
+    key = torch.sort(torch.randint(0, 40, (3, 700)), dim=-1)[0].int()
+    got = tkernel.edge_relax_scan_pre(tprog.monoid, cand, send, key)
+    want = tref.stream_scan(tprog.monoid, cand, send, key)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

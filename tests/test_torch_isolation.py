@@ -46,6 +46,7 @@ def test_the_port_has_modules():
     names = {p.relative_to(PORT).as_posix() for p in _files() if PORT in
              p.parents}
     for mod in ("core/session.py", "core/diffuse.py", "core/relax.py",
+                "core/updates.py", "core/dynamic.py",
                 "kernels/edge_relax/kernel.py", "kernels/_build.py"):
         assert mod in names
 
@@ -59,3 +60,16 @@ def test_no_jax_or_reference_imports(path):
         if PORT in path.parents and top != "repro_torch":
             # the port's own modules are reached only as repro_torch.*
             assert not mod.startswith("repro"), mod
+
+
+def test_entry_points_default_to_the_card():
+    import inspect
+
+    from repro_torch.core import api, graph, session
+    from repro_torch.core.partition import Partitioned
+
+    for fn in (graph.from_edges, api.build,
+               session.DiffusionSession.from_edges,
+               graph.ShardedGraph.from_state, Partitioned.from_numpy):
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", fn.__qualname__

@@ -1,7 +1,8 @@
-"""The slice as a whole: the port's ``DiffusionSession.query`` on the CPU
-against the JAX package's session (``backend="xla"`` here; the Pallas
+"""The query side as a whole: the port's ``DiffusionSession.query`` on the
+CPU against the JAX package's session (``backend="xla"`` here; the Pallas
 backend in test_torch_session_pallas.py), plus the port session's own
-cache, peek and not-yet-ported guards.
+cache, peek and not-yet-ported guards (sweeps: test_torch_sweep.py;
+commits: test_torch_commit.py).
 
 Min/max programs (sssp with parents, bfs, cc, widest, reach) must match
 bitwise: values, every state field and the DiffuseStats counters.  Sum
@@ -137,14 +138,13 @@ def test_not_yet_ported_paths_raise(small_session):
         sess.query("cc", engine="spmd")
     with pytest.raises(NotImplementedError, match="oracles"):
         sess.query("cc", engine="event")
-    with pytest.raises(NotImplementedError, match="K3"):
-        sess.query("cc", sweep="push")
+    with pytest.raises(ValueError, match="sweep"):
+        sess.query("cc", sweep="sideways")
     with pytest.raises(NotImplementedError, match="oracles"):
         sess.query("triangles")
-    for call in (lambda: sess.add_edge(0, 1), lambda: sess.commit(),
-                 lambda: sess.delete_vertex(0), lambda: sess.update()):
-        with pytest.raises(NotImplementedError, match="commit"):
-            call()
+    with pytest.raises(NotImplementedError, match="replicas"):
+        TSession.from_edges([0], [1], 2, n_cells=1, replica_threshold=4,
+                            device="cpu")
     with pytest.raises(NotImplementedError, match="durability"):
         sess.save("snap")
     with pytest.raises(NotImplementedError, match="durability"):
