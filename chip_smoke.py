@@ -7,28 +7,36 @@
                                           # kernels' plain versions; tiny
                                           # sizes, never prints a result
 
-Phases (one JSON line each, then the card line, the kernels line and the
-final result line):
+Phases, in run order (one JSON line each, then the card line, the
+kernels line and the final result line):
 
 1. the card (``nvidia-smi`` name and power limit) and the parallel build of
-   every kernel from the sources in ``src/repro_torch/kernels/*/csrc``;
-2. each kernel against its plain PyTorch version on the card, on the
+   all six kernel libraries from the sources in
+   ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source, together);
+2. each graph kernel against its plain PyTorch version on the card, on the
    ``scale_free`` family with 4 cells: K1 (``edge_relax_blocks``) for every
    min/max builtin, bitwise; K2 (``edge_relax_scan``) for the push_share
    emit, bitwise, and bitwise run to run, and in its pre-emitted input
    mode; K3 (``edge_relax_push_blocks``) for every min/max builtin at three
    frontiers (one vertex, 1 %, all vertices), bitwise on its raw outputs and
    after phase 2;
-3. the main path at a real size: ``DiffusionSession.from_edges`` on the
-   Graph500 RMAT graph (default scale 20, edge factor 16) over 4 cells, then
-   ``query`` for sssp (2 sources), bfs, cc, ppr and pagerank, with the
-   kernels' launch counters zeroed just before and read just after, and
-   the results checked against scipy on the host;
+2b. K4 (``flash_attention``) against its plain version: bf16 and f32, head
+   dims 64 and 128, causal or not, softcap 0 and 30, GQA groups 1 and 8,
+   sq == skv and sq < skv (64 cases, tolerance at ``k4_err``);
+3. the graph main path at a real size: ``DiffusionSession.from_edges`` on
+   the Graph500 RMAT graph (default scale 20, edge factor 16) over 4
+   cells, then ``query`` for sssp (2 sources), bfs, cc, ppr and pagerank,
+   with the kernels' launch counters zeroed just before and read just
+   after, and the results checked against scipy on the host;
 3b. the push and auto sweeps on the same session: sssp, bfs and cc, each
    bitwise equal to phase 3's pull results (values, parents, rounds, local
    iterations, actions), with K3 launched;
 4a. K1 and K2 timed at the main path's shapes against their plain
    versions, their bounds and one PyTorch library call each;
+4c. K6 (``relax_sorted``) through its entry point ``relax`` on cell 0 of the
+   session's destination-sorted stream with phase 3's sssp distances and a
+   50 % random active set: launches counted, bitwise against its plain
+   version and ``scatter_reduce_``, timed;
 3c. the commit path at full width: with sssp, bfs, cc and ppr cached, three
    commits (256 edge adds; 256 edge deletes, 32 of them SSSP tree edges;
    16 vertex adds with 4 edges each, 8 vertex deletes and 16 touches), each
@@ -36,8 +44,27 @@ final result line):
    Dijkstra after the last;
 4b. K3 timed at the shape of the first repair sub-iteration and at a full
    frontier, beside the frontier selector (``active_push_blocks`` and the
-   compaction) at the same shapes.
+   compaction) at the same shapes;
+4d. K5 (``segment_sum_sorted``) through its entry point ``segment_sum`` on
+   one GNN aggregation layer (values [E, 128] over the edges of
+   ``scale_free`` 262,144): launches counted, against its plain version
+   and ``index_add_``, timed;
+5. the LM serving path at full width: ``DecodeServer`` (4 slots, max_len
+   2048) on tinyllama-1.1b in bf16 with seeded random weights admits 4
+   prompts of 1024 tokens and takes 32 greedy decode steps, every launch
+   counter zeroed just before and read just after (K4: 22 launches per
+   admitted prompt); prefill and decode tokens/s, ms per decode step and
+   its byte bound;
+5b. the f32 model at full width on one prompt: prefill logits on K4 against
+   the plain attention, decode logits at position p against a prefill over
+   p + 1 tokens;
+4e. K4 at the prefill shape (q [1, 32, 1024, 64], k/v [1, 4, 1024, 64]
+   bf16, causal): held against its plain version there (its error is the
+   one in the kernels line), then timed against the plain version, its
+   bound and ``scaled_dot_product_attention``.
 
+With ``--cpu-rehearsal`` the same phases run on the CPU on the kernels'
+plain versions at tiny sizes (the serving phases on the smoke config).
 Any failed check raises, so the script exits nonzero and prints no result.
 Without a CUDA device it exits 2 before doing anything.
 """
@@ -61,6 +88,7 @@ OUT_DIR = ROOT / "chiprun_out"
 # float32 throughput outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12       # dense tensor cores
 
 MINMAX_CASES = [
     ("sssp", {"source": 0, "track_parents": True}),
@@ -795,14 +823,48 @@ def phase_k3_timing(sess, launches, sources, frontier0, device,
     return row, detail
 
 
-def phase_profile(sess, sources, n: int) -> list:
-    """Where the time goes: one ``torch.profiler`` trace per query (device
-    time by kernel, device busy share of the wall time), and one of a
-    commit's push repair (64 edge adds, sssp alone cached) with the device
-    time under the frontier selector's and the compaction's ranges."""
+def trace(name: str, run) -> dict:
+    """One ``torch.profiler`` trace of ``run()``: device time by kernel, the
+    ``repro_torch.*`` ranges, and the device busy share of the wall time
+    (the table goes under chiprun_out/)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    avg = prof.key_averages()
+    dev = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0))
+    tot = lambda e: getattr(e, "device_time_total",
+                            getattr(e, "cuda_time_total", 0))
+    ranges = {e.key: {"device_ms": tot(e) / 1e3, "calls": e.count,
+                      "cpu_ms": e.cpu_time_total / 1e3}
+              for e in avg if e.key.startswith("repro_torch.")}
+    # device-side events only: an aten op's row repeats its kernels' time
+    rows = sorted(((e.key, dev(e) / 1e3, e.count) for e in avg
+                   if e.device_type == DeviceType.CUDA and dev(e) > 0),
+                  key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / f"profile_{name}.txt").write_text(avg.table(
+        sort_by="self_cuda_time_total", row_limit=40))
+    return {"phase": "profile", "query": name, "wall_ms": wall * 1e3,
+            "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / (wall * 1e3),
+            "kernel_launches": sum(r[2] for r in rows), "ranges": ranges,
+            "top": [{"kernel": k[:80], "ms": ms, "calls": n}
+                    for k, ms, n in rows[:10]]}
+
+
+def phase_profile(sess, sources, n: int) -> list:
+    """Where the time goes: one trace per query, and one of a commit's
+    push repair (64 edge adds, sssp alone cached) with the device time
+    under the frontier selector's and the compaction's ranges."""
     s0 = sources[0]
     rng = np.random.default_rng(99)
 
@@ -821,44 +883,14 @@ def phase_profile(sess, sources, n: int) -> list:
                                                       refresh=True,
                                                       eps=1e-7)),
                       ("commit_repair", None)):
-        if run is None:
-            run = commit()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        avg = prof.key_averages()
-        dev = lambda e: getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0))
-        tot = lambda e: getattr(e, "device_time_total",
-                                getattr(e, "cuda_time_total", 0))
-        ranges = {e.key: {"device_ms": tot(e) / 1e3, "calls": e.count,
-                          "cpu_ms": e.cpu_time_total / 1e3}
-                  for e in avg if e.key.startswith("repro_torch.")}
-        # device-side events only: an aten op's row repeats its kernels' time
-        rows = sorted(((e.key, dev(e) / 1e3, e.count) for e in avg
-                       if e.device_type == DeviceType.CUDA and dev(e) > 0),
-                      key=lambda r: -r[1])
-        busy_ms = sum(r[1] for r in rows)
-        OUT_DIR.mkdir(exist_ok=True)
-        (OUT_DIR / f"profile_{name}.txt").write_text(avg.table(
-            sort_by="self_cuda_time_total", row_limit=40))
-        out.append({"phase": "profile", "query": name, "wall_ms": wall * 1e3,
-                    "device_busy_ms": busy_ms,
-                    "device_busy_share": busy_ms / (wall * 1e3),
-                    "ranges": ranges,
-                    "top": [{"kernel": k[:80], "ms": ms, "calls": n}
-                            for k, ms, n in rows[:10]]})
+        out.append(trace(name, run if run is not None else commit()))
     return out
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
-               ops, library_ms) -> dict:
+               ops, library_ms, peak_ops=PEAK_F32_OPS_PER_S) -> dict:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": int(launches),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -866,6 +898,394 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms, "bytes": int(nbytes), "ops": int(ops)}
 
+
+
+# --------------------------------------------------------------------------
+# K4-K6: kernels against their plain versions, entry points and timings
+# --------------------------------------------------------------------------
+
+K4_F32_TOL = 2e-5
+K4_BF16_ULP = 2.0 ** -7
+
+
+def k4_err(got, want) -> tuple:
+    """(max abs error, within tolerance) of K4 against its plain version.
+    Both compute in f32 and differ there by sums in other orders: f32
+    agrees to 2e-5 max abs on N(0, 1) inputs (sound runs: 7.5e-7).  In
+    bf16 each side rounds its f32 result once, so the two differ by at
+    most one bf16 ulp of the value (<= 2^-7 |want|) on top of that: the
+    bf16 limit is 2^-7 |want| + 2e-5 per element (sound runs: 2^-9 max
+    abs, one ulp of outputs in [0.25, 0.5))."""
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        limit = K4_F32_TOL
+    else:
+        limit = K4_BF16_ULP * want.float().abs() + K4_F32_TOL
+    return float(diff.max()), bool((diff <= limit).all())
+
+
+def phase_k4_vs_plain(device) -> dict:
+    """K4 against its plain version on the card: bf16 and f32, D = 64 and
+    128, causal or not, softcap 0 and 30, GQA groups 1 and 8, sq == skv
+    and sq < skv, within the tolerance of :func:`k4_err`."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+    worst = {}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 128):
+            for groups in (1, 8):
+                for sq, skv in ((192, 192), (100, 300)):
+                    q, k, v = (torch.randn(shape, generator=g).to(device,
+                                                                 dtype)
+                               for shape in ((2, 2 * groups, sq, d),
+                                             (2, 2, skv, d), (2, 2, skv, d)))
+                    for causal in (True, False):
+                        for cap in (0.0, 30.0):
+                            kw = dict(causal=causal, softcap=cap,
+                                      q_offset=skv - sq)
+                            got = kernel.flash_attention(q, k, v, **kw)
+                            want = ref.flash_attention_ref(q, k, v, **kw)
+                            sync(device)
+                            err, ok = k4_err(got, want)
+                            tag = str(dtype).split(".")[-1]
+                            check(got.dtype == dtype and ok,
+                                  f"K4 {tag} d={d} g={groups} sq={sq} "
+                                  f"skv={skv} causal={causal} softcap={cap}:"
+                                  f" max abs err {err}")
+                            worst[tag] = max(worst.get(tag, 0.0), err)
+                            n += 1
+    return {"cases": n, "max_abs_err": worst,
+            "tolerance": {"float32": K4_F32_TOL,
+                          "bfloat16": "2^-7 |want| + 2e-5"}}
+
+
+def k5_inputs(n: int, device, f: int = 128):
+    """One GNN aggregation layer at width ``f``: values [E, f] over the
+    edges of ``make_graph_family("scale_free", n)``, summed by destination."""
+    from repro_torch.core.generators import make_graph_family
+
+    src, dst, _, n = make_graph_family("scale_free", n, seed=0)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    values = torch.randn((src.shape[0], f), generator=g).to(device)
+    return values, torch.from_numpy(dst).to(device), n
+
+
+def phase_k5(args, device, reps: int) -> dict:
+    """K5: its entry point ``segment_sum`` once (launches counted), the
+    kernel against its plain version on the sorted stream, and timings."""
+    from repro_torch.kernels.segment_reduce import kernel, ops, ref
+
+    values, ids, n = k5_inputs(args.k5_n, device)
+    e, f = values.shape
+    sync(device)
+    kernel.reset_launches()
+    out = ops.segment_sum(values, ids, n)
+    sync(device)
+    launches = kernel.LAUNCHES["segment_sum_sorted"]
+    if device.type == "cuda":
+        check(launches > 0, "K5 was not launched by segment_sum")
+    check(out.shape == (n, f) and bool(torch.isfinite(out).all()),
+          "segment_sum output is not finite [N, F]")
+    order = torch.argsort(ids, stable=True)
+    pad = (-e) % kernel.BLOCK_E
+    sv = torch.nn.functional.pad(values[order], (0, 0, 0, pad))
+    si = torch.nn.functional.pad(ids[order].to(torch.int32), (0, pad),
+                                 value=-1)
+    got = kernel.segment_sum_sorted(sv, si, n)
+    want = ref.segment_sum_sorted_ref(sv, si, n)
+    # a segment's partials from k blocks meet in the atomics' order:
+    # within (k - 1) ulps of its sum of |values| (here 1e-6 relative)
+    mag = ref.segment_sum_ref(values.abs(), ids, n)
+    lib = torch.zeros((n, f), dtype=torch.float32, device=device)
+    lib.index_add_(0, ids.long(), values)
+    sync(device)
+    err = float((got - want).abs().max())
+    check(bool(((got - want).abs() <= 1e-6 * mag + 1e-30).all()),
+          f"K5 differs from its plain version beyond 1e-6 of the segments' "
+          f"|sum| (max abs {err})")
+    check(bool(((out - lib).abs() <= 1e-5 * mag + 1e-30).all()),
+          "segment_sum differs from index_add_")
+    clock = Clock(device)
+    kernel.reset_launches()
+    k_ms = clock.ms(lambda: kernel.segment_sum_sorted(sv, si, n), reps)
+    p_ms = clock.ms(lambda: ref.segment_sum_sorted_ref(sv, si, n),
+                    max(2, reps // 10), warmup=1)
+    il = ids.long()                   # the unsorted stream, as a user has it
+    lib_ms = clock.ms(lambda: lib.index_add_(0, il, values), reps)
+    nbytes = e * f * 4 + e * 4 + n * f * 4
+    row = kernel_row(
+        "segment_sum_sorted", "src/repro_torch/kernels/segment_reduce/csrc/"
+        "segment_sum_sorted.cu",
+        "src/repro/kernels/segment_reduce/kernel.py:59", launches, err,
+        k_ms, p_ms, nbytes, e * f, lib_ms)
+    emit({"phase": "k5", "graph": "scale_free", "n": n, "edges": e, "f": f,
+          "max_abs_err": err, **{k: row[k] for k in (
+              "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")}})
+    return row
+
+
+def phase_k6(sess, sources, device, reps: int) -> dict:
+    """K6 on cell 0 of the session's destination-sorted stream, with the
+    main path's sssp distances and a 50 % random active set: its entry
+    point ``relax`` once (launches counted), bitwise against its plain
+    version and ``scatter_reduce_`` amin, and timings."""
+    from repro_torch.kernels.sssp_relax import kernel, ops, ref
+
+    sg = sess.sg
+    es = sg.sorted_width
+    dist = sess.vertex_state("sssp", source=sources[0])["dist"][0]
+    dist = dist.contiguous()
+    g = torch.Generator(device="cpu").manual_seed(6)
+    active = (torch.rand(dist.shape[0], generator=g) < 0.5).to(device)
+    view = sg.csr_view()
+    weight = view["csr_weight"][0, :es].contiguous()
+    src = view["csr_src"][0, :es].contiguous()
+    dst = view["csr_key"][0, :es].contiguous()
+    n_keys = sg.n_shards * sg.n_per_shard
+    args = (dist, active, weight, src, dst, n_keys)
+    sync(device)
+    kernel.reset_launches()
+    out = ops.relax(*args)
+    sync(device)
+    launches = kernel.LAUNCHES["relax_sorted"]
+    if device.type == "cuda":
+        check(launches > 0, "K6 was not launched by relax")
+    want = ref.relax_ref(dist, weight, src, dst, active, n_keys)
+    got = kernel.relax_sorted(*args)
+    s = src.long().clamp(0, dist.shape[0] - 1)
+    live = (dst >= 0) & active[s]
+    cand = torch.where(live, dist[s] + weight, float("inf"))
+    ids = torch.where(dst >= 0, dst, n_keys).long()
+    table = torch.empty(n_keys + 1, dtype=torch.float32, device=device)
+    lib = table.fill_(float("inf")).scatter_reduce_(0, ids, cand, "amin")
+    sync(device)
+    check(torch.equal(got, want) and torch.equal(out, want),
+          "K6 differs from its plain version")
+    check(torch.equal(lib[:n_keys], want), "K6 differs from scatter_reduce_")
+    clock = Clock(device)
+    kernel.reset_launches()
+    k_ms = clock.ms(lambda: kernel.relax_sorted(*args), reps)
+    p_ms = clock.ms(lambda: ref.relax_ref(dist, weight, src, dst, active,
+                                          n_keys), max(2, reps // 10),
+                    warmup=1)
+    lib_ms = clock.ms(lambda: table.fill_(float("inf")).scatter_reduce_(
+        0, ids, cand, "amin"), reps)
+    e = int(es)
+    nbytes = e * 12 + dist.shape[0] * 5 + n_keys * 4
+    row = kernel_row(
+        "relax_sorted", "src/repro_torch/kernels/sssp_relax/csrc/"
+        "relax_sorted.cu", "src/repro/kernels/sssp_relax/kernel.py:57",
+        launches, 0.0, k_ms, p_ms, nbytes, 2 * e, lib_ms)
+    emit({"phase": "k6", "cell": 0, "edges": e, "np": int(dist.shape[0]),
+          "n_keys": n_keys, "live_edges": int((dst >= 0).sum()),
+          "messages": int(live.sum()), "bitwise": True,
+          **{k: row[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}})
+    return row
+
+
+def reset_all_launches() -> None:
+    from repro_torch.kernels.edge_relax import kernel as k13
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.kernels.sssp_relax import kernel as k6
+
+    for mod in (k13, k4, k5, k6):
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    from repro_torch.kernels.edge_relax import kernel as k13
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.kernels.sssp_relax import kernel as k6
+
+    return {**k13.LAUNCHES, **k4.LAUNCHES, **k5.LAUNCHES, **k6.LAUNCHES}
+
+
+def lm_config(args):
+    from repro_torch.configs import registry
+
+    mod = registry.get_module("tinyllama-1.1b")
+    if args.cpu_rehearsal:
+        return mod.smoke_config(dtype=torch.bfloat16)
+    return mod.make_config()
+
+
+def phase_serve(args, device) -> dict:
+    """The LM serving path at full width: ``DecodeServer`` with 4 slots
+    and max_len 2048 on tinyllama-1.1b (bf16, seeded random weights);
+    admit 4 prompts of 1024 tokens, then 32 greedy decode steps, with every
+    launch counter zeroed just before and read just after."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    cfg = lm_config(args)
+    slots, max_len, plen, steps = ((4, 64, 16, 4) if args.cpu_rehearsal
+                                   else (4, 2048, args.prompt_len, 32))
+    t = time.perf_counter()
+    params = tf.init_params(cfg, seed=args.seed, device=device)
+    srv = serve.DecodeServer(cfg, params, batch_slots=slots, max_len=max_len)
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab, (slots, plen)).astype(np.int32)
+    # warm-up (cuBLAS handles, the first launches): one short request
+    srv.admit(prompts[0][: plen // 8])
+    srv.step()
+    srv.retire(0)
+    sync(device)
+    setup_s = time.perf_counter() - t
+    reset_all_launches()
+    t = time.perf_counter()
+    for p in prompts:
+        check(srv.admit(p) is not None, "no free slot")
+    sync(device)
+    prefill_s = time.perf_counter() - t
+    kv_positions = 0
+    t = time.perf_counter()
+    for _ in range(steps):
+        kv_positions += int(srv.lens[srv.active].sum())
+        srv.step()
+    sync(device)
+    decode_s = time.perf_counter() - t
+    launches = all_launches()
+    k4 = launches["flash_attention"]
+    if device.type == "cuda":
+        check(k4 == cfg.n_layers * slots,
+              f"K4 launched {k4} times, not {cfg.n_layers} per admitted "
+              f"prompt")
+    check(bool((srv.lens == plen + 1 + steps).all()),
+          f"slot lengths {srv.lens.tolist()}")
+    check(bool((srv.tokens[:, : plen + 1 + steps] < cfg.vocab).all()
+               and (srv.tokens >= 0).all()), "a token outside the vocab")
+    for kv in ("k", "v"):
+        check(bool(torch.isfinite(srv.cache[kv].float()).all()),
+              f"non-finite {kv} cache")
+    outs = [srv.retire(s) for s in range(slots)]
+    profiles = []
+    if args.profile and device.type == "cuda":
+        profiles = [trace("prefill", lambda: srv.admit(prompts[0])),
+                    trace("decode_step", srv.step)]
+    # a decode step's least time: every weight and the live KV read once
+    wbytes = cfg.param_count() * params["embed"].element_size()
+    kv_per_pos = cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2 * \
+        params["embed"].element_size()
+    bound_step_ms = (wbytes + kv_per_pos * kv_positions / steps) \
+        / PEAK_BYTES_PER_S * 1e3
+    rep = {"phase": "serve", "arch": cfg.name, "dtype": str(cfg.dtype),
+           "layers": cfg.n_layers, "slots": slots, "max_len": max_len,
+           "prompt_len": plen, "decode_steps": steps,
+           "setup_s": setup_s, "prefill_s": prefill_s,
+           "prefill_tokens_per_s": slots * plen / prefill_s,
+           "decode_s": decode_s,
+           "decode_tokens_per_s": slots * steps / decode_s,
+           "ms_per_decode_step": decode_s / steps * 1e3,
+           "decode_step_bound_ms": bound_step_ms,
+           "weight_bytes": wbytes,
+           "k4_launches": k4, "k4_per_prompt": k4 / slots,
+           "launches": launches,
+           "first_tokens": [o[plen: plen + 8].tolist() for o in outs]}
+    emit(rep)
+    for line in profiles:
+        emit(line)
+    del srv, params
+    return rep
+
+
+def phase_lm_checks(args, device) -> dict:
+    """The f32 model at full width on one prompt: prefill logits on K4
+    against the same model on the plain attention, and the decode logits
+    at position p against the last logits of a prefill over p + 1 tokens.
+    Tolerance 1e-3 max abs on logits of order 1: 22 layers of f32 sums in
+    other orders (the kernel, cuBLAS at other shapes)."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(lm_config(args), dtype=torch.float32)
+    plen = 16 if args.cpu_rehearsal else args.prompt_len
+    params = tf.init_params(cfg, seed=args.seed + 1, device=device)
+    rng = np.random.default_rng(args.seed + 1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, plen))).to(
+        device)
+    logits, cache = tf.prefill(params, prompt, cfg, max_len=plen + 1)
+
+    def plain(q, k, v, causal=True, softcap=0.0):
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       softcap=softcap,
+                                       q_offset=k.shape[2] - q.shape[2])
+
+    with mock.patch.object(tf, "attention", plain):
+        want, _ = tf.prefill(params, prompt, cfg, max_len=plen + 1)
+    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    dec, _ = tf.decode_step(params, nxt, cache, plen, cfg)
+    longer, _ = tf.prefill(params, torch.cat([prompt, nxt], 1), cfg,
+                           max_len=plen + 1)
+    sync(device)
+    err_k4 = float((logits - want).abs().max())
+    err_dec = float((dec - longer).abs().max())
+    check(bool(torch.isfinite(logits).all()) and logits.shape ==
+          (1, 1, cfg.vocab), "prefill logits are not finite [1, 1, V]")
+    check(err_k4 <= 1e-3, f"f32 prefill on K4 vs plain attention: {err_k4}")
+    check(err_dec <= 1e-3, f"f32 decode vs prefill over p + 1: {err_dec}")
+    rep = {"phase": "lm_checks", "dtype": "float32", "prompt_len": plen,
+           "logit_absmax": float(logits.abs().max()),
+           "k4_vs_plain_max_abs": err_k4, "decode_vs_prefill_max_abs":
+           err_dec, "tolerance": 1e-3}
+    emit(rep)
+    del params, cache
+    return rep
+
+
+def phase_k4_timing(args, launches: int, device, reps: int) -> dict:
+    """K4 at the prefill shape: q [1, 32, 1024, 64], k/v [1, 4, 1024, 64]
+    bf16, causal — held against its plain version there (the tolerance of
+    :func:`k4_err`), then timed; the yardstick is
+    ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    cfg = lm_config(args)
+    s = 32 if args.cpu_rehearsal else args.prompt_len
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = torch.Generator(device="cpu").manual_seed(7)
+    q = torch.randn((1, hq, s, d), generator=g).to(device, cfg.dtype)
+    k, v = (torch.randn((1, hkv, s, d), generator=g).to(device, cfg.dtype)
+            for _ in range(2))
+    kernel.reset_launches()
+    got = kernel.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    sync(device)
+    err, ok = k4_err(got, want)
+    check(got.shape == q.shape and got.dtype == q.dtype and ok,
+          f"K4 at the prefill shape {list(q.shape)}: max abs err {err}")
+    del got, want
+    clock = Clock(device)
+    k_ms = clock.ms(lambda: kernel.flash_attention(q, k, v, causal=True),
+                    reps)
+    p_ms = clock.ms(lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                    max(2, reps // 10), warmup=1)
+    lib_ms = clock.ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps)
+    el = q.element_size()
+    nbytes = 2 * q.numel() * el + 2 * k.numel() * el
+    flops = 4 * hq * d * (s * (s + 1) // 2)
+    row = kernel_row(
+        "flash_attention", "src/repro_torch/kernels/flash_attention/csrc/"
+        "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:89",
+        launches, err, k_ms, p_ms, nbytes, flops, lib_ms,
+        peak_ops=PEAK_BF16_OPS_PER_S)
+    emit({"phase": "k4_timing", "shape": [1, hq, s, d], "kv_heads": hkv,
+          "dtype": str(cfg.dtype), "causal": True, "max_abs_err": err,
+          "tflops": flops / (k_ms * 1e-3) / 1e12,
+          **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}})
+    return row
 
 # --------------------------------------------------------------------------
 
@@ -875,12 +1295,17 @@ def main(argv=None) -> int:
                     help="Graph500 scale of the main path (default 20)")
     ap.add_argument("--kernel-n", type=int, default=65536,
                     help="scale_free vertices for the kernel checks")
+    ap.add_argument("--k5-n", type=int, default=262144,
+                    help="scale_free vertices of K5's aggregation layer")
+    ap.add_argument("--prompt-len", type=int, default=1024,
+                    help="tokens per prompt on the serving path")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one sssp query, one pagerank query and "
-                         "one commit's push repair with torch.profiler "
-                         "(tables under chiprun_out/)")
+                    help="also trace one sssp query, one pagerank query, "
+                         "one commit's push repair, one prefill and one "
+                         "decode step with torch.profiler (tables under "
+                         "chiprun_out/)")
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the path on the CPU with the plain versions "
                          "(tiny sizes); exits 3 and prints no result")
@@ -890,6 +1315,7 @@ def main(argv=None) -> int:
         device = torch.device("cpu")
         args.scale, args.kernel_n, args.reps = (min(args.scale, 10),
                                                 min(args.kernel_n, 2048), 2)
+        args.k5_n = min(args.k5_n, 2048)
     elif not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
               file=sys.stderr)
@@ -901,6 +1327,9 @@ def main(argv=None) -> int:
     from repro_torch.core.generators import make_graph_family
     from repro_torch.kernels import _build
     from repro_torch.kernels.edge_relax import kernel
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.kernels.sssp_relax import kernel as k6
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -916,8 +1345,12 @@ def main(argv=None) -> int:
               "count": torch.cuda.device_count(), "torch": torch.__version__,
               "cuda": torch.version.cuda})
         t = time.perf_counter()
-        kernel.build()
-        logs = _build.build_logs(kernel.KERNEL_SOURCES)
+        sources = {**kernel.KERNEL_SOURCES, **k4.KERNEL_SOURCES,
+                   **k5.KERNEL_SOURCES, **k6.KERNEL_SOURCES}
+        _build.build(sources)             # one nvcc per source, together
+        for mod in (kernel, k4, k5, k6):
+            mod.build()                   # bind the loaded libraries
+        logs = _build.build_logs(sources)
         ptxas = {k: [ln.strip() for ln in v.splitlines()
                      if "registers" in ln or "smem" in ln]
                  for k, v in logs.items()}
@@ -931,11 +1364,14 @@ def main(argv=None) -> int:
     emit({"phase": "kernels_vs_plain", "graph": "scale_free",
           "n": args.kernel_n, "cells": 4, "bitwise": True, **errs})
     del ksess
+    k4_check = phase_k4_vs_plain(device)
+    emit({"phase": "k4_vs_plain", **k4_check})
 
     sess, launches, sources, results, walls, data = phase_main(args, device)
     push_launches = phase_push(sess, results, walls, sources, data[3],
                                device)
     rows = phase_timing(sess, launches, sources, device, args.reps)
+    k6_row = phase_k6(sess, sources, device, args.reps)
     commit_launches, frontier0 = phase_commits(args, sess, data, sources,
                                                device)
     k3_launches = (push_launches["edge_relax_push_blocks"]
@@ -946,7 +1382,17 @@ def main(argv=None) -> int:
     if args.profile and device.type == "cuda":
         for line in phase_profile(sess, sources, data[3]):
             emit(line)
+    del sess, results
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    k5_row = phase_k5(args, device, args.reps)
+    served = phase_serve(args, device)
+    lm = phase_lm_checks(args, device)
+    k4_row = phase_k4_timing(args, served["k4_launches"], device,
+                             args.reps)
+    rows += [k4_row, k5_row, k6_row]
     detail = {"nvidia_smi": smi, "kernels": rows, "k3": k3_detail,
+              "serve": served, "lm_checks": lm, "k4_vs_plain": k4_check,
               "seconds": time.perf_counter() - t0}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

@@ -20,7 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "build", "nvcc_path", "build_logs"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "build", "nvcc_path", "build_logs",
+           "bind", "stream", "raise_on"]
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -110,3 +111,31 @@ def build_logs(libs: dict) -> dict:
         log = _target(name, sources).with_suffix(".log")
         out[name] = log.read_text() if log.exists() else ""
     return out
+
+
+def bind(sources: dict, symbols: dict, fns: dict) -> None:
+    """Build (in parallel) every library of ``sources`` (name -> ``.cu``
+    list) whose entry points are not bound yet, and bind them into
+    ``fns``: ``symbols`` maps a library to ``{C entry point: argtypes}``;
+    every entry point returns a ``cudaError_t`` as ``int``."""
+    missing = {k: sources[k] for k in sources
+               if not set(symbols[k]) <= set(fns)}
+    for name, lib in build(missing).items():
+        for sym, argtypes in symbols[name].items():
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[sym] = fn
+
+
+def stream() -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream, for a launch."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def raise_on(name: str, err: int) -> None:
+    """Raise if a launch returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")

@@ -91,14 +91,7 @@ def reset_launches() -> None:
 def build() -> None:
     """Compile (in parallel) and bind every kernel library.  Called lazily
     by the first CUDA launch."""
-    libs = _build.build({k: KERNEL_SOURCES[k] for k in KERNEL_SOURCES
-                         if not set(_SYMBOLS[k]) <= set(_FNS)})
-    for name, lib in libs.items():
-        for sym, argtypes in _SYMBOLS[name].items():
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _FNS[sym] = fn
+    _build.bind(KERNEL_SOURCES, _SYMBOLS, _FNS)
 
 
 def _fn(sym: str):
@@ -136,15 +129,6 @@ def _kernel_emit(prog):
     return ke
 
 
-def _raise_on(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-
-
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
 def edge_relax_blocks(prog, vstate, senders, gid, key, src, weight, dst_gid,
                       block_e: int = BLOCK_E):
     """K1: per-block partial tables of one sweep of every cell.
@@ -168,8 +152,8 @@ def edge_relax_blocks(prog, vstate, senders, gid, key, src, weight, dst_gid,
         key.data_ptr(), src.data_ptr(), weight.data_ptr(), part.data_ptr(),
         cnt.data_ptr(), uniq.data_ptr(),
         pay.data_ptr() if pay is not None else None,
-        a["s"], a["np"], a["w"], a["row"], *a["flags"], _stream())
-    _raise_on("edge_relax_blocks", err)
+        a["s"], a["np"], a["w"], a["row"], *a["flags"], _build.stream())
+    _build.raise_on("edge_relax_blocks", err)
     LAUNCHES["edge_relax_blocks"] += 1
     return part, cnt, uniq, pay
 
@@ -249,8 +233,8 @@ def edge_relax_push_blocks(prog, vstate, senders, gid, key, src, weight,
         key.data_ptr(), src.data_ptr(), weight.data_ptr(), idx.data_ptr(),
         part.data_ptr(), cnt.data_ptr(), uniq.data_ptr(),
         pay.data_ptr() if pay is not None else None,
-        a["s"], a["np"], a["w"], a["row"], cap, *a["flags"], _stream())
-    _raise_on("edge_relax_push_blocks", err)
+        a["s"], a["np"], a["w"], a["row"], cap, *a["flags"], _build.stream())
+    _build.raise_on("edge_relax_push_blocks", err)
     LAUNCHES["edge_relax_push_blocks"] += 1
     return part, cnt, uniq, pay
 
@@ -304,8 +288,8 @@ def edge_relax_scan(prog, vstate, senders, gid, key, src, weight, dst_gid,
         senders.data_ptr(), key.data_ptr(), skey.data_ptr(), src.data_ptr(),
         v.data_ptr(), c.data_ptr(), agg_v.data_ptr(), agg_c.data_ptr(),
         first.data_ptr(), carry_v.data_ptr(), carry_c.data_ptr(),
-        s_, np_, rows[0], es, float(ke.const), _stream())
-    _raise_on("edge_relax_scan", err)
+        s_, np_, rows[0], es, float(ke.const), _build.stream())
+    _build.raise_on("edge_relax_scan", err)
     LAUNCHES["edge_relax_scan"] += 1
     return v, c, None
 
@@ -347,7 +331,7 @@ def edge_relax_scan_pre(monoid, cand, send, skey, pay=None):
         cand.data_ptr(), send.data_ptr(), skey.data_ptr(), v.data_ptr(),
         c.data_ptr(), agg_v.data_ptr(), agg_c.data_ptr(), first.data_ptr(),
         carry_v.data_ptr(), carry_c.data_ptr(), s_, krows[0], rows[0], es,
-        _stream())
-    _raise_on("edge_relax_scan (pre-emitted)", err)
+        _build.stream())
+    _build.raise_on("edge_relax_scan (pre-emitted)", err)
     LAUNCHES["edge_relax_scan"] += 1
     return v, c, None

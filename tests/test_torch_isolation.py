@@ -47,7 +47,12 @@ def test_the_port_has_modules():
              p.parents}
     for mod in ("core/session.py", "core/diffuse.py", "core/relax.py",
                 "core/updates.py", "core/dynamic.py",
-                "kernels/edge_relax/kernel.py", "kernels/_build.py"):
+                "kernels/edge_relax/kernel.py", "kernels/_build.py",
+                "kernels/flash_attention/kernel.py",
+                "kernels/segment_reduce/kernel.py",
+                "kernels/sssp_relax/kernel.py", "models/common.py",
+                "models/transformer.py", "configs/registry.py",
+                "launch/serve.py"):
         assert mod in names
 
 
@@ -73,3 +78,36 @@ def test_entry_points_default_to_the_card():
                graph.ShardedGraph.from_state, Partitioned.from_numpy):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn.__qualname__
+
+
+def test_lm_entry_points_default_to_the_card():
+    import inspect
+
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    for fn in (transformer.init_params, transformer.init_cache,
+               transformer.params_from_numpy):
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", fn.__qualname__
+    assert serve.parser().parse_args([]).device == "cuda"
+
+
+def test_every_kernel_wrapper_launches_on_cuda_tensors():
+    """Each wrapper takes its plain version only for CPU tensors: the
+    branch is on the input's ``is_cuda``, and the CUDA side counts a
+    launch (no fallback path returns the plain result on the card)."""
+    import inspect
+
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.kernels.sssp_relax import kernel as k6
+
+    for mod, fn in ((k4, k4.flash_attention), (k5, k5.segment_sum_sorted),
+                    (k6, k6.relax_sorted)):
+        src = inspect.getsource(fn)
+        assert ".is_cuda:" in src and "ref." in src, fn.__name__
+        assert src.count("return ref.") == 1, fn.__name__
+        assert f'LAUNCHES["{fn.__name__}"] += 1' in src, fn.__name__
+        assert "except" not in src, fn.__name__
+        assert set(mod.LAUNCHES) == set(mod.KERNEL_SOURCES)
