@@ -17,7 +17,9 @@ kernels line and the final result line):
    ``scale_free`` family with 4 cells: K1 (``edge_relax_blocks``) for every
    min/max builtin, bitwise; K2 (``edge_relax_scan``) for the push_share
    emit, bitwise, and bitwise run to run, and in its pre-emitted input
-   mode; K3 (``edge_relax_push_blocks``) for every min/max builtin at three
+   mode, and in both modes for every builtin's (emit form, monoid, dtype,
+   payload) instance with 4 and 5 lanes, bitwise; K3
+   (``edge_relax_push_blocks``) for every min/max builtin at three
    frontiers (one vertex, 1 %, all vertices), bitwise on its raw outputs and
    after phase 2;
 2b. K4 (``flash_attention``) against its plain version: bf16 and f32, head
@@ -31,17 +33,29 @@ kernels line and the final result line):
 3b. the push and auto sweeps on the same session: sssp, bfs and cc, each
    bitwise equal to phase 3's pull results (values, parents, rounds, local
    iterations, actions), with K3 launched;
+3d. multi-query lanes on the same session (``query(..., sources=[...])``,
+   16 roots drawn from ``--seed`` among vertices of nonzero degree, phase
+   3's sources first): sssp with parents x16 on pull, push and auto, bfs
+   x16, widest with parents x4, ppr x8 on pull and push, and sssp x4 gated
+   at ``delta`` = the median edge weight; counters zeroed just before and
+   read just after (K2's laned variants launched, K1/K3 not); every lane
+   bitwise equal to the same root queried solo, push/auto lanes to pull,
+   and a later solo query of a root served from the cache;
 4a. K1 and K2 timed at the main path's shapes against their plain
    versions, their bounds and one PyTorch library call each;
+4f. K2's laned payload instance at phase 3d's sssp shape (16 lanes) held
+   against its plain version and timed beside its bound and
+   ``scatter_reduce_`` amin over the same messages;
 4c. K6 (``relax_sorted``) through its entry point ``relax`` on cell 0 of the
    session's destination-sorted stream with phase 3's sssp distances and a
    50 % random active set: launches counted, bitwise against its plain
    version and ``scatter_reduce_``, timed;
-3c. the commit path at full width: with sssp, bfs, cc and ppr cached, three
-   commits (256 edge adds; 256 edge deletes, 32 of them SSSP tree edges;
-   16 vertex adds with 4 edges each, 8 vertex deletes and 16 touches), each
-   repair held against a fresh diffusion of the committed graph, and scipy's
-   Dijkstra after the last;
+3c. the commit path at full width: with sssp, bfs, cc and ppr cached, and
+   four more sssp entries from one laned query, three commits (256 edge
+   adds; 256 edge deletes, 32 of them SSSP tree edges; 16 vertex adds with
+   4 edges each, 8 vertex deletes and 16 touches), each repair held against
+   a fresh diffusion of the committed graph, and scipy's Dijkstra after the
+   last;
 4b. K3 timed at the shape of the first repair sub-iteration and at a full
    frontier, beside the frontier selector (``active_push_blocks`` and the
    compaction) at the same shapes;
@@ -264,6 +278,65 @@ def compare_k2_pre(sess, prog, vstate, senders):
     return float((v1 - vr).abs().max())
 
 
+def random_lane_state(prog, shape, seed: int, device):
+    """A random vertex state of the program's schema and a 50 % sending
+    frontier, both of ``shape`` ([S, L, Np]): distances with unreached
+    (+-inf) entries, small residuals, degrees 1-8, payload-range ints."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rand = lambda: torch.rand(shape, generator=g)
+    out = {}
+    for k, f in prog.fields:
+        if k in ("dist", "width"):
+            v = torch.where(rand() < 0.2, float("inf"), rand() * 40)
+            if k == "width":
+                v = torch.where(rand() < 0.2, float("-inf"), v)
+        elif k in ("rank", "residual"):
+            v = rand() * 1e-3
+        elif k == "deg":
+            v = torch.randint(1, 9, shape, generator=g).float()
+        elif k == "reached":
+            v = (rand() < 0.5).int()
+        else:
+            v = torch.randint(-1, 1 << 16, shape, generator=g,
+                              dtype=torch.int32)
+        out[k] = v.to(f.dtype).to(device)
+    return out, (rand() < 0.5).to(device)
+
+
+def compare_k2_lanes(sess, name, kw, lanes: int, seed: int, device):
+    """K2 in both input modes on lane-stacked inputs ([S, lanes, Np]
+    state against the shared stream) against its plain versions, and the
+    two modes against each other: bitwise on (value, count, payload)."""
+    from repro_torch.core.programs import PROGRAMS, make_laned
+    from repro_torch.kernels.edge_relax import kernel, ref
+
+    prog = make_laned([PROGRAMS[name].factory(**kw)] * lanes)
+    S, Np = sess.sg.node_ok.shape
+    vstate, senders = random_lane_state(prog, (S, lanes, Np), seed, device)
+    senders &= sess.sg.node_ok[:, None]
+    skey, args = stream_inputs(sess, prog, vstate, senders)
+    got = kernel.edge_relax_scan(*args, skey=skey)
+    want = ref.edge_relax_scan_ref(*args, skey=skey)
+    cand, send, pay = ref.edge_messages(*args)
+    pre = kernel.edge_relax_scan_pre(prog.monoid, cand, send, skey, pay)
+    pre_want = ref.stream_scan(prog.monoid, cand, send, skey, pay)
+    sync(device)
+    tag = f"K2 {name} {kw} lanes={lanes}"
+    check((want[2] is None) == (not prog.with_payload),
+          f"{tag}: payload output")
+    for g, w, pg, pw, what in zip(got, want, pre, pre_want, "vcp"):
+        if w is None:
+            continue
+        check(torch.equal(g, w), f"{tag}: {what} differs from the plain "
+                                 f"version (emit mode)")
+        check(torch.equal(pg, pw), f"{tag}: {what} differs from the plain "
+                                   f"scan (pre-emitted mode)")
+        check(torch.equal(g, pg), f"{tag}: the two modes differ on {what}")
+    fin = torch.isfinite(want[0].float())
+    return float((got[0].float() - want[0].float())[fin].abs().max()) \
+        if bool(fin.any()) else 0.0
+
+
 def random_senders(sess, seed: int, p: float = 0.5):
     rng = np.random.default_rng(seed)
     mask = rng.random(tuple(sess.sg.node_ok.shape)) < p
@@ -274,7 +347,7 @@ def phase_kernels(sess, device) -> dict:
     """Phase 2: every kernel against its plain version."""
     from repro_torch.core.programs import PROGRAMS
 
-    out = {"k1": {}, "k2": {}, "k2_pre": {}, "k3": {}}
+    out = {"k1": {}, "k2": {}, "k2_pre": {}, "k3": {}, "k2_lanes": {}}
     one = torch.zeros_like(sess.sg.node_ok)
     one[sess.ns.resolve(0)] = True
     frontiers = {"one": one, "1pct": None, "all": sess.sg.node_ok.clone()}
@@ -300,6 +373,13 @@ def phase_kernels(sess, device) -> dict:
                                      random_senders(sess, 11))
         out["k2_pre"][name] = compare_k2_pre(sess, prog, vstate,
                                              random_senders(sess, 12, p=0.05))
+    # every (emit form, monoid, dtype, payload) instance of the builtins,
+    # with lanes equal to and different from the 4 cells
+    for i, (name, kw) in enumerate(MINMAX_CASES + [("ppr", {"source": 0}),
+                                                   ("pagerank", {})]):
+        for lanes in (4, 5):
+            out["k2_lanes"][f"{name}{kw}/L{lanes}"] = compare_k2_lanes(
+                sess, name, kw, lanes, 200 + i, device)
     return out
 
 
@@ -526,6 +606,120 @@ def phase_push(sess, results, walls, sources, n, device) -> dict:
     return launches
 
 
+def lane_roots(src, n: int, sources, seed: int, count: int = 16) -> list:
+    """``count`` query roots drawn from ``seed`` among the vertices of
+    nonzero degree (as Graph500 draws its search keys), phase 3's sources
+    first."""
+    rng = np.random.default_rng(seed + 3)
+    deg = np.bincount(src, minlength=n)
+    pool = np.setdiff1d(np.nonzero(deg > 0)[0], sources)
+    more = rng.choice(pool, count - len(sources), replace=False)
+    return list(sources) + [int(x) for x in more]
+
+
+def phase_lanes(sess, results, roots, data, device) -> dict:
+    """Phase 3d: multi-query lanes through ``query(..., sources=[...])``
+    on phase 3's session (launch counters zeroed just before, read just
+    after), then every lane held against the same root queried solo."""
+    from repro_torch.kernels.edge_relax import kernel
+
+    src, dst, w, n = data
+    delta = float(np.median(w))
+    # (program, kwargs, lanes, sweep, delta)
+    queries = [("sssp", {}, 16, "pull", None), ("sssp", {}, 16, "push", None),
+               ("sssp", {}, 16, "auto", None), ("bfs", {}, 16, "pull", None),
+               ("widest", {"track_parents": True}, 4, "pull", None),
+               ("ppr", {}, 8, "pull", None), ("ppr", {}, 8, "push", None),
+               ("sssp", {}, 4, "pull", delta)]
+    sync(device)
+    kernel.reset_launches()
+    lanes_out, rows = [], []
+    for name, kw, lanes, sweep, dl in queries:
+        before = {**kernel.LAUNCHES, **kernel.SCAN_LAUNCHES}
+        sync(device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = sess.query(name, sources=roots[:lanes], sweep=sweep, delta=dl,
+                         refresh=True, **kw)
+        sync(device)
+        dt = time.perf_counter() - t
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if device.type == "cuda" else None)
+        lanes_out.append([trim(r, n) for r in res])
+        st = res[0].stats
+        now = {**kernel.LAUNCHES, **kernel.SCAN_LAUNCHES}
+        rows.append({"query": name, **kw, "lanes": lanes, "sweep": sweep,
+                     "delta": dl, "wall_s": dt, "rounds": int(st.rounds),
+                     "local_iters": int(st.local_iters),
+                     "push_iters": int(st.push_iters),
+                     "actions": int(st.actions),
+                     "converged": bool(st.converged),
+                     "peak_gib": peak,
+                     "launches": {k: now[k] - before[k] for k in now
+                                  if now[k] != before[k]}})
+    launches = dict(kernel.LAUNCHES)
+    scan = dict(kernel.SCAN_LAUNCHES)
+    emit({"phase": "lanes_launches", **launches, "edge_relax_scan_variants":
+          scan})
+    for r in rows:
+        check(r["converged"], f"laned {r['query']} did not converge")
+    if device.type == "cuda":
+        for k in ("sum/laned", "min/max/laned", "min/max+payload/laned"):
+            check(scan[k] > 0, f"K2's {k} variant was not launched by the "
+                               f"laned queries")
+        check(launches["edge_relax_blocks"] == 0
+              and launches["edge_relax_push_blocks"] == 0,
+              "a laned query launched K1 or K3 (lanes take K2)")
+    # a later solo query of a lane's root is a cache hit
+    before = dict(kernel.LAUNCHES)
+    hit = sess.query("sssp", source=roots[5])
+    check(dict(kernel.LAUNCHES) == before
+          and hit.stats is lanes_out[0][5].stats,
+          "a solo query of a lane's root was not served from the cache")
+    # every lane against the same root queried solo; sweeps against pull
+    for (name, kw, lanes, sweep, dl), res, row in zip(queries, lanes_out,
+                                                      rows):
+        what = f"{name} x{lanes} sweep={sweep} delta={dl}"
+        solo_s = 0.0
+        for lane, root in zip(res, roots):
+            sync(device)
+            t = time.perf_counter()
+            solo = trim(sess.query(name, source=root, sweep=sweep, delta=dl,
+                                   refresh=True, **kw), n)
+            sync(device)
+            solo_s += time.perf_counter() - t
+            check(same_bits(lane.values, solo.values)
+                  and all(same_bits(lane.extra[k], solo.extra[k])
+                          for k in solo.extra),
+                  f"{what}: lane {root} differs from its solo query")
+        row["solo_wall_s"] = solo_s
+        pull = lanes_out[queries.index((name, kw, lanes, "pull", dl))] \
+            if (name, kw, lanes, "pull", dl) in queries else None
+        if pull is not None and sweep != "pull":
+            for lane, p in zip(res, pull):
+                check(same_bits(lane.values, p.values)
+                      and all(same_bits(lane.extra[k], p.extra[k])
+                              for k in p.extra),
+                      f"{what}: lanes differ from the pull sweep")
+            for f in ("rounds", "local_iters", "actions"):
+                check(int(getattr(res[0].stats, f))
+                      == int(getattr(pull[0].stats, f)),
+                      f"{what}: stats.{f} differs from the pull sweep")
+        emit({"phase": "lanes_query", **row})
+    # phase 3's solo results (held against scipy) and the gated lanes'
+    # distances are the pull lanes'
+    for i, s in enumerate(roots[:2]):
+        check(same_bits(lanes_out[0][i].values, results[("sssp", s)].values),
+              f"sssp lane {s} differs from phase 3's query")
+    for gated, pull in zip(lanes_out[-1], lanes_out[0]):
+        check(same_bits(gated.values, pull.values),
+              "gated sssp distances differ from the ungated lanes'")
+    emit({"phase": "lanes_checks", "ok": True, "roots": roots,
+          "delta": delta, "bitwise_vs_solo": True})
+    return scan
+
+
 def parents_tight(sess, vstate, source: int) -> bool:
     """On the device: every reached live vertex but the source has its
     parent on a live in-edge with dist[parent] + w == dist[v] (float32)."""
@@ -584,21 +778,25 @@ def commit_batches(sess, src, dst, n, sources, rng):
     return [("adds", adds), ("deletes", deletes), ("mixed", mixed)]
 
 
-def phase_commits(args, sess, data, sources, device) -> dict:
+def phase_commits(args, sess, data, sources, roots, device) -> dict:
     """Phase 3c: three commits at full width, each repair held against a
-    fresh diffusion of the committed graph."""
+    fresh diffusion of the committed graph; four sssp entries come from
+    one laned query and are repaired like the rest."""
     from repro_torch.core import diffuse
     from repro_torch.core.programs import PROGRAMS
     from repro_torch.kernels.edge_relax import kernel
 
     src, dst, w, n = data
     s0 = sources[0]
-    cached = [("sssp", {"source": s0}), ("bfs", {"source": s0}), ("cc", {}),
-              ("ppr", {"source": s0})]
-    # exactly these four entries: refreshing them evicts the rest
+    solo = [("sssp", {"source": s0}), ("bfs", {"source": s0}), ("cc", {}),
+            ("ppr", {"source": s0})]
+    laned = roots[2:6]
+    cached = solo + [("sssp", {"source": r}) for r in laned]
+    # exactly these entries: refreshing them evicts the rest
     sess.max_cache_entries = len(cached)
-    for name, kw in cached:
+    for name, kw in solo:
         sess.query(name, refresh=True, **kw)
+    sess.query("sssp", sources=laned, refresh=True)
     rng = np.random.default_rng(args.seed + 1)
     sync(device)
     kernel.reset_launches()
@@ -615,7 +813,8 @@ def phase_commits(args, sess, data, sources, device) -> dict:
         k3_total += k3
         repairs = {}
         for key, (strategy, st) in info.repairs.items():
-            repairs[key[0]] = {"strategy": strategy,
+            root = dict(key[2]).get("source", "")
+            repairs[f"{key[0]}{root}"] = {"strategy": strategy,
                                "rounds": int(st.rounds),
                                "local_iters": int(st.local_iters),
                                "push_iters": int(st.push_iters),
@@ -633,16 +832,20 @@ def phase_commits(args, sess, data, sources, device) -> dict:
                 check(l1 <= limit, f"commit {label}: ppr L1 {l1} > {limit}")
                 checks[name] = {"l1": l1, "limit": limit}
                 continue
+            tag = f"{name}{kw.get('source', '')}"
             check(torch.equal(torch.where(live, got[vk], 0),
                               torch.where(live, fresh[vk], 0)),
-                  f"commit {label}: repaired {name} differs from a fresh "
+                  f"commit {label}: repaired {tag} differs from a fresh "
                   f"diffusion")
-            checks[name] = "bitwise"
+            checks[tag] = "bitwise"
             if name == "sssp":
-                check(parents_tight(sess, got, s0),
-                      f"commit {label}: a repaired parent is not a tight "
-                      f"in-edge")
-                checks["sssp_parents"] = "tight"
+                check(parents_tight(sess, got, kw["source"]),
+                      f"commit {label}: a repaired parent of {tag} is not a "
+                      f"tight in-edge")
+                checks[f"{tag}_parents"] = "tight"
+        check(len(info.repairs) == len(cached),
+              f"commit {label} repaired {len(info.repairs)} entries, not "
+              f"{len(cached)}")
         emit({"phase": "commit", "batch": label, **ops,
               "apply_s": info.apply_s, "repair_s": info.repair_s,
               "k3_launches": k3,
@@ -746,6 +949,74 @@ def phase_timing(sess, launches, sources, device, reps: int) -> list:
         launches["edge_relax_scan"], err, k_ms, p_ms, k2_bytes, k2_ops,
         lib_ms))
     return rows
+
+
+def phase_k2_lanes_timing(sess, roots, launches: int, device,
+                          reps: int) -> dict:
+    """Phase 4f: K2's laned payload instance at phase 3d's sssp shape (16
+    lanes of sssp with parents over every cell's sorted region, the lanes'
+    fixed-point distances, a full frontier): held bitwise against its
+    plain version, then timed against it, its byte bound and
+    ``scatter_reduce_`` amin over the same [S * L, E] messages (the
+    yardstick computes the values only, not the counts or the payload)."""
+    from repro_torch.core.programs import PROGRAMS, make_laned
+    from repro_torch.kernels.edge_relax import kernel, ref
+
+    clock = Clock(device)
+    sg = sess.sg
+    S, Np = sg.n_shards, sg.n_per_shard
+    es = sg.sorted_width
+    n_keys = S * Np
+    L = len(roots)
+    prog = make_laned([PROGRAMS["sssp"].factory(source=r) for r in roots])
+    states = [sess.vertex_state("sssp", source=r) for r in roots]
+    vstate = {k: torch.stack([st[k] for st in states], dim=1)
+              for k in states[0]}
+    senders = sg.node_ok[:, None].expand(S, L, Np).contiguous()
+    skey, args = stream_inputs(sess, prog, vstate, senders)
+    got = kernel.edge_relax_scan(*args, skey=skey)
+    want = ref.edge_relax_scan_ref(*args, skey=skey)
+    sync(device)
+    for g, w_, what in zip(got, want, ("value", "count", "payload")):
+        check(torch.equal(g, w_), f"K2 laned payload at the lanes shape: "
+                                  f"{what} differs from the plain version")
+    fin = torch.isfinite(want[0])
+    err = float((got[0] - want[0])[fin].abs().max()) if bool(fin.any()) \
+        else 0.0
+    del got, want
+    kernel.reset_launches()                 # timing launches never count
+    k_ms = clock.ms(lambda: kernel.edge_relax_scan(*args, skey=skey), reps)
+    p_ms = clock.ms(lambda: ref.edge_relax_scan_ref(*args, skey=skey),
+                    max(2, reps // 10), warmup=1)
+    cand, send, _ = ref.edge_messages(*args)
+    ids = torch.where(send, args[4][:, None], n_keys).long()
+    rows = torch.arange(S * L, device=device).view(S, L, 1)
+    flat_i = (ids + rows * (n_keys + 1)).reshape(-1)
+    flat_c = cand.reshape(-1)
+    del ids, send
+    table = torch.empty(S * L * (n_keys + 1), dtype=cand.dtype,
+                        device=device)
+    lib_ms = clock.ms(lambda: table.fill_(float("inf")).scatter_reduce_(
+        0, flat_i, flat_c, "amin"), reps)
+    del cand, flat_i, flat_c, table
+    # each byte once: the shared stream (key, skey, src, weight), the
+    # lanes' dist and senders and the cells' gid, the [S, L, E] value,
+    # count and payload outputs
+    nbytes = S * es * 16 + S * L * Np * 5 + S * Np * 4 + S * L * es * 12
+    ops = S * L * es * (1 + 3 * 10)
+    row = kernel_row(
+        "edge_relax_scan (laned, payload)", "src/repro_torch/kernels/"
+        "edge_relax/csrc/edge_relax_scan.cu",
+        "src/repro/kernels/edge_relax/kernel.py:97", launches, err, k_ms,
+        p_ms, nbytes, ops, lib_ms)
+    emit({"phase": "k2_lanes_timing", "lanes": L, "cells": S, "width": es,
+          "elements": S * L * es, "library": "scatter_reduce_ amin, values "
+          "only", **{k: row[k] for k in ("launches", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "bytes")}})
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
 
 
 def phase_k3_timing(sess, launches, sources, frontier0, device,
@@ -861,10 +1132,11 @@ def trace(name: str, run) -> dict:
                     for k, ms, n in rows[:10]]}
 
 
-def phase_profile(sess, sources, n: int) -> list:
-    """Where the time goes: one trace per query, and one of a commit's
-    push repair (64 edge adds, sssp alone cached) with the device time
-    under the frontier selector's and the compaction's ranges."""
+def phase_profile(sess, sources, roots, n: int) -> list:
+    """Where the time goes: one trace per query (phase 3d's 16-lane sssp
+    on pull and push among them), and one of a commit's push repair (64
+    edge adds, sssp alone cached) with the device time under the frontier
+    selector's and the compaction's ranges."""
     s0 = sources[0]
     rng = np.random.default_rng(99)
 
@@ -882,6 +1154,11 @@ def phase_profile(sess, sources, n: int) -> list:
                       ("pagerank", lambda: sess.query("pagerank",
                                                       refresh=True,
                                                       eps=1e-7)),
+                      ("lanes_sssp_pull", lambda: sess.query(
+                          "sssp", sources=roots, refresh=True)),
+                      ("lanes_sssp_push", lambda: sess.query(
+                          "sssp", sources=roots, sweep="push",
+                          refresh=True)),
                       ("commit_repair", None)):
         out.append(trace(name, run if run is not None else commit()))
     return out
@@ -1303,9 +1580,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one sssp query, one pagerank query, "
-                         "one commit's push repair, one prefill and one "
-                         "decode step with torch.profiler (tables under "
-                         "chiprun_out/)")
+                         "16-lane sssp on pull and push, one commit's push "
+                         "repair, one prefill and one decode step with "
+                         "torch.profiler (tables under chiprun_out/)")
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the path on the CPU with the plain versions "
                          "(tiny sizes); exits 3 and prints no result")
@@ -1370,17 +1647,24 @@ def main(argv=None) -> int:
     sess, launches, sources, results, walls, data = phase_main(args, device)
     push_launches = phase_push(sess, results, walls, sources, data[3],
                                device)
+    roots = lane_roots(data[0], data[3], sources, args.seed)
+    lane_launches = phase_lanes(sess, results, roots, data, device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     rows = phase_timing(sess, launches, sources, device, args.reps)
+    rows.append(phase_k2_lanes_timing(
+        sess, roots, lane_launches["min/max+payload/laned"], device,
+        args.reps))
     k6_row = phase_k6(sess, sources, device, args.reps)
     commit_launches, frontier0 = phase_commits(args, sess, data, sources,
-                                               device)
+                                               roots, device)
     k3_launches = (push_launches["edge_relax_push_blocks"]
                    + commit_launches["edge_relax_push_blocks"])
     k3_row, k3_detail = phase_k3_timing(sess, k3_launches, sources,
                                         frontier0, device, args.reps)
     rows.append(k3_row)
     if args.profile and device.type == "cuda":
-        for line in phase_profile(sess, sources, data[3]):
+        for line in phase_profile(sess, sources, roots, data[3]):
             emit(line)
     del sess, results
     if device.type == "cuda":

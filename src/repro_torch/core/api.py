@@ -1,10 +1,11 @@
 """Stateless convenience API — thin wrappers over :class:`DiffusionSession`
 (PyTorch port of ``repro.core.api``).  Each call builds a transient
 session, so the one-shot style (``sssp(part, 0)``) and the session share
-one execution path.  A list-valued ``source`` asks for multi-query lanes,
-which arrive with the lanes slice.  Every wrapper passes ``sweep=`` ("pull"
-| "push" | "auto") through; :func:`~.dynamic.incremental_sssp` repairs an
-SSSP fixed point after edge updates.
+one execution path.  A list-valued ``source`` fans out into multi-query
+lanes sharing one diffusion (one Result per source).  Every wrapper
+passes ``sweep=`` ("pull" | "push" | "auto") through;
+:func:`~.dynamic.incremental_sssp` repairs an SSSP fixed point after edge
+updates.
 """
 
 from __future__ import annotations
@@ -51,10 +52,13 @@ def run(part: Partitioned, prog: VertexProgram, value_key: str,
 
 
 def _named(part: Partitioned, name: str, max_local_iters: int,
-           sweep: str = "pull", **kwargs) -> Result:
+           sweep: str = "pull", **kwargs):
     sess = DiffusionSession(part, max_local_iters=max_local_iters,
                             sweep=sweep)
-    return _trim(part, sess.query(name, **kwargs))
+    res = sess.query(name, **kwargs)
+    if isinstance(res, list):                 # multi-query lanes
+        return [_trim(part, r) for r in res]
+    return _trim(part, res)
 
 
 def _source_kw(source) -> dict:
@@ -63,14 +67,15 @@ def _source_kw(source) -> dict:
 
 
 def sssp(part: Partitioned, source, track_parents: bool = True,
-         max_local_iters: int = 64, sweep: str = "pull") -> Result:
-    """Single-source shortest paths."""
+         max_local_iters: int = 64, sweep: str = "pull"):
+    """Single-source shortest paths; a list-valued ``source`` runs one lane
+    per source (a list of Results)."""
     return _named(part, "sssp", max_local_iters, sweep,
                   track_parents=track_parents, **_source_kw(source))
 
 
 def bfs(part: Partitioned, source, max_local_iters: int = 64,
-        sweep: str = "pull") -> Result:
+        sweep: str = "pull"):
     return _named(part, "bfs", max_local_iters, sweep, **_source_kw(source))
 
 
@@ -81,8 +86,8 @@ def connected_components(part: Partitioned, max_local_iters: int = 64,
 
 def personalized_pagerank(part: Partitioned, source, alpha: float = 0.15,
                           eps: float = 1e-5, max_local_iters: int = 64,
-                          sweep: str = "pull") -> Result:
-    """Forward-push PPR from ``source``."""
+                          sweep: str = "pull"):
+    """Forward-push PPR from ``source`` (a list: one lane per source)."""
     return _named(part, "ppr", max_local_iters, sweep, alpha=alpha, eps=eps,
                   **_source_kw(source))
 

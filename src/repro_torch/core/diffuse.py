@@ -12,13 +12,29 @@ logical sharded engine of ``repro.core.diffuse``).
 * Termination is global quiescence: no vertex active, no message in
   flight (termination.py).
 
+**Multi-query lanes**: a program built by
+:func:`~.programs.make_laned` carries ``lanes=L`` and [S, L, Np] vertex
+state.  One edge sweep per sub-iteration serves every lane, the outboxes
+gain the lane axis ([S, S, L, Np]), and quiescence is tracked per lane: a
+lane with no active vertex at a round's start sends nothing that round.
+Emit and receive are the same for every lane and K2's order does not
+depend on the lane count, so each lane reproduces its solo fixed point
+bit for bit; ``DiffuseStats`` counts every lane (rounds are the slowest
+lane's).
+
+**The delta-stepping gate** (``delta=``, programs with a ``priority``):
+each round fixes a threshold, the minimum priority of an active vertex
+plus ``delta`` (per lane for laned runs), and only active vertices at or
+under it send; the others stay active.  The inner loop runs while the
+gated frontier is non-empty, the outer one while any vertex is active.
+
 The loops are host ``while`` loops that read from the device once per
-sub-iteration: whether any vertex is still active and, for the push and
-auto sweeps, the max over cells of the active push-block count, in one
-transfer — the host then picks the sweep's compaction bucket
-(``relax.select_bucket``).  Every statistic stays on the device until the
-caller reads it.  Not yet ported: the delta-stepping gate, lanes, hub
-replicas and the SPMD engine.
+sub-iteration: whether any vertex is active, whether any passes the gate
+and, for the push and auto sweeps, the max over cells of the gated active
+push-block count, in one transfer — the host then picks the sweep's
+compaction bucket (``relax.select_bucket``).  Every statistic stays on
+the device until the caller reads it.  Not yet ported: hub replicas and
+the SPMD engine.
 """
 
 from __future__ import annotations
@@ -64,19 +80,31 @@ class DiffuseStats(NamedTuple):
     converged: torch.Tensor         # bool: quiescent, not cut by budget
 
 
-def _local_iter(prog: VertexProgram, sgd, st, relax, mine, diag,
-                bucket=None):
+def _gate(prog: VertexProgram, vstate, active, threshold):
+    """The delta-stepping gate: active vertices whose priority is within
+    the round's bucket (``threshold`` None: every active vertex)."""
+    if threshold is None:
+        return active
+    return active & (prog.priority(vstate) <= threshold)
+
+
+def _local_iter(prog: VertexProgram, sgd, st, relax, mine, diag, node_ok,
+                threshold=None, lane_live=None, bucket=None):
     """One local relaxation sub-iteration of every cell at once.
 
     ``relax`` maps the cells' vertex blocks and streams to the [S, S, Np]
-    message tables; row ``[c, c]`` applies as cell c's local inbox inside
-    this sub-iteration, the other rows merge into the cross-cell outbox.
+    ([S, S, L, Np] laned) message tables; row ``[c, c]`` applies as cell
+    c's local inbox inside this sub-iteration, the other rows merge into
+    the cross-cell outbox.  Only gated senders of live lanes send; the
+    rest of the frontier stays active.
     """
     vstate, active, outbox, outbox_has, outbox_pay = st
     monoid = prog.monoid
     ident = monoid.identity(prog.msg_dtype)
 
-    senders = active
+    senders = _gate(prog, vstate, active, threshold)
+    if lane_live is not None:
+        senders = senders & lane_live[:, None]
     table, cnt, pay = relax(vstate, senders, sgd, bucket)
     inbox = table[diag, diag]
     has_local = cnt[diag, diag] > 0
@@ -93,7 +121,7 @@ def _local_iter(prog: VertexProgram, sgd, st, relax, mine, diag,
 
     vstate = prog.on_send(vstate, senders)
     vstate, activated = prog.receive(vstate, inbox, has_local, pay_in,
-                                     sgd["node_ok"])
+                                     node_ok)
     activated = activated | (active & ~senders)   # withheld stay active
 
     n_send = cnt.sum(dtype=torch.int64)
@@ -137,9 +165,12 @@ def sweep_streams(sg: ShardedGraph, with_push: bool = False):
 
 
 def _run_rounds(sg: ShardedGraph, prog: VertexProgram, vstate0, active0,
-                max_local_iters: int, max_rounds: int, sweep: str = "pull",
+                max_local_iters: int, max_rounds: int, delta=None,
+                sweep: str = "pull",
                 push_threshold: float = DEFAULT_PUSH_THRESHOLD):
     S, Np = sg.n_shards, sg.n_per_shard
+    L = prog.lanes
+    lane = (L,) if L else ()
     sgd, delta_e = sweep_streams(sg, with_push=sweep != "pull")
     block = sg.csr_block
     relax = make_relax(prog, S, Np, block, delta_e=delta_e, sweep=sweep)
@@ -149,27 +180,49 @@ def _run_rounds(sg: ShardedGraph, prog: VertexProgram, vstate0, active0,
     dev = sg.device
     monoid = prog.monoid
     ident = monoid.identity(prog.msg_dtype)
+    use_gate = delta is not None and prog.priority is not None
+    # [S, Np] graph masks broadcast against [S, L, Np] lane state only
+    # with the lane axis made explicit (else S aligns with L)
+    node_ok = sgd["node_ok"][:, None] if L else sgd["node_ok"]
 
     def empty_outbox():
-        box = torch.full((S, S, Np), ident, dtype=prog.msg_dtype, device=dev)
-        has = torch.zeros((S, S, Np), dtype=torch.bool, device=dev)
-        pay = (torch.full((S, S, Np), -1, dtype=torch.int32, device=dev)
+        shape = (S, S) + lane + (Np,)
+        box = torch.full(shape, ident, dtype=prog.msg_dtype, device=dev)
+        has = torch.zeros(shape, dtype=torch.bool, device=dev)
+        pay = (torch.full(shape, -1, dtype=torch.int32, device=dev)
                if prog.with_payload else None)
         return box, has, pay
 
-    def poll(active):
-        """One device read: is any vertex active, and (push/auto) the
-        sweep's bucket from the max over cells of the active-block
-        count."""
-        if sweep == "pull":
-            return bool(active.any()), None
-        with torch.profiler.record_function("repro_torch.push_selector"):
-            count = active_push_blocks(active, sgd["push_src"], block).max()
-            live, count = torch.stack([active.any().to(count.dtype),
-                                       count]).tolist()
-        return bool(live), select_bucket(count, nb, sweep, push_threshold)
+    def threshold(vstate, active):
+        """The round's gate: the minimum active priority plus ``delta``
+        (per lane, [1, L, 1], for laned runs)."""
+        if not use_gate:
+            return None
+        masked = torch.where(active, prog.priority(vstate), float("inf"))
+        if L:
+            return masked.amin(dim=(0, 2), keepdim=True) + delta
+        return masked.min() + delta
 
-    mine = torch.eye(S, dtype=torch.bool, device=dev)[:, :, None]
+    def poll(vstate, active, thr, lane_live):
+        """One device read: is any vertex active, does any pass the gate,
+        and (push/auto) the sweep's bucket from the max over cells of the
+        gated frontier's active-block count."""
+        gated = _gate(prog, vstate, active, thr)
+        flags = [active.any(), gated.any()]
+        if sweep != "pull":
+            with torch.profiler.record_function(
+                    "repro_torch.push_selector"):
+                if lane_live is not None:
+                    gated = gated & lane_live[:, None]
+                flags.append(active_push_blocks(gated, sgd["push_src"],
+                                                block).max())
+        got = torch.stack([f.to(torch.int64) for f in flags]).tolist()
+        bucket = (select_bucket(got[2], nb, sweep, push_threshold)
+                  if sweep != "pull" else None)
+        return bool(got[0]), bool(got[1]), bucket
+
+    mine = torch.eye(S, dtype=torch.bool, device=dev).view(
+        (S, S) + (1,) * (len(lane) + 1))
     diag = torch.arange(S, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     actions = remote = operons = max_frontier = zero
@@ -183,18 +236,24 @@ def _run_rounds(sg: ShardedGraph, prog: VertexProgram, vstate0, active0,
     # the outbox is empty at every round start, so "not quiescent" reads
     # as "some vertex active": one device read per round and per
     # sub-iteration
-    live, bucket = poll(active)
-    while rounds < max_rounds and live:
+    while rounds < max_rounds:
+        thr = threshold(vstate, active)
+        # per-lane quiescence, fixed for the round: lanes without an
+        # active vertex send nothing
+        lane_live = active.any(dim=(0, 2)) if L else None
+        live, gated_live, bucket = poll(vstate, active, thr, lane_live)
+        if not live:
+            break
         li = min(rounds, FRONTIER_LOG_CAP - 1)
         frontier_log[li] = active.sum()
         liters = 0
-        while liters < max_local_iters and live:
+        while liters < max_local_iters and gated_live:
             is_push = int(sweep != "pull" and bucket < n_caps)
             if liters == 0:
                 dir_log[li] = is_push          # the round's opening sweep
             st = (vstate, active, outbox, outbox_has, outbox_pay)
             st, counts = _local_iter(prog, sgd, st, relax, mine, diag,
-                                     bucket)
+                                     node_ok, thr, lane_live, bucket)
             vstate, active, outbox, outbox_has, outbox_pay = st
             local_iters += 1
             push_iters += is_push
@@ -203,7 +262,7 @@ def _run_rounds(sg: ShardedGraph, prog: VertexProgram, vstate0, active0,
             remote = remote + counts["remote"]
             max_frontier = torch.maximum(max_frontier, active.sum())
             if liters < max_local_iters:
-                live, bucket = poll(active)
+                _, gated_live, bucket = poll(vstate, active, thr, lane_live)
         # ---- exchange: deliver every outbox to its destination cell ----
         operons = operons + outbox_has.sum()
         inbox = monoid.reduce_rows(outbox, outbox_has, dim=0)
@@ -212,14 +271,11 @@ def _run_rounds(sg: ShardedGraph, prog: VertexProgram, vstate0, active0,
         if prog.with_payload:
             best = monoid.argbest(outbox, dim=0)
             pay = outbox_pay.gather(0, best[None])[0]
-        vstate, activated = prog.receive(vstate, inbox, has, pay,
-                                         sgd["node_ok"])
+        vstate, activated = prog.receive(vstate, inbox, has, pay, node_ok)
         active = active | activated
         outbox, outbox_has, outbox_pay = empty_outbox()
         rounds += 1
         max_frontier = torch.maximum(max_frontier, active.sum())
-        if rounds < max_rounds:
-            live, bucket = poll(active)
 
     as_t = lambda x: torch.tensor(x, dtype=torch.int64, device=dev)
     stats = DiffuseStats(
@@ -242,15 +298,9 @@ def exact_streams_for(sg: ShardedGraph, prog: VertexProgram) -> ShardedGraph:
     return sg.with_csr()
 
 
-def _check_ported(prog: VertexProgram, delta, sweep: str, sg: ShardedGraph):
+def _check_ported(sweep: str, sg: ShardedGraph):
     if sweep not in RELAX_SWEEPS:
         raise ValueError(f"sweep must be one of {RELAX_SWEEPS}, got {sweep!r}")
-    if delta is not None:
-        raise NotImplementedError(
-            "the delta-stepping priority gate (delta=) arrives with the "
-            "gate/watchdog slice")
-    if prog.lanes:
-        raise NotImplementedError("laned programs arrive with the lanes slice")
     if sg.replica_members is not None:
         raise NotImplementedError(
             "hub-replica graphs arrive with the replicas slice")
@@ -262,18 +312,20 @@ def diffuse(part: Partitioned | ShardedGraph, prog: VertexProgram,
             push_threshold: float = DEFAULT_PUSH_THRESHOLD):
     """Run a diffusive computation to quiescence.
 
-    Returns (vertex-state dict of [S, Np] tensors, :class:`DiffuseStats`)
-    — the paper's ``hpx_diffuse``.  ``sweep`` picks the direction — dense
-    pull, frontier-compacted push, or the per-sub-iteration ``auto``
-    selector (relax.py); every choice reaches the same fixed point
-    bitwise.  ``delta`` must be None (the gate is a later slice).
+    Returns (vertex-state dict of [S, Np] tensors — [S, L, Np] for a
+    laned program — and :class:`DiffuseStats`): the paper's
+    ``hpx_diffuse``.  ``sweep`` picks the direction — dense pull,
+    frontier-compacted push, or the per-sub-iteration ``auto`` selector
+    (relax.py); every choice reaches the same fixed point bitwise.
+    ``delta`` turns on the delta-stepping gate for programs with a
+    ``priority`` (see the module docstring).
     """
     sg = part.sg if isinstance(part, Partitioned) else part
-    _check_ported(prog, delta, sweep, sg)
+    _check_ported(sweep, sg)
     sg = exact_streams_for(sg, prog)
     vstate0, active0 = prog.init(sg)   # unsplit: the graph is its own view
     return _run_rounds(sg, prog, vstate0, active0, max_local_iters,
-                       max_rounds, sweep, push_threshold)
+                       max_rounds, delta, sweep, push_threshold)
 
 
 def diffuse_from(part: Partitioned | ShardedGraph, prog: VertexProgram,
@@ -281,11 +333,11 @@ def diffuse_from(part: Partitioned | ShardedGraph, prog: VertexProgram,
                  max_rounds: int = 10_000, delta=None, sweep: str = "pull",
                  push_threshold: float = DEFAULT_PUSH_THRESHOLD):
     """Resume a diffusion from an explicit (state, frontier) — the commit
-    repairs' entry.  Repairs resume from a tiny frontier, which is where
-    ``sweep="push"`` turns the O(E) sweep into O(frontier-adjacent
-    edges)."""
+    repairs' entry, under the same ``delta`` gate as the query it repairs.
+    Repairs resume from a tiny frontier, which is where ``sweep="push"``
+    turns the O(E) sweep into O(frontier-adjacent edges)."""
     sg = part.sg if isinstance(part, Partitioned) else part
-    _check_ported(prog, delta, sweep, sg)
+    _check_ported(sweep, sg)
     sg = exact_streams_for(sg, prog)
     return _run_rounds(sg, prog, vstate, active, max_local_iters, max_rounds,
-                       sweep, push_threshold)
+                       delta, sweep, push_threshold)

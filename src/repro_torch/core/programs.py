@@ -36,6 +36,7 @@ __all__ = [
     "Field", "DiffusiveProgram", "VertexProgram", "KernelEmit",
     "EMIT_FORMS", "ProgramSpec", "BoundQuery", "ProgramHandle",
     "diffusive", "lower", "PROGRAMS", "register_program", "freeze_kwargs",
+    "make_laned",
     "sssp", "bfs", "cc", "ppr", "pagerank", "widest", "reach",
     "sssp_program", "bfs_program", "cc_program", "ppr_program",
     "pagerank_program", "widest_program", "reach_program",
@@ -90,6 +91,10 @@ class VertexProgram:
 
     Vertex-state leaves are [S, Np] tensors (the engine batches the cells
     along the leading dimension); edge arguments of ``emit`` are [S, E].
+    A laned program (``lanes = L``, :func:`make_laned`) has [S, L, Np]
+    leaves; the engine hands ``emit`` [S, 1, E] edge arguments and
+    ``receive`` an [S, 1, Np] ``node_ok``, so every function broadcasts
+    over the lane axis.
     """
 
     monoid: Monoid
@@ -233,7 +238,7 @@ class ProgramSpec(NamedTuple):
     """Registry entry making a program invocable by name.
 
     ``lane_param`` names the kwarg whose plural form fans out into query
-    lanes (``source`` -> ``sources``; lanes are a later slice).
+    lanes (``source`` -> ``sources``, see :func:`make_laned`).
     """
 
     name: str
@@ -343,6 +348,54 @@ def diffusive(name: str, *, value_key: str, repair: str = "restart",
         ))
         return handle
     return deco
+
+
+# --------------------------------------------------------------------------
+# multi-query lanes
+# --------------------------------------------------------------------------
+
+_LANED: dict[tuple, VertexProgram] = {}
+
+
+def make_laned(progs) -> VertexProgram:
+    """Stack B single-query programs into one laned program.
+
+    Vertex-state leaves and the active mask gain a lane axis at -2 (the
+    engine's ``[S, Np]`` becomes ``[S, L, Np]``); emit / receive / on_send
+    / priority come from the first program and broadcast over lanes, so
+    the lane-varying kwargs (the registry's ``lane_param``) may only
+    change the init schema and the initial frontier.  The engine then
+    runs one edge sweep per sub-iteration for all B queries.
+
+    Cached (bounded, like the handles' lowered programs) on each program
+    *and its init*: lanes [0, 1] never serve lanes [2, 3].
+    """
+    progs = tuple(progs)
+    if not progs:
+        raise ValueError("make_laned needs at least one program")
+    lkey = tuple((p, p.init) for p in progs)
+    if lkey in _LANED:
+        return _LANED[lkey]
+    base = progs[0]
+    for p in progs[1:]:
+        if (p.monoid != base.monoid or p.msg_dtype != base.msg_dtype
+                or p.with_payload != base.with_payload):
+            raise ValueError(
+                "lane programs must share monoid, msg dtype, and "
+                "payload-ness (only init may vary per lane)")
+
+    def init(view):
+        outs = [p.init(view) for p in progs]
+        vstate = {k: torch.stack([o[0][k] for o in outs], dim=-2)
+                  for k in outs[0][0]}
+        return vstate, torch.stack([o[1] for o in outs], dim=-2)
+
+    laned = dataclasses.replace(base, init=init, lanes=len(progs),
+                                name=f"{base.name or 'prog'}[x{len(progs)}]")
+    while len(_LANED) >= _PROGRAM_CACHE_SIZE:
+        _LANED.pop(next(iter(_LANED)))
+    _LANED[lkey] = laned
+    return laned
 
 
 # --------------------------------------------------------------------------

@@ -54,8 +54,11 @@ def push_caps(n_blocks: int) -> tuple:
 
 def active_push_blocks(senders, push_src, block_e: int):
     """Per-cell count of push blocks touched by the sending frontier:
-    ``senders`` [S, Np] bool, ``push_src`` the matching [S, W]
-    source-sorted stream (``-1`` on dead positions).  Returns [S] int64."""
+    ``senders`` [S, Np] bool (or lane-stacked [S, L, Np]: the lanes OR
+    into one active set), ``push_src`` the matching [S, W] source-sorted
+    stream (``-1`` on dead positions).  Returns [S] int64."""
+    if senders.ndim == push_src.ndim + 1:
+        senders = senders.any(dim=-2)
     ok = push_src >= 0
     act = torch.gather(senders, -1, push_src.clamp(min=0).long()) & ok
     nb = push_src.shape[-1] // block_e
@@ -96,8 +99,11 @@ def make_relax(prog, n_shards: int, n_per_shard: int, block_e: int,
         pay   [S, S, Np]  int32 argbest payload, or None
 
     Row ``[c, c]`` is cell c's local inbox, the other rows its outbox
-    contributions.  ``delta_e`` is the width of the staged delta segment
-    the ``csr_*`` streams carry (0 when they end at the sorted region).
+    contributions.  A laned program's ([S, L, Np] vstate and senders)
+    tables are [S, S, L, Np]: the destination shard stays second, so
+    ``[c, c]`` is still the local inbox.  ``delta_e`` is the width of the
+    staged delta segment the ``csr_*`` streams carry (0 when they end at
+    the sorted region).
     ``sweep="pull"`` ignores ``bucket``.
     """
     from ..kernels.edge_relax.ops import edge_relax, edge_relax_push
@@ -107,9 +113,17 @@ def make_relax(prog, n_shards: int, n_per_shard: int, block_e: int,
     n_keys = n_shards * n_per_shard
     shp = (-1, n_shards, n_per_shard)
 
+    def _cells(a):
+        # [S, n_keys] -> [S, S_dst, Np]; laned [S, L, n_keys] ->
+        # [S, L, S_dst, Np] -> [S, S_dst, L, Np]
+        if prog.lanes:
+            return a.reshape(shp[:1] + (prog.lanes,) + shp[1:]).transpose(
+                1, 2)
+        return a.reshape(shp)
+
     def _shape(table, cnt, pay):
-        return (table.reshape(shp), cnt.reshape(shp),
-                None if pay is None else pay.reshape(shp))
+        return (_cells(table), _cells(cnt),
+                None if pay is None else _cells(pay))
 
     def _dense(vstate, senders, sgd):
         return edge_relax(

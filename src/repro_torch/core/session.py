@@ -7,7 +7,15 @@ cache) any registered program on the logical sharded engine, with the
 relaxation step on the hand-written CUDA kernels when the graph lives on a
 GPU (the default) and on their plain versions when it lives on the CPU.
 ``sweep="pull" | "push" | "auto"`` picks the sweep direction (relax.py);
-every choice gives the same fixed point bitwise.
+every choice gives the same fixed point bitwise.  ``delta=`` turns on the
+delta-stepping gate (diffuse.py) and is kept for the entry's repairs.
+
+**Multi-query lanes**: pluralizing a program's lane parameter —
+``query("sssp", sources=[s0, s1, ...])`` — runs the B queries as lanes of
+one diffusion (one edge sweep per sub-iteration serves every lane) and
+returns one Result per source, each bitwise the single-source query's
+fixed point and cached under that query's own key, so a later solo query
+is a cache hit and ``commit()`` repairs each lane like any entry.
 
 Mutations (``add_vertex``/``delete_vertex``/``add_edge``/``delete_edge``/
 ``touch``, or a whole ``update()`` batch) apply at ``commit()``, which then
@@ -27,9 +35,10 @@ strategy:
 Warm repairs resume from a tiny frontier and so default to the push sweep.
 
 Not ported yet, each raising :class:`NotImplementedError` that names its
-slice: multi-query lanes (a pluralized lane parameter), ``save``/``open``
-and the write-ahead journal, the ``spmd`` and ``event`` engines,
-``delta=`` gating, and the ``triangles`` query.
+slice: ``save``/``open`` and the write-ahead journal, the ``spmd`` and
+``event`` engines, hub replicas, and the ``triangles`` query.  The
+``on_budget=`` / ``validate=`` watchdog is not ported either (a cut
+budget warns).
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from .programs import (
     ProgramSpec,
     VertexProgram,
     freeze_kwargs,
+    make_laned,
     register_program,
 )
 from .relax import RELAX_SWEEPS
@@ -95,6 +105,7 @@ class _Entry:
     sweep: str | None = None     # explicit sweep knob; None = defaulted
                                  #   (queries use the session's, repairs
                                  #   default to the push sweep)
+    delta: float | None = None   # delta-stepping gate, kept across repairs
 
 
 class CommitInfo(NamedTuple):
@@ -229,11 +240,13 @@ class DiffusionSession:
     # ------------------------------------------------------------------
 
     def _key(self, name: str, engine: str, kwargs: dict,
-             sweep: str = "pull") -> tuple:
+             sweep: str = "pull", delta: float | None = None) -> tuple:
         # sweep variants are bitwise-identical fixed points, but they key
-        # separately so a caller can hold both warm; pull keys keep the
-        # plain shape
+        # separately so a caller can hold both warm; ungated pull keys
+        # keep the plain shape
         key = (name, engine, freeze_kwargs(kwargs))
+        if delta is not None:
+            key = key + (("delta", delta),)
         if sweep != "pull":
             key = key + (("sweep", sweep),)
         return key
@@ -273,24 +286,26 @@ class DiffusionSession:
 
     def query(self, prog, engine: str | None = None, sweep: str | None = None,
               refresh: bool = False, value_key: str | None = None,
-              delta: float | None = None, **kwargs) -> Result:
+              delta: float | None = None, **kwargs) -> Result | list:
         """Run (or serve from cache) a named or ad-hoc vertex program.
 
         ``prog`` is a registry name ("sssp", "bfs", "cc", "ppr",
         "pagerank", "widest", "reach"), a handle or bound query from
         :func:`~.programs.diffusive`, or a raw :class:`VertexProgram`
         (then ``value_key`` selects the result field).  Fixed points are
-        cached per (program, kwargs, sweep) and repaired by ``commit()``;
-        ``refresh=True`` recomputes.  ``sweep`` ("pull" | "push" |
-        "auto") picks the direction; all give the same bits.
+        cached per (program, kwargs, sweep, delta) and repaired by
+        ``commit()``; ``refresh=True`` recomputes.  ``sweep`` ("pull" |
+        "push" | "auto") picks the direction; all give the same bits.
+        ``delta`` gates programs with a priority (delta-stepping) and is
+        kept for the entry's repairs.  A pluralized lane parameter
+        (``sources=[...]``) runs multi-query lanes and returns a list of
+        per-source Results (module docstring).
         """
         engine = engine or self.engine
         explicit_sweep = sweep
         sweep = sweep or self.sweep
         self._check_engine(engine)
         _check_sweep(sweep)
-        if delta is not None:
-            _later("delta-stepping (delta=)", "gate/watchdog")
         spec, name, kwargs, adhoc = self._resolve(prog, kwargs)
         if adhoc is not None:
             if value_key is None:
@@ -303,20 +318,49 @@ class DiffusionSession:
             return spec.run_fn(self, **kwargs)
         lane_kw = spec.lane_param + "s" if spec.lane_param else None
         if lane_kw and lane_kw in kwargs:
-            _later(f"multi-query lanes ({lane_kw}=[...])", "lanes")
+            lane_vals = list(kwargs.pop(lane_kw))
+            return self._query_lanes(spec, name, lane_vals, kwargs, engine,
+                                     refresh, delta, value_key, sweep,
+                                     explicit_sweep)
 
-        key = self._key(name, engine, kwargs, sweep)
+        key = self._key(name, engine, kwargs, sweep, delta)
         if not refresh:
             hit = self._cache_get(key)
             if hit is not None:
                 return self._result(hit)
         program = adhoc if adhoc is not None else spec.factory(**kwargs)
-        vstate, stats = self._run_diffusion(program, sweep)
+        vstate, stats = self._run_diffusion(program, sweep, delta)
         entry = _Entry(spec, program, value_key or spec.value_key, vstate,
-                       stats, sweep=explicit_sweep)
+                       stats, sweep=explicit_sweep, delta=delta)
         self._cache_put(key, entry)
         self._warn_budget(stats, f"query {name!r}")
         return self._result(entry)
+
+    def _query_lanes(self, spec: ProgramSpec, name: str, lane_vals: list,
+                     kwargs: dict, engine: str, refresh: bool, delta,
+                     value_key: str | None, sweep: str,
+                     explicit_sweep: str | None) -> list:
+        """Fan a pluralized lane parameter out into B lanes of one
+        diffusion, and split the laned fixed point ([S, L, Np] leaves)
+        into ordinary single-query cache entries ([S, Np]), so commit()
+        repairs each lane like a query issued on its own.  A push / auto
+        sweep ORs every lane's senders into one compaction."""
+        per_lane = [dict(kwargs, **{spec.lane_param: v}) for v in lane_vals]
+        keys = [self._key(name, engine, kw, sweep, delta) for kw in per_lane]
+        if not refresh and all(k in self._cache for k in keys):
+            return [self._result(self._cache_get(k)) for k in keys]
+        progs = tuple(spec.factory(**kw) for kw in per_lane)
+        vstate, stats = self._run_diffusion(make_laned(progs), sweep, delta)
+        self._warn_budget(stats, f"query {name!r} ({len(progs)} lanes)")
+        vk = value_key or spec.value_key
+        results = []
+        for i, (prog, key) in enumerate(zip(progs, keys)):
+            lane_state = {k: v[:, i].contiguous() for k, v in vstate.items()}
+            entry = _Entry(spec, prog, vk, lane_state, stats,
+                           sweep=explicit_sweep, delta=delta)
+            self._cache_put(key, entry)
+            results.append(self._result(entry))
+        return results
 
     def _warn_budget(self, stats, context: str):
         if not bool(stats.converged):
@@ -329,10 +373,11 @@ class DiffusionSession:
         compaction so later queries and repairs reuse it."""
         self.part.sg = exact_streams_for(self.sg, program)
 
-    def _run_diffusion(self, program: VertexProgram, sweep: str = "pull"):
+    def _run_diffusion(self, program: VertexProgram, sweep: str = "pull",
+                       delta: float | None = None):
         self._compact_for(program)
         return diffuse(self.sg, program, max_local_iters=self.max_local_iters,
-                       max_rounds=self.max_rounds, sweep=sweep)
+                       max_rounds=self.max_rounds, delta=delta, sweep=sweep)
 
     def _result(self, entry: _Entry) -> Result:
         values = self.to_global(entry.vstate[entry.value_key])
@@ -379,6 +424,12 @@ class DiffusionSession:
             raise ValueError(
                 "peek reads a cached vertex state of a registered diffusive "
                 "program")
+        lane_kw = spec.lane_param + "s" if spec.lane_param else None
+        if lane_kw and lane_kw in kwargs:
+            raise ValueError(
+                f"peek reads one cached fixed point; a lane batch caches "
+                f"per source — peek with {spec.lane_param}=<one of "
+                f"{lane_kw}> instead")
         key = self._key(name, engine, kwargs, sweep)
         if key not in self._cache:
             # the unique cached variant of this program serves a plain
@@ -473,16 +524,19 @@ class DiffusionSession:
             self._compact_for(entry.prog)
             vstate, stats = diffuse(self.sg, entry.prog, max_local_iters=mli,
                                     max_rounds=self.max_rounds,
+                                    delta=entry.delta,
                                     sweep=entry.sweep or self.sweep)
             entry.vstate, entry.stats = vstate, stats
             return ("restart", stats)
 
         vstate, active = self._warm_state(entry, applied, strategy)
         # warm repairs resume from a tiny frontier, so they default to the
-        # frontier-compacted push sweep (an explicit query sweep wins)
+        # frontier-compacted push sweep (an explicit query sweep wins), and
+        # run under the entry's own gate
         vstate, stats = diffuse_from(self.sg, entry.prog, vstate, active,
                                      max_local_iters=mli,
                                      max_rounds=self.max_rounds,
+                                     delta=entry.delta,
                                      sweep=entry.sweep or "push")
         entry.vstate, entry.stats = vstate, stats
         return (strategy, stats)

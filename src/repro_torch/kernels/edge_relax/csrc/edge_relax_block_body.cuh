@@ -8,8 +8,8 @@
 // One CTA of 128 threads per (block slot, cell).  Each thread loads its
 // key/src (and weight where the emit form reads it), gathers senders[src]
 // and the emit field at src from the cell's vertex block (L2-resident in
-// place of the TPU's pinned VMEM copy), applies the templated emit form and
-// the send/validity mask, and the block then:
+// place of the TPU's pinned VMEM copy), applies the templated emit form of
+// edge_relax_emit.cuh and the send/validity mask, and the block then:
 //   * ranks the runs of equal adjacent keys with warp ballots + popc and a
 //     4-entry cross-warp prefix (dense rank = the one-hot column of the
 //     TPU kernel).  Ranks come from `key != prev` alone, never from
@@ -30,39 +30,12 @@
 
 #include <cuda_runtime.h>
 
-#include <climits>
-#include <cmath>
+#include "edge_relax_emit.cuh"
 
 namespace {
 
 constexpr int kBlockE = 128;
 constexpr int kWarps = kBlockE / 32;
-
-enum EmitForm : int { kAddWeight = 0, kAddConst = 1, kCopy = 2, kMinWeight = 3 };
-
-template <typename T, bool MAX>
-struct Combine;
-
-template <>
-struct Combine<float, false> {
-  static __device__ __forceinline__ float ident() { return INFINITY; }
-  static __device__ __forceinline__ float op(float a, float b) { return fminf(a, b); }
-};
-template <>
-struct Combine<float, true> {
-  static __device__ __forceinline__ float ident() { return -INFINITY; }
-  static __device__ __forceinline__ float op(float a, float b) { return fmaxf(a, b); }
-};
-template <>
-struct Combine<int, false> {
-  static __device__ __forceinline__ int ident() { return INT_MAX; }
-  static __device__ __forceinline__ int op(int a, int b) { return min(a, b); }
-};
-template <>
-struct Combine<int, true> {
-  static __device__ __forceinline__ int ident() { return INT_MIN; }
-  static __device__ __forceinline__ int op(int a, int b) { return max(a, b); }
-};
 
 template <typename T, bool MAX, int EMIT, bool PAY, bool PUSH>
 __global__ void __launch_bounds__(kBlockE)
@@ -73,7 +46,7 @@ blocks_kernel(const T* __restrict__ field, const bool* __restrict__ senders,
               int* __restrict__ cnt, int* __restrict__ uniq,
               int* __restrict__ pay, int np, int nb, long long stride,
               float emit_const) {
-  using C = Combine<T, MAX>;
+  using C = Combine<T, MAX ? kMax : kMin>;
   __shared__ int s_key[kBlockE];
   __shared__ int s_rank[kBlockE];
   __shared__ T s_cand[kBlockE];
@@ -99,16 +72,7 @@ blocks_kernel(const T* __restrict__ field, const bool* __restrict__ senders,
     const long long v = vbase + src[e];
     send = senders[v];
     if (send) {
-      const T x = field[v];
-      if constexpr (EMIT == kAddWeight) {
-        cand = x + weight[e];
-      } else if constexpr (EMIT == kAddConst) {
-        cand = x + emit_const;
-      } else if constexpr (EMIT == kMinWeight) {
-        cand = fminf(x, weight[e]);
-      } else {
-        cand = x;
-      }
+      cand = emit_message<T, EMIT>(field, nullptr, v, weight, e, emit_const);
       if constexpr (PAY) p = gid[v];
     }
   }
@@ -211,7 +175,8 @@ cudaError_t dispatch_comb(int combine_max, int with_payload,
 }
 
 // msg_is_int selects int32 messages (only the copy form); emit_form is an
-// EmitForm.  Returns a cudaError_t.
+// EmitForm other than kPushShare (min/max programs).  Returns a
+// cudaError_t.
 template <bool PUSH>
 int dispatch(int msg_is_int, int combine_max, int emit_form, int with_payload,
              const BlockArgs& a) {

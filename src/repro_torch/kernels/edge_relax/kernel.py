@@ -9,14 +9,17 @@
   Design: one CTA per (block, cell), ballot/popc ranks, one pass, no
   atomics; the vertex block is served from L2.
 * :func:`edge_relax_scan` (K2, ``csrc/edge_relax_scan.cu``) replaces
-  ``repro/kernels/edge_relax/kernel.py :: edge_relax_scan``: the
-  ``push_share`` emit and a segmented inclusive scan in a fixed tile/tree
-  order (see ``ref.stream_scan``).  Sum programs (PPR, PageRank).  Bound by
-  memory: about 20 B per edge over 3.35 TB/s.  Design: a shared-memory
-  tree per 1024-element tile, a one-warp sequential carry, and a pass over
-  the leading open runs only.  A second input mode,
-  :func:`edge_relax_scan_pre`, scans message/send streams that the push
-  sweep already emitted, in the same order.
+  ``repro/kernels/edge_relax/kernel.py :: edge_relax_scan``: any emit form
+  and a segmented inclusive scan of (value, count[, argbest payload]) in a
+  fixed tile/tree order (see ``ref.stream_scan``), over every monoid class
+  and over multi-query lanes ([S, L, Np] vertex blocks against the shared
+  [S, E] stream).  Sum programs (PPR, PageRank) and every laned run.  Bound
+  by memory: about 20-28 B per edge and lane over 3.35 TB/s.  Design: a
+  shared-memory tree per 1024-element tile, a one-warp sequential carry,
+  and a pass over the leading open runs only; one grid row per (cell,
+  lane).  A second input mode, :func:`edge_relax_scan_pre`, scans
+  message/send/payload streams that the push sweep already emitted, in
+  the same order.
 * :func:`edge_relax_push_blocks` (K3, ``csrc/edge_relax_push_blocks.cu``)
   replaces ``repro/kernels/edge_relax/kernel.py :: edge_relax_push_blocks``:
   K1's body (shared through ``csrc/edge_relax_block_body.cuh``) over the
@@ -30,13 +33,16 @@ Dispatch follows the tensors' device: CPU tensors take the plain version in
 ``kernels/_build.py``) or raise — there is no fallback.  Each wrapper adds
 one to :data:`LAUNCHES` where it launches its kernel, and nowhere else.
 
-The kernels compute fixed emit forms, so a program must declare a
-:class:`~repro_torch.core.programs.KernelEmit` to run on CUDA.
+The kernels compute fixed emit forms (``csrc/edge_relax_emit.cuh``), so a
+program must declare a :class:`~repro_torch.core.programs.KernelEmit` to
+run on CUDA.  K2 also counts its launches per variant in
+:data:`SCAN_LAUNCHES`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import torch
@@ -45,8 +51,8 @@ from .. import _build
 from . import ref
 
 __all__ = ["edge_relax_blocks", "edge_relax_scan", "edge_relax_scan_pre",
-           "edge_relax_push_blocks", "build", "LAUNCHES", "reset_launches",
-           "KERNEL_SOURCES", "BLOCK_E"]
+           "edge_relax_push_blocks", "build", "LAUNCHES", "SCAN_LAUNCHES",
+           "reset_launches", "KERNEL_SOURCES", "BLOCK_E"]
 
 BLOCK_E = 128          # K1's block width (one thread per edge)
 
@@ -61,8 +67,15 @@ KERNEL_SOURCES = {
 # pre-emitted mode counts as a launch of edge_relax_scan
 LAUNCHES = {"edge_relax_blocks": 0, "edge_relax_scan": 0,
             "edge_relax_push_blocks": 0}
+# K2's launches (both input modes) split by variant: the monoid class, the
+# argbest payload, and a lane axis
+SCAN_LAUNCHES = {f"{k}{lane}": 0 for k in ("sum", "min/max",
+                                           "min/max+payload")
+                 for lane in ("", "/laned")}
 
-_EMIT_CODE = {"add_weight": 0, "add_const": 1, "copy": 2, "min_weight": 3}
+# the EmitForm codes of csrc/edge_relax_emit.cuh
+_EMIT_CODE = {"add_weight": 0, "add_const": 1, "copy": 2, "min_weight": 3,
+              "push_share": 4}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,8 +87,10 @@ _SYMBOLS = {
         "edge_relax_blocks_launch":
             [_P] * 10 + [_I, _I, _LL, _LL, _I, _I, _I, _I, _F, _P]},
     "edge_relax_scan": {
-        "edge_relax_scan_launch": [_P] * 13 + [_I, _I, _LL, _I, _F, _P],
-        "edge_relax_scan_pre_launch": [_P] * 10 + [_I, _LL, _LL, _I, _P]},
+        "edge_relax_scan_launch":
+            [_P] * 18 + [_I, _I, _I, _LL, _I, _I, _I, _I, _I, _F, _P],
+        "edge_relax_scan_pre_launch":
+            [_P] * 14 + [_I, _I, _LL, _LL, _I, _I, _I, _I, _P]},
     "edge_relax_push_blocks": {
         "edge_relax_push_blocks_launch":
             [_P] * 11 + [_I, _I, _LL, _LL, _I, _I, _I, _I, _I, _F, _P]},
@@ -84,8 +99,9 @@ _FNS: dict = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, SCAN_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def build() -> None:
@@ -165,7 +181,7 @@ def _block_inputs(name, prog, vstate, senders, gid, key, src, weight,
     if prog.combine not in ("min", "max"):
         raise ValueError(f"{name} serves min/max programs, not "
                          f"{prog.combine!r} ({prog.name!r})")
-    if ke.form not in _EMIT_CODE:
+    if ke.form not in _EMIT_CODE or ke.form == "push_share":
         raise ValueError(f"{name} has no {ke.form!r} emit form")
     if block_e != BLOCK_E:
         raise ValueError(f"the CUDA kernel's block is {BLOCK_E}, "
@@ -239,15 +255,57 @@ def edge_relax_push_blocks(prog, vstate, senders, gid, key, src, weight,
     return part, cnt, uniq, pay
 
 
+_COMBINE_CODE = {"min": 0, "max": 1, "sum": 2}
+
+
+def _scan_variant(combine: str, payload: bool, laned: bool) -> str:
+    """The :data:`SCAN_LAUNCHES` key of one K2 launch."""
+    kind = "sum" if combine == "sum" else "min/max"
+    return kind + ("+payload" if payload else "") + ("/laned" if laned else "")
+
+
+def _scan_outputs(msg, rows_shape, es, payload, dev):
+    """K2's outputs ``[*rows_shape, es]`` (value, count, payload | None)
+    and its scratch: seven ``[rows, ceil(es / tile)]`` planes (agg_v,
+    agg_c, agg_p, first, carry_v, carry_c, carry_p; the value planes hold
+    the message dtype's bits)."""
+    shape = tuple(rows_shape) + (es,)
+    v = torch.empty(shape, dtype=msg, device=dev)
+    c = torch.empty(shape, dtype=torch.int32, device=dev)
+    p = torch.empty(shape, dtype=torch.int32, device=dev) if payload else None
+    rows = math.prod(rows_shape)
+    if rows > 65535:
+        raise ValueError(f"K2 scans at most 65535 rows (cells x lanes), "
+                         f"got {rows}")
+    nt = -(-es // ref.SCAN_TILE)
+    scratch = torch.empty((7, rows, nt), dtype=torch.int32, device=dev)
+    return v, c, p, [scratch[k].data_ptr() for k in range(7)]
+
+
+def _check_scan_instance(kind: str, msg, form: str | None) -> None:
+    """The (monoid, message dtype, emit form) instances K2 compiles: f32
+    messages under every form, i32 under ``copy`` (and pre-emitted)."""
+    if kind not in _COMBINE_CODE:
+        raise ValueError(f"no K2 instance for the {kind!r} monoid class")
+    if msg not in (torch.float32, torch.int32) or (
+            msg == torch.int32 and form not in (None, "copy")):
+        raise TypeError(f"no K2 instance for {msg} messages under the "
+                        f"{form!r} emit form")
+
+
 def edge_relax_scan(prog, vstate, senders, gid, key, src, weight, dst_gid,
                     skey=None):
     """K2: emit + fixed-order segmented scan over each cell's sorted region.
 
-    ``key`` (live-masked), ``skey`` (structural, defaults to ``key``) and
-    ``src`` are ``[S, E]`` views whose rows may be slices of wider streams
-    (last-dim stride 1, all three with the same strides).  Returns the
-    scanned ``(value, count, None)`` streams, each ``[S, E]``; feed them to
-    ``ref.gather_runs``.  CPU tensors take ``ref.edge_relax_scan_ref``.
+    ``key`` (live-masked), ``skey`` (structural, defaults to ``key``),
+    ``src`` and ``weight`` are ``[S, E]`` views whose rows may be slices
+    of wider streams (last-dim stride 1, all with the key's strides);
+    ``gid`` is ``[S, Np]``.  ``vstate`` leaves and ``senders`` are ``[S,
+    Np]``, or ``[S, L, Np]`` for L lanes sharing the stream.  Returns the
+    scanned ``(value, count, payload | None)`` streams, each ``[S, E]`` or
+    ``[S, L, E]``; feed them to ``ref.gather_runs``.  Any monoid class,
+    emit form and the argbest payload; CPU tensors take
+    ``ref.edge_relax_scan_ref``.
     """
     if skey is None:
         skey = key
@@ -255,83 +313,89 @@ def edge_relax_scan(prog, vstate, senders, gid, key, src, weight, dst_gid,
         return ref.edge_relax_scan_ref(prog, vstate, senders, gid, key, src,
                                        weight, dst_gid, skey=skey)
     ke = _kernel_emit(prog)
-    if prog.combine != "sum" or ke.form != "push_share":
-        raise ValueError(
-            f"edge_relax_scan serves sum programs with the push_share emit, "
-            f"not {prog.name!r} ({prog.combine}, {ke.form})")
-    if prog.with_payload:
-        raise NotImplementedError(
-            "the payload scan serves laned min/max programs (lanes slice)")
+    msg = prog.msg_dtype
+    _check_scan_instance(prog.combine, msg, ke.form)
     s_, es = key.shape
     np_ = gid.shape[-1]
+    laned = senders.ndim == 3
+    lanes = senders.shape[1] if laned else 1
+    rows_shape = (s_, lanes) if laned else (s_,)
     dev = key.device
-    _check(f"vstate[{ke.field!r}]", vstate[ke.field], torch.float32,
-           (s_, np_), dev)
-    _check(f"vstate[{ke.divisor!r}]", vstate[ke.divisor], torch.float32,
-           (s_, np_), dev)
-    _check("senders", senders, torch.bool, (s_, np_), dev)
+    field = vstate[ke.field]
+    _check(f"vstate[{ke.field!r}]", field, msg, rows_shape + (np_,), dev)
+    divisor = None
+    if ke.divisor is not None:
+        divisor = vstate[ke.divisor]
+        _check(f"vstate[{ke.divisor!r}]", divisor, torch.float32,
+               rows_shape + (np_,), dev)
+    _check("senders", senders, torch.bool, rows_shape + (np_,), dev)
+    _check("gid", gid, torch.int32, (s_, np_), dev)
     rows = key.stride()
     if rows[-1] != 1:
         raise ValueError("key must have unit last-dim stride")
     for name, t in (("key", key), ("skey", skey), ("src", src)):
         _check(name, t, torch.int32, (s_, es), dev, rows)
-    tile = ref.SCAN_TILE
-    nt = -(-es // tile)
-    v = torch.empty((s_, es), dtype=torch.float32, device=dev)
-    c = torch.empty((s_, es), dtype=torch.int32, device=dev)
-    agg_v = torch.empty((s_, nt), dtype=torch.float32, device=dev)
-    carry_v = torch.empty((s_, nt), dtype=torch.float32, device=dev)
-    agg_c, first, carry_c = (torch.empty((s_, nt), dtype=torch.int32,
-                                         device=dev) for _ in range(3))
+    _check("weight", weight, torch.float32, (s_, es), dev, rows)
+    v, c, p, scratch = _scan_outputs(msg, rows_shape, es,
+                                     prog.with_payload, dev)
     err = _fn("edge_relax_scan_launch")(
-        vstate[ke.field].data_ptr(), vstate[ke.divisor].data_ptr(),
-        senders.data_ptr(), key.data_ptr(), skey.data_ptr(), src.data_ptr(),
-        v.data_ptr(), c.data_ptr(), agg_v.data_ptr(), agg_c.data_ptr(),
-        first.data_ptr(), carry_v.data_ptr(), carry_c.data_ptr(),
-        s_, np_, rows[0], es, float(ke.const), _build.stream())
+        field.data_ptr(), divisor.data_ptr() if divisor is not None else None,
+        senders.data_ptr(), gid.data_ptr(), key.data_ptr(), skey.data_ptr(),
+        src.data_ptr(), weight.data_ptr(), v.data_ptr(), c.data_ptr(),
+        p.data_ptr() if p is not None else None, *scratch, s_, lanes, np_,
+        rows[0], es, int(msg == torch.int32), _COMBINE_CODE[prog.combine],
+        _EMIT_CODE[ke.form], int(prog.with_payload), float(ke.const),
+        _build.stream())
     _build.raise_on("edge_relax_scan", err)
     LAUNCHES["edge_relax_scan"] += 1
-    return v, c, None
+    SCAN_LAUNCHES[_scan_variant(prog.combine, prog.with_payload, laned)] += 1
+    return v, c, p
 
 
 def edge_relax_scan_pre(monoid, cand, send, skey, pay=None):
-    """K2's pre-emitted mode: the fixed-order segmented scan of message
-    and send streams that are already emitted (the push sweep's scatter
-    back into the destination-sorted layout) — ``ref.stream_scan``'s
-    signature and result.  ``cand`` f32 and ``send`` bool are ``[S, E]``
-    with unit last-dim stride and a shared row stride; ``skey`` ``[S, E]``
-    may be a slice of wider rows.  CPU tensors take ``ref.stream_scan``.
+    """K2's pre-emitted mode: the fixed-order segmented scan of message,
+    send (and payload) streams that are already emitted (the push sweep's
+    scatter back into the destination-sorted layout) —
+    ``ref.stream_scan``'s signature and result.  ``cand`` (f32 or i32),
+    ``send`` bool and ``pay`` i32 are ``[S, E]`` or lane-stacked ``[S, L,
+    E]``, with unit last-dim stride and one layout whose rows are evenly
+    spaced (``stride(-3) == L * stride(-2)`` when laned); ``skey`` ``[S,
+    E]`` may be a slice of wider rows.  CPU tensors take
+    ``ref.stream_scan``.
     """
     if not cand.is_cuda:
         return ref.stream_scan(monoid, cand, send, skey, pay)
-    if monoid.kind != "sum" or cand.dtype != torch.float32:
-        raise ValueError("the scan kernel serves float32 sum streams")
-    if pay is not None:
-        raise NotImplementedError(
-            "the payload scan serves laned min/max programs (lanes slice)")
-    s_, es = cand.shape
+    _check_scan_instance(monoid.kind, cand.dtype, None)
+    if pay is not None and monoid.payload != "argbest":
+        raise ValueError(f"a payload scan needs an argbest monoid, not "
+                         f"{monoid.name!r}")
+    s_, es = skey.shape
+    laned = cand.ndim == 3
+    lanes = cand.shape[1] if laned else 1
+    rows_shape = (s_, lanes) if laned else (s_,)
     dev = cand.device
-    rows = cand.stride()
-    if rows[-1] != 1 or send.stride() != rows:
-        raise ValueError("cand and send need unit last-dim stride and one "
-                         "row stride")
-    _check("send", send, torch.bool, (s_, es), dev, rows)
+    st = cand.stride()
+    if st[-1] != 1 or (laned and st[0] != lanes * st[1]):
+        raise ValueError("cand needs unit last-dim stride and evenly spaced "
+                         "rows")
+    _check("cand", cand, cand.dtype, rows_shape + (es,), dev, st)
+    _check("send", send, torch.bool, rows_shape + (es,), dev, st)
+    if pay is not None:
+        _check("pay", pay, torch.int32, rows_shape + (es,), dev, st)
     krows = skey.stride()
     if krows[-1] != 1:
         raise ValueError("skey must have unit last-dim stride")
     _check("skey", skey, torch.int32, (s_, es), dev, krows)
-    nt = -(-es // ref.SCAN_TILE)
-    v = torch.empty((s_, es), dtype=torch.float32, device=dev)
-    c = torch.empty((s_, es), dtype=torch.int32, device=dev)
-    agg_v = torch.empty((s_, nt), dtype=torch.float32, device=dev)
-    carry_v = torch.empty((s_, nt), dtype=torch.float32, device=dev)
-    agg_c, first, carry_c = (torch.empty((s_, nt), dtype=torch.int32,
-                                         device=dev) for _ in range(3))
+    v, c, p, scratch = _scan_outputs(cand.dtype, rows_shape, es,
+                                     pay is not None, dev)
     err = _fn("edge_relax_scan_pre_launch")(
-        cand.data_ptr(), send.data_ptr(), skey.data_ptr(), v.data_ptr(),
-        c.data_ptr(), agg_v.data_ptr(), agg_c.data_ptr(), first.data_ptr(),
-        carry_v.data_ptr(), carry_c.data_ptr(), s_, krows[0], rows[0], es,
-        _build.stream())
+        cand.data_ptr(), send.data_ptr(),
+        pay.data_ptr() if pay is not None else None, skey.data_ptr(),
+        v.data_ptr(), c.data_ptr(), p.data_ptr() if p is not None else None,
+        *scratch, s_, lanes, krows[0], st[-2], es,
+        int(cand.dtype == torch.int32), _COMBINE_CODE[monoid.kind],
+        int(pay is not None), _build.stream())
     _build.raise_on("edge_relax_scan (pre-emitted)", err)
     LAUNCHES["edge_relax_scan"] += 1
-    return v, c, None
+    SCAN_LAUNCHES[_scan_variant(monoid.kind, pay is not None, laned)] += 1
+    return v, c, p

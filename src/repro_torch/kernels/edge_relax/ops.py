@@ -9,10 +9,15 @@ return the combined per-destination message table over the flat key space
     cnt   [S, n_keys] int32       number of sending edges per destination
     pay   [S, n_keys] int32|None  argbest payload (selection monoids only)
 
-Min/max programs take the blocked kernel K1 and a cross-block scatter;
-sum programs take the fixed-order scan kernel K2 and the run-end gather.
-The frontier-compacted push sweep (:func:`edge_relax_push`) takes K3 and
-the same scatter for min/max, and K2's pre-emitted mode for sum.
+Lane-stacked inputs (``senders`` and vstate leaves [S, L, Np], multi-query
+lanes) sweep the shared stream once per lane and return [S, L, n_keys].
+
+Dispatch (the JAX package's rule): sum programs and every laned run take
+the fixed-order scan kernel K2 and the run-end gather, so a lane is
+bitwise its query run solo; single-query min/max takes the blocked kernel
+K1 and a cross-block scatter.  The frontier-compacted push sweep
+(:func:`edge_relax_push`) takes K3 and the same scatter for single-query
+min/max, and K2's pre-emitted mode for sums and lanes.
 Phase 2 is plain torch, as the JAX package also runs it outside its Pallas
 kernels.  Which of each kernel or its plain version runs follows the
 tensors' device (see kernel.py).
@@ -66,14 +71,11 @@ def edge_relax(prog, vstate, senders, gid, key, src, weight, dst_gid,
     ``key`` is the live-masked destination key and ``skey`` the structural
     sorted key; ``delta_e`` trailing positions are the staged delta
     segment.  K1 consumes tombstones and delta blocks through its ordinary
-    masking; the sum path scans the sorted region against ``skey`` and
+    masking; the scan path scans the sorted region against ``skey`` and
     folds the delta segment in through the shared scatter."""
-    if senders.ndim != key.ndim:
-        raise NotImplementedError(
-            "lane-stacked vertex blocks arrive with the lanes slice")
     if skey is None:
         skey = key
-    if prog.combine == "sum":
+    if prog.combine == "sum" or senders.ndim == key.ndim + 1:
         es = key.shape[-1] - delta_e
         scanned = edge_relax_scan(
             prog, vstate, senders, gid, key[..., :es], src[..., :es],
@@ -118,11 +120,9 @@ def edge_relax_push(prog, vstate, senders, gid, sg_push, csr_key,
     over the compacted blocks, mask the fill slots and take the shared
     phase-2 scatter; sum programs scatter their compacted messages back
     into the destination-sorted layout of ``csr_key`` and scan it with
-    K2's pre-emitted mode (``ref.edge_relax_push_stream``)."""
-    if senders.ndim != csr_key.ndim:
-        raise NotImplementedError(
-            "lane-stacked vertex blocks arrive with the lanes slice")
-    if prog.combine == "sum":
+    K2's pre-emitted mode (``ref.edge_relax_push_stream``), and so do
+    laned runs, whose lanes' senders OR into one compaction."""
+    if prog.combine == "sum" or senders.ndim == csr_key.ndim + 1:
         return edge_relax_push_stream(
             prog, vstate, senders, gid, sg_push, csr_key, n_keys, block_e,
             cap, skey=skey, delta_e=delta_e, scan=edge_relax_scan_pre)

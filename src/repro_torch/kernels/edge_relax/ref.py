@@ -2,7 +2,10 @@
 
 Every function here takes a leading batch of compute cells (``[S, ...]``
 tensors; a bare ``[...]`` works too): the logical engine batches its cells
-along that dimension instead of ``vmap``-ing them.
+along that dimension instead of ``vmap``-ing them.  Multi-query lanes add
+an axis at -2 to the vertex state, the senders and every message stream
+(``[S, L, Np]``, ``[S, L, E]``); the edge streams stay ``[S, E]`` and are
+shared by every lane.
 
 * :func:`edge_relax_blocks_ref` — the blocked dense-rank combine that the
   CUDA kernel ``edge_relax_blocks`` (K1) computes, per 128-edge block:
@@ -14,9 +17,11 @@ along that dimension instead of ``vmap``-ing them.
   order: a Hillis–Steele tree within tiles of :data:`SCAN_TILE` elements,
   a sequential carry across tile aggregates in tile order, and the carry
   applied to each tile's leading open run.  The order depends only on the
-  stream length, so the kernel and this version agree bit for bit; against
-  the JAX package's ``lax.associative_scan`` tree a float sum agrees only
-  to rounding.
+  stream length, so the kernel and this version agree bit for bit, and a
+  lane's scan is bitwise the same query's scan run solo; against the JAX
+  package's ``lax.associative_scan`` tree a float sum agrees only to
+  rounding (min/max, with or without the argbest payload, are order-free
+  and agree bitwise).
 * :func:`gather_runs`, :func:`delta_tables`, :func:`merge_tables`,
   :func:`flat_combine`, :func:`stream_combine` — the phase-2 combines
   shared by both.
@@ -54,8 +59,17 @@ __all__ = [
 SCAN_TILE = 1024
 
 def _take(a, idx):
-    """``a[..., idx]`` per leading row (``idx`` int64, same leading dims)."""
+    """``a[..., idx]`` per leading row (``idx`` int64, same leading dims,
+    or one fewer: a lane-stacked ``a`` [S, L, N] at shared [S, M] ``idx``)."""
+    if a.ndim == idx.ndim + 1:
+        idx = idx.unsqueeze(-2).expand(a.shape[:-1] + idx.shape[-1:])
     return torch.gather(a, -1, idx)
+
+
+def _lane_view(laned: bool):
+    """Insert the lane axis at -2 into shared [S, E] streams of a laned
+    sweep, so they broadcast against every lane; identity otherwise."""
+    return (lambda a: a.unsqueeze(-2)) if laned else (lambda a: a)
 
 
 def edge_messages(prog, vstate, senders, gid, key, src, weight, dst_gid):
@@ -63,16 +77,19 @@ def edge_messages(prog, vstate, senders, gid, key, src, weight, dst_gid):
     gather the source vertex state, run the program's ``emit``, and mask
     non-sending / dead (``key < 0``) edges to the monoid identity.  A
     dead position's ``src`` may be ``-1`` (the push stream's sentinel):
-    it gathers slot 0, and the key masks the result.
+    it gathers slot 0, and the key masks the result.  Lane-stacked
+    ``vstate``/``senders`` ([S, L, Np]) gather at the shared ``src`` and
+    ``emit`` sees the edge arguments as [S, 1, E].
 
     Returns (cand [..., E] msg_dtype, send [..., E] bool,
-    pay [..., E] int32 | None).
+    pay [..., E] int32 | None), with the lane axis when laned.
     """
     idx = src.long().clamp(min=0)
     src_state = {k: _take(v, idx) for k, v in vstate.items()}
-    src_gid = _take(gid, idx)
-    send = _take(senders, idx) & (key >= 0)
-    msg = prog.emit(src_state, weight, src_gid, dst_gid)
+    lane = _lane_view(senders.ndim == key.ndim + 1)
+    src_gid = lane(_take(gid, idx))
+    send = _take(senders, idx) & lane(key >= 0)
+    msg = prog.emit(src_state, lane(weight), src_gid, lane(dst_gid))
     ident = prog.monoid.identity(prog.msg_dtype)
     cand = torch.where(send, msg, ident).to(prog.msg_dtype)
     pay = None
@@ -127,22 +144,33 @@ def _pad_tail(a, pad: int, value):
                                     dtype=a.dtype, device=a.device)], -1)
 
 
+def _pay_rule(monoid, va, pa, vb, pb):
+    """The argbest payload of combining (va, pa) on the left with (vb, pb):
+    the side whose value strictly improves wins, a tie keeps the max
+    payload (the segment-max-over-winners rule of the other combines)."""
+    return torch.where(monoid.improves(vb, va), pb,
+                       torch.where(monoid.improves(va, vb), pa,
+                                   torch.maximum(pa, pb)))
+
+
 def stream_scan(monoid, cand, send, key, pay=None, tile: int = SCAN_TILE):
-    """Segmented inclusive scan of (value, sending count) over the
-    destination-sorted stream, resetting where ``key`` changes; element
-    ``e`` holds the combine of its run up to ``e``.
+    """Segmented inclusive scan of (value, sending count[, argbest
+    payload]) over the destination-sorted stream, resetting where ``key``
+    changes; element ``e`` holds the combine of its run up to ``e``.
 
     The association order is fixed by the stream length and ``tile``
     alone: (a) a Hillis–Steele tree inside each tile, (b) a sequential
     carry across the tile aggregates in tile order, (c) the carry combined
     (on the left) into each tile's leading open run.  The CUDA kernel
-    executes the same operations in the same order.
+    executes the same operations in the same order.  A run start takes
+    the right operand; otherwise the payload follows :func:`_pay_rule`.
+
+    ``cand``/``send``/``pay`` are [..., E], optionally lane-stacked
+    ([S, L, E]) against a shared [S, E] ``key``.
     """
-    if pay is not None:
-        raise NotImplementedError(
-            "the payload scan serves laned min/max programs and arrives "
-            "with the lanes slice")
     e = key.shape[-1]
+    if cand.ndim == key.ndim + 1:
+        key = key.unsqueeze(-2)
     prev = torch.cat([torch.full_like(key[..., :1], -2), key[..., :-1]], -1)
     start = key != prev
     ident = monoid.identity(cand.dtype)
@@ -152,12 +180,17 @@ def stream_scan(monoid, cand, send, key, pay=None, tile: int = SCAN_TILE):
     v = tiles(_pad_tail(cand, pad, ident))
     c = tiles(_pad_tail(send.to(torch.int32), pad, 0))
     f = tiles(_pad_tail(start, pad, True))
+    p = None if pay is None else tiles(_pad_tail(pay, pad, -1))
     # (a) the in-tile tree: step d combines each element with the one d
     # to its left (left operand first), for d = 1, 2, 4, ..., tile / 2
     d = 1
     while d < tile:
         lv, lc, lf = v[..., :-d], c[..., :-d], f[..., :-d]
         rv, rc, rf = v[..., d:], c[..., d:], f[..., d:]
+        if p is not None:
+            p = torch.cat([p[..., :d], torch.where(
+                rf, p[..., d:], _pay_rule(monoid, lv, p[..., :-d], rv,
+                                          p[..., d:]))], -1)
         v = torch.cat([v[..., :d], torch.where(rf, rv, monoid.elem(lv, rv))],
                       -1)
         c = torch.cat([c[..., :d], torch.where(rf, rc, lc + rc)], -1)
@@ -170,30 +203,44 @@ def stream_scan(monoid, cand, send, key, pay=None, tile: int = SCAN_TILE):
     agg_v, agg_c, agg_f = v[..., -1], c[..., -1], f[..., -1]
     carry_v = torch.full_like(agg_v, ident)
     carry_c = torch.zeros_like(agg_c)
+    carry_p = None
+    if p is not None:
+        agg_p = p[..., -1]
+        carry_p = torch.full_like(agg_p, -1)
     if nt > 1:
         idx = torch.arange(nt, device=key.device)
         last = torch.cummax(torch.where(agg_f, idx, -1), dim=-1).values
         depth = int((idx[1:] - last[..., :-1]).max())
         for _ in range(depth):
-            nv = torch.where(agg_f[..., :-1], agg_v[..., :-1],
+            af = agg_f[..., :-1]
+            if p is not None:
+                npay = torch.where(af, agg_p[..., :-1], _pay_rule(
+                    monoid, carry_v[..., :-1], carry_p[..., :-1],
+                    agg_v[..., :-1], agg_p[..., :-1]))
+                carry_p = torch.cat([carry_p[..., :1], npay], -1)
+            nv = torch.where(af, agg_v[..., :-1],
                              monoid.elem(carry_v[..., :-1], agg_v[..., :-1]))
-            nc = torch.where(agg_f[..., :-1], agg_c[..., :-1],
+            nc = torch.where(af, agg_c[..., :-1],
                              carry_c[..., :-1] + agg_c[..., :-1])
             carry_v = torch.cat([carry_v[..., :1], nv], -1)
             carry_c = torch.cat([carry_c[..., :1], nc], -1)
     # (c) the leading open run of each tile (no start at or before the
     # element inside the tile) takes the carry from the left
+    if p is not None:
+        p = torch.where(f, p, _pay_rule(monoid, carry_v[..., None],
+                                        carry_p[..., None], v, p))
     v = torch.where(f, v, monoid.elem(carry_v[..., None], v))
     c = torch.where(f, c, carry_c[..., None] + c)
     flat = lambda a: a.reshape(a.shape[:-2] + (nt * tile,))[..., :e]
-    return flat(v), flat(c), None
+    return flat(v), flat(c), None if p is None else flat(p)
 
 
 def edge_relax_scan_ref(prog, vstate, senders, gid, key, src, weight,
                         dst_gid, skey=None):
     """Plain version of K2: emit over the sorted region, then
     :func:`stream_scan` against the structural key ``skey`` (defaults to
-    ``key``).  Returns the scanned (value, count, None) streams."""
+    ``key``).  Returns the scanned (value, count, payload | None) streams,
+    lane-stacked ([S, L, E]) when ``senders`` is."""
     if skey is None:
         skey = key
     cand, send, pay = edge_messages(prog, vstate, senders, gid, key, src,
@@ -204,14 +251,16 @@ def edge_relax_scan_ref(prog, vstate, senders, gid, key, src, weight,
 def gather_runs(scanned, key, n_keys: int, monoid, msg_dtype):
     """Phase 2 of the scan path: each destination's run total sits at
     ``searchsorted(key, k, right=True) - 1`` of the sorted stream — a pure
-    gather.  Returns (table, cnt, pay | None) each ``[..., n_keys]``."""
+    gather, shared by every lane of lane-stacked scans.  Returns (table,
+    cnt, pay | None) each ``[..., n_keys]``."""
     v, c, p = scanned
     key2 = torch.where(key < 0, n_keys, key).to(torch.int32).contiguous()
     ks = torch.arange(n_keys, dtype=torch.int32, device=key.device)
     ks = ks.expand(key.shape[:-1] + (n_keys,)).contiguous()
     last = torch.searchsorted(key2, ks, right=True) - 1
     li = last.clamp(min=0)
-    ok = (last >= 0) & (_take(key2, li) == ks)
+    ok = _lane_view(v.ndim == key.ndim + 1)(
+        (last >= 0) & (_take(key2, li) == ks))
     table = torch.where(ok, _take(v, li), monoid.identity(msg_dtype))
     cnt = torch.where(ok, _take(c, li), 0)
     pay = None
@@ -223,7 +272,10 @@ def gather_runs(scanned, key, n_keys: int, monoid, msg_dtype):
 def flat_combine(cand, send, pay, ids, n_keys: int, combine: str):
     """Unsorted segment combine by destination id (``ids`` outside
     ``[0, n_keys)`` dropped): table, sending count and the argbest payload
-    with the max-over-winners tie-break.  Returns ``[..., n_keys]``."""
+    with the max-over-winners tie-break.  Returns ``[..., n_keys]``;
+    lane-stacked messages share one ``ids`` row per cell."""
+    if ids.ndim < cand.ndim:
+        ids = ids.unsqueeze(-2).expand(cand.shape)
     table = segment_combine(cand, ids, n_keys, combine)
     cnt = segment_combine(send.to(torch.int32), ids, n_keys, "sum")
     pay_t = None
@@ -349,7 +401,8 @@ def edge_relax_push_blocks_ref(prog, vstate, senders, gid, key, src, weight,
 def edge_relax_push_stream(prog, vstate, senders, gid, sg_push, csr_key,
                            n_keys: int, block_e: int, cap: int, skey=None,
                            delta_e: int = 0, scan=stream_scan):
-    """Frontier-compacted push sweep for sum programs: compact -> gather
+    """Frontier-compacted push sweep for sum programs and every laned
+    run: compact -> gather
     -> emit -> scatter the messages back into the destination-sorted
     stream layout (through ``push_pos``) -> :func:`stream_combine`.
 
@@ -358,16 +411,22 @@ def edge_relax_push_stream(prog, vstate, senders, gid, sg_push, csr_key,
     push bitwise-equal to pull; only the gather/emit work shrinks.  The
     dense layout is ``csr_key``'s width: positions past it (the empty
     delta segment of a clean graph, left out of the sweep) and fill
-    positions are dropped.
+    positions are dropped.  Lane-stacked ``senders`` [S, L, Np] OR into
+    one compaction (one gather serves every lane) and scatter [S, L, E]
+    streams back.
     """
     if skey is None:
         skey = csr_key
-    idx, _ = compact_push_blocks(senders, sg_push["push_src"], block_e, cap)
+    laned = senders.ndim == csr_key.ndim + 1
+    idx, _ = compact_push_blocks(senders.any(dim=-2) if laned else senders,
+                                 sg_push["push_src"], block_e, cap)
     g, valid = push_gather(sg_push, idx, block_e)
     cand, send, pay = edge_messages(prog, vstate, senders, gid, g["key"],
                                     g["src"], g["weight"], g["dst_gid"])
     e = csr_key.shape[-1]
     dpos = torch.where(valid & (g["pos"] < e), g["pos"], e).long()
+    if laned:
+        dpos = dpos.unsqueeze(-2).expand(cand.shape)
     ident = prog.monoid.identity(prog.msg_dtype)
     lead = cand.shape[:-1]
 

@@ -6,7 +6,8 @@ Run on a machine with the card (no JAX needed):
 
 Each kernel is held against its plain version on the same CUDA inputs —
 K1-K3 and K6 bitwise (K3 at compaction caps with fill slots, K2 in both
-input modes), K4 and K5 within the tolerances stated at their tests — the
+input modes for every builtin's instance, solo and with 4 or 5 lanes on 4
+cells), K4 and K5 within the tolerances stated at their tests — the
 session on the card (pull, push and auto sweeps, and a commit's repairs)
 against the session on the CPU, and the LM's prefill and decode on the
 card against the CPU."""
@@ -18,7 +19,7 @@ import torch
 from repro_torch.core import DiffusionSession
 from repro_torch.core.diffuse import _sg_as_dict
 from repro_torch.core.generators import make_graph_family
-from repro_torch.core.programs import PROGRAMS
+from repro_torch.core.programs import PROGRAMS, make_laned
 from repro_torch.core.relax import active_push_blocks, push_caps, select_bucket
 from repro_torch.kernels.edge_relax import kernel, ops, ref
 
@@ -156,6 +157,73 @@ def test_k2_pre_emitted_mode_matches_stream_scan(gpu_session):
     torch.cuda.synchronize()
     assert torch.equal(v1, v2) and torch.equal(c1, c2)
     assert torch.equal(v1, vr) and torch.equal(c1, cr)
+
+
+def _random_state(prog, shape, seed):
+    """A random vertex state of the program's schema and a 50 % sending
+    frontier, both of ``shape`` ([S, Np] or [S, L, Np]), on the card."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rand = lambda: torch.rand(shape, generator=g)
+    out = {}
+    for k, f in prog.fields:
+        if k in ("dist", "width"):
+            v = torch.where(rand() < 0.2, float("inf"), rand() * 40)
+            if k == "width":
+                v = torch.where(rand() < 0.2, float("-inf"), v)
+        elif k in ("rank", "residual"):
+            v = rand() * 1e-3
+        elif k == "deg":
+            v = torch.randint(1, 9, shape, generator=g).float()
+        elif k == "reached":
+            v = (rand() < 0.5).int()
+        else:
+            v = torch.randint(-1, 3000, shape, generator=g, dtype=torch.int32)
+        out[k] = v.to(f.dtype).cuda()
+    return out, (rand() < 0.5).cuda()
+
+
+SCAN_CASES = MINMAX + [("ppr", {"source": 1}), ("pagerank", {})]
+
+
+@pytest.mark.parametrize("lanes", [None, 4, 5], ids=["solo", "L4", "L5"])
+@pytest.mark.parametrize("name,kw", SCAN_CASES)
+def test_k2_every_instance_matches_plain_bitwise(gpu_session, name, kw,
+                                                 lanes):
+    """Both input modes of K2 for each builtin's (form, monoid, dtype,
+    payload) instance, solo and laned (L equal to and different from the
+    4 cells), against the plain versions, and each mode against the
+    other."""
+    sess, _ = gpu_session
+    prog = PROGRAMS[name].factory(**kw)
+    if lanes:
+        prog = make_laned([prog] * lanes)
+    S, Np = sess.sg.node_ok.shape
+    shape = (S, Np) if lanes is None else (S, lanes, Np)
+    vstate, senders = _random_state(prog, shape, 11)
+    sgd = _sg_as_dict(sess.sg)
+    es = sess.sg.sorted_width
+    args = (prog, vstate, senders, sgd["gid"]) + tuple(
+        sgd[k][..., :es] for k in ("csr_key", "csr_src", "csr_weight",
+                                   "csr_dst_gid"))
+    skey = sgd["csr_skey"][..., :es]
+    kernel.reset_launches()
+    got = kernel.edge_relax_scan(*args, skey=skey)
+    want = ref.edge_relax_scan_ref(*args, skey=skey)
+    cand, send, pay = ref.edge_messages(*args)
+    pre = kernel.edge_relax_scan_pre(prog.monoid, cand, send, skey, pay)
+    pre_want = ref.stream_scan(prog.monoid, cand, send, skey, pay)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["edge_relax_scan"] == 2
+    variant = ("sum" if prog.combine == "sum" else "min/max") + (
+        "+payload" if prog.with_payload else "") + ("/laned" if lanes else "")
+    assert kernel.SCAN_LAUNCHES[variant] == 2
+    for out in (got, want, pre, pre_want):
+        assert out[0].shape == shape[:-1] + (es,)
+        assert (out[2] is None) == (not prog.with_payload)
+    for a, b, c, d in zip(got, want, pre, pre_want):
+        if b is not None:
+            assert torch.equal(a, b) and torch.equal(c, d)
+            assert torch.equal(a, c)
 
 
 def test_push_sweeps_and_commit_on_gpu_match_cpu(gpu_session):

@@ -1,6 +1,7 @@
 """The edge_relax kernels' plain versions against the JAX package's Pallas
 kernels (interpret mode) — K1 per block and bitwise, the ops-level sweep,
-K2's scan within a stated tolerance, K3 (the push sweep's blocks) and the
+K2's scan within a stated tolerance for sums and bitwise for min/max with
+lanes and the argbest payload, K3 (the push sweep's blocks) and the
 frontier compaction bitwise at caps with fill slots — and the port's own
 fixed scan order, which its push sweep reproduces bit for bit.
 
@@ -8,6 +9,7 @@ Tolerance: K2 sums in the port's fixed tile/tree order, not in the order of
 JAX's ``lax.associative_scan``; float32 sums of at most a few hundred
 messages of size <= 1 agree to 1e-6 absolute."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -464,3 +466,117 @@ def test_push_stream_equals_the_pull_scan_bitwise(graphs, name, kw):
     got = tkernel.edge_relax_scan_pre(tprog.monoid, cand, send, key)
     want = tref.stream_scan(tprog.monoid, cand, send, key)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# lane-stacked K2 cases: the min payload form (sssp), min without payload
+# (bfs), the max payload form (widest) and int32 max (reach)
+LANED = [MINMAX[0], MINMAX[2], MINMAX[5], MINMAX[6]]
+LANES = 3
+
+
+def _laned_inputs(jsg, tsg, name, kw, seed):
+    """A random [S, LANES, Np] state and frontier, the JAX program, the
+    port's laned program and both packages' stream dicts (with the push
+    streams)."""
+    jprog = jprograms.PROGRAMS[name].factory(**kw)
+    tprog = tprograms.make_laned(
+        [tprograms.PROGRAMS[name].factory(**kw)] * LANES)
+    state, senders = _state(jprog, (jsg.n_shards, LANES, jsg.n_per_shard),
+                            seed)
+    return (jprog, tprog, state, senders, j_sg_as_dict(jsg, with_push=True),
+            t_sg_as_dict(tsg, with_push=True),
+            {k: torch.from_numpy(v) for k, v in state.items()},
+            torch.from_numpy(senders))
+
+
+@pytest.mark.parametrize("name,kw", LANED, ids=IDS(LANED))
+def test_k2_plain_lanes_and_payload_match_pallas_scan(graphs, name, kw):
+    """The plain K2 over lane-stacked state (with the argbest payload where
+    the program has one) against JAX's ``ref.stream_scan`` and the Pallas
+    scan kernel in interpret mode, bitwise on (value, count, payload):
+    min/max are order-free, so the port's tile order and
+    ``lax.associative_scan`` agree exactly."""
+    jsg, tsg = graphs
+    jprog, tprog, state, senders, jsgd, tsgd, tstate, tsend = _laned_inputs(
+        jsg, tsg, name, kw, 6)
+    es = tsg.sorted_width
+    cut = lambda a: a[..., :es]
+    targs = (tprog, tstate, tsend, tsgd["gid"]) + tuple(
+        cut(tsgd[k]) for k in ("csr_key", "csr_src", "csr_weight",
+                               "csr_dst_gid"))
+    got = tref.edge_relax_scan_ref(*targs, skey=cut(tsgd["csr_skey"]))
+    before = dict(tkernel.LAUNCHES)
+    via_wrapper = tkernel.edge_relax_scan(*targs, skey=cut(tsgd["csr_skey"]))
+    assert tkernel.LAUNCHES == before        # CPU tensors launch nothing
+    assert got[0].shape == (jsg.n_shards, LANES, es)
+    assert (got[2] is None) == (not jprog.with_payload)
+    for c in range(jsg.n_shards):
+        jstate = {k: jnp.asarray(v[c]) for k, v in state.items()}
+        jsend = jnp.asarray(senders[c])
+        jargs = (jsgd["gid"][c],) + tuple(
+            jsgd[k][c][:es] for k in ("csr_key", "csr_src", "csr_weight",
+                                      "csr_dst_gid"))
+        jskey = jsgd["csr_skey"][c][:es]
+        cand, send, pay = jref.stream_messages(jprog, jstate, jsend, *jargs)
+        want = jref.stream_scan(jprog.monoid, cand, send, jskey, pay)
+        kern = jax.vmap(lambda vs, sd: jkernel.edge_relax_scan(
+            jprog, vs, sd, *jargs, skey=jskey, interpret=True))(jstate,
+                                                               jsend)
+        for g, v, w, k, what in zip(got, via_wrapper, want, kern, "vcp"):
+            assert (g is None) == (w is None) == (k is None), what
+            if w is not None:
+                assert torch.equal(g, v)
+                assert_bits(g[c], w, f"cell {c} {what} vs ref.stream_scan")
+                assert_bits(g[c], k, f"cell {c} {what} vs the Pallas scan")
+
+
+@pytest.mark.parametrize("name,kw", LANED + SUMS, ids=IDS(LANED + SUMS))
+def test_laned_sweeps_match_reference(name, kw):
+    """Laned dense and push sweeps (``ops.edge_relax`` /
+    ``ops.edge_relax_push``) on a graph with staged edges and tombstones,
+    whose delta segment takes the laned scatter: push equals pull bitwise
+    in the port, and both equal JAX's laned stream path (bitwise for
+    min/max, within the scan tolerance for sums)."""
+    jsg, tsg = _graph(dirty=True)
+    jprog, tprog, state, senders, jsgd, tsgd, tstate, tsend = _laned_inputs(
+        jsg, tsg, name, kw, 8)
+    # a sparse frontier, so the push sweep compacts
+    sparse = np.random.default_rng(9).random(senders.shape) < 0.05
+    senders, tsend = sparse, torch.from_numpy(sparse)
+    n_keys = jsg.n_shards * jsg.n_per_shard
+    pull = tops.edge_relax(
+        *_targs(tprog, tstate, tsend, tsgd), n_keys=n_keys, block_e=128,
+        skey=tsgd["csr_skey"], delta_e=tsg.delta_width)
+    assert pull[0].shape == (jsg.n_shards, LANES, n_keys)
+    caps = _caps(tsend, tsgd)
+    for cap in caps:
+        push = tops.edge_relax_push(
+            tprog, tstate, tsend, tsgd["gid"], tsgd, tsgd["csr_key"],
+            n_keys=n_keys, block_e=128, cap=cap, skey=tsgd["csr_skey"],
+            delta_e=tsg.delta_width)
+        for g, w in zip(push, pull):
+            assert (g is None and w is None) or torch.equal(g, w)
+    for c in range(jsg.n_shards):
+        jstate = {k: jnp.asarray(v[c]) for k, v in state.items()}
+        jsend = jnp.asarray(senders[c])
+        jpush = {k: jsgd[k][c] for k in PUSH_KEYS + ("push_pos",)}
+        jpull = jops.edge_relax(
+            jprog, jstate, jsend, jsgd["gid"][c], jsgd["csr_key"][c],
+            jsgd["csr_src"][c], jsgd["csr_weight"][c],
+            jsgd["csr_dst_gid"][c], n_keys=n_keys,
+            block_e=128, skey=jsgd["csr_skey"][c], delta_e=jsg.delta_width)
+        jpushed = jops.edge_relax_push(
+            jprog, jstate, jsend, jsgd["gid"][c], jpush, jsgd["csr_key"][c],
+            n_keys=n_keys, block_e=128, cap=caps[0],
+            skey=jsgd["csr_skey"][c], delta_e=jsg.delta_width)
+        for want in (jpull, jpushed):
+            assert_bits(pull[1][c], want[1], f"cell {c} cnt")
+            assert (pull[2] is None) == (want[2] is None)
+            if want[2] is not None:
+                assert_bits(pull[2][c], want[2], f"cell {c} pay")
+            if jprog.combine == "sum":
+                np.testing.assert_allclose(np_of(pull[0][c]),
+                                           np_of(want[0]), rtol=0,
+                                           atol=SCAN_ATOL)
+            else:
+                assert_bits(pull[0][c], want[0], f"cell {c} table")

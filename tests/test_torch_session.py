@@ -130,10 +130,6 @@ def test_api_wrappers_match_session():
 
 def test_not_yet_ported_paths_raise(small_session):
     sess, _ = small_session
-    with pytest.raises(NotImplementedError, match="lanes"):
-        sess.query("sssp", sources=[0, 1])
-    with pytest.raises(NotImplementedError, match="gate"):
-        sess.query("sssp", source=0, delta=2.0)
     with pytest.raises(NotImplementedError, match="SPMD"):
         sess.query("cc", engine="spmd")
     with pytest.raises(NotImplementedError, match="oracles"):
