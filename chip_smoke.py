@@ -13,18 +13,23 @@ kernels line and the final result line):
 1. the card (``nvidia-smi`` name and power limit) and the parallel build of
    all six kernel libraries from the sources in
    ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per source, together);
+   ``cuobjdump -sass`` of K4's library: its bf16 instances must hold
+   HGMMA (wgmma) instructions and its f32 instances none;
 2. each graph kernel against its plain PyTorch version on the card, on the
    ``scale_free`` family with 4 cells: K1 (``edge_relax_blocks``) for every
    min/max builtin, bitwise; K2 (``edge_relax_scan``) for the push_share
    emit, bitwise, and bitwise run to run, and in its pre-emitted input
    mode, and in both modes for every builtin's (emit form, monoid, dtype,
-   payload) instance with 4 and 5 lanes, bitwise; K3
+   payload) instance with 4 and 5 lanes, bitwise, and on a synthetic
+   stream whose hub runs span 3 and 4 whole tiles, solo and with 1 and 16
+   lanes, bitwise in both modes and over five repeated launches; K3
    (``edge_relax_push_blocks``) for every min/max builtin at three
    frontiers (one vertex, 1 %, all vertices), bitwise on its raw outputs and
    after phase 2;
 2b. K4 (``flash_attention``) against its plain version: bf16 and f32, head
    dims 64 and 128, causal or not, softcap 0 and 30, GQA groups 1 and 8,
-   sq == skv and sq < skv (64 cases, tolerance at ``k4_err``);
+   sq == skv and sq < skv (64 cases, tolerance at ``k4_err``: f32 2e-5,
+   bf16 2^-7 |want| + 2^-8 A + 2e-5 with A the plain version on |v|);
 3. the graph main path at a real size: ``DiffusionSession.from_edges`` on
    the Graph500 RMAT graph (default scale 20, edge factor 16) over 4
    cells, then ``query`` for sssp (2 sources), bfs, cc, ppr and pagerank,
@@ -42,7 +47,8 @@ kernels line and the final result line):
    bitwise equal to the same root queried solo, push/auto lanes to pull,
    and a later solo query of a root served from the cache;
 4a. K1 and K2 timed at the main path's shapes against their plain
-   versions, their bounds and one PyTorch library call each;
+   versions, their bounds and one PyTorch library call each (K2: the
+   device kernels one call runs, from a profiler trace);
 4f. K2's laned payload instance at phase 3d's sssp shape (16 lanes) held
    against its plain version and timed beside its bound and
    ``scatter_reduce_`` amin over the same messages;
@@ -75,7 +81,10 @@ kernels line and the final result line):
 4e. K4 at the prefill shape (q [1, 32, 1024, 64], k/v [1, 4, 1024, 64]
    bf16, causal): held against its plain version there (its error is the
    one in the kernels line), then timed against the plain version, its
-   bound and ``scaled_dot_product_attention``.
+   bound and ``scaled_dot_product_attention``, with both TFLOP/s.
+
+With ``--profile``, each trace also gives K2's and K4's device time and
+their share of the busy and the wall time.
 
 With ``--cpu-rehearsal`` the same phases run on the CPU on the kernels'
 plain versions at tiny sizes (the serving phases on the smoke config).
@@ -126,7 +135,10 @@ def check(cond: bool, what: str) -> None:
 
 class Clock:
     """Device time per call: CUDA events on the card, the host clock on
-    the CPU rehearsal."""
+    the CPU rehearsal.  On the card the device first spins for longer than
+    the host takes to queue all ``reps`` calls, so the events time the
+    calls back to back even where one call's host work (checks, tensor
+    maps, the launch) outlasts its kernel."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -136,6 +148,13 @@ class Clock:
             fn()
         if self.cuda:
             torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            # one call's wall time bounds its host time; 2e9 cycles a second
+            # bounds the card's clock from above
+            hold_s = min(1.5 * reps * (time.perf_counter() - t) + 1e-3, 3.0)
+            torch.cuda._sleep(int(hold_s * 2e9))
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -337,6 +356,68 @@ def compare_k2_lanes(sess, name, kw, lanes: int, seed: int, device):
         if bool(fin.any()) else 0.0
 
 
+def hub_stream(cells: int, width: int, np_: int, seed: int, device):
+    """A synthetic destination-sorted stream [cells, width]: per cell a
+    hub run of 3.5 tiles from position 0, short runs, a hub of 4 tiles
+    that opens mid-tile, then short runs (K2's look-back walks over the
+    hubs' whole tiles); a tenth of the positions tombstoned (``key`` -1,
+    ``skey`` keeps the run).  Returns key, skey, src, weight, gid."""
+    from repro_torch.kernels.edge_relax import ref
+
+    rng = np.random.default_rng(seed)
+    tile = ref.SCAN_TILE
+    skey, key = [], []
+    for c in range(cells):
+        lengths = [3 * tile + tile // 2]
+        lengths += rng.integers(1, 40, 100 + c).tolist()
+        lengths += [4 * tile + 3]
+        lengths += rng.integers(1, 60, width).tolist()
+        ids = np.repeat(np.arange(len(lengths)), lengths)[:width]
+        ids = np.sort(rng.choice(cells * np_, ids[-1] + 1,
+                                 replace=False))[ids]
+        skey.append(ids)
+        key.append(np.where(rng.random(width) < 0.1, -1, ids))
+    as_t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(device)
+    weight = torch.from_numpy(
+        (1 + 7 * rng.random((cells, width))).astype(np.float32)).to(device)
+    return (as_t(key), as_t(skey), as_t(rng.integers(0, np_, (cells, width))),
+            weight, as_t(np.arange(cells * np_).reshape(cells, np_)))
+
+
+def compare_k2_hub(stream, name, kw, lanes, seed: int, device) -> float:
+    """K2 in both input modes on :func:`hub_stream`, solo (``lanes`` None)
+    or laned: bitwise against the plain versions, and five launches of the
+    emit mode bitwise equal (the tiles run in any order)."""
+    from repro_torch.core.programs import PROGRAMS, make_laned
+    from repro_torch.kernels.edge_relax import kernel, ref
+
+    key, skey, src, weight, gid = stream
+    prog = PROGRAMS[name].factory(**kw)
+    if lanes:
+        prog = make_laned([prog] * lanes)
+    S, np_ = gid.shape
+    shape = (S, np_) if lanes is None else (S, lanes, np_)
+    vstate, senders = random_lane_state(prog, shape, seed, device)
+    args = (prog, vstate, senders, gid, key, src, weight, key)
+    runs = [kernel.edge_relax_scan(*args, skey=skey) for _ in range(5)]
+    want = ref.edge_relax_scan_ref(*args, skey=skey)
+    cand, send, pay = ref.edge_messages(*args)
+    pre = kernel.edge_relax_scan_pre(prog.monoid, cand, send, skey, pay)
+    pre_want = ref.stream_scan(prog.monoid, cand, send, skey, pay)
+    sync(device)
+    tag = f"K2 hub stream {name} {kw} lanes={lanes}"
+    for out in runs + [pre]:
+        for g, w_, pw, what in zip(out, want, pre_want, "vcp"):
+            check((g is None) == (w_ is None), f"{tag}: {what} output")
+            if w_ is not None:
+                check(torch.equal(g, w_) and torch.equal(w_, pw),
+                      f"{tag}: {what} differs from the plain version or "
+                      f"from another launch")
+    fin = torch.isfinite(want[0].float())
+    return float((runs[0][0].float() - want[0].float())[fin].abs().max()) \
+        if bool(fin.any()) else 0.0
+
+
 def random_senders(sess, seed: int, p: float = 0.5):
     rng = np.random.default_rng(seed)
     mask = rng.random(tuple(sess.sg.node_ok.shape)) < p
@@ -374,12 +455,18 @@ def phase_kernels(sess, device) -> dict:
         out["k2_pre"][name] = compare_k2_pre(sess, prog, vstate,
                                              random_senders(sess, 12, p=0.05))
     # every (emit form, monoid, dtype, payload) instance of the builtins,
-    # with lanes equal to and different from the 4 cells
+    # with lanes equal to and different from the 4 cells; then on a stream
+    # whose hub runs span whole tiles, solo and with 1 and 16 lanes
+    out["k2_hub"] = {}
+    hub = hub_stream(4, 40 * 1024 + 77, 16384, 17, device)
     for i, (name, kw) in enumerate(MINMAX_CASES + [("ppr", {"source": 0}),
                                                    ("pagerank", {})]):
         for lanes in (4, 5):
             out["k2_lanes"][f"{name}{kw}/L{lanes}"] = compare_k2_lanes(
                 sess, name, kw, lanes, 200 + i, device)
+        for lanes in (None, 1, 16):
+            out["k2_hub"][f"{name}{kw}/L{lanes or 'solo'}"] = compare_k2_hub(
+                hub, name, kw, lanes, 300 + i, device)
     return out
 
 
@@ -883,6 +970,22 @@ def phase_commits(args, sess, data, sources, roots, device) -> dict:
 # timing at the main path's shapes
 # --------------------------------------------------------------------------
 
+def device_kernels_per_call(fn) -> dict:
+    """The device kernels (by name, and the memsets) that one call of
+    ``fn`` runs, from a ``torch.profiler`` trace; {} off the card."""
+    if not torch.cuda.is_available():
+        return {}
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
 def phase_timing(sess, launches, sources, device, reps: int) -> list:
     from repro_torch.core.programs import PROGRAMS
     from repro_torch.kernels.edge_relax import kernel, ref
@@ -948,6 +1051,11 @@ def phase_timing(sess, launches, sources, device, reps: int) -> list:
         "edge_relax_scan.cu", "src/repro/kernels/edge_relax/kernel.py:97",
         launches["edge_relax_scan"], err, k_ms, p_ms, k2_bytes, k2_ops,
         lib_ms))
+    emit({"phase": "k2_timing", "program": "pagerank", "cells": S,
+          "width": es, "device_kernels_per_call": device_kernels_per_call(
+              lambda: kernel.edge_relax_scan(*args, skey=skey)),
+          **{k: rows[-1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms", "bytes")}})
     return rows
 
 
@@ -1009,9 +1117,12 @@ def phase_k2_lanes_timing(sess, roots, launches: int, device,
         "edge_relax/csrc/edge_relax_scan.cu",
         "src/repro/kernels/edge_relax/kernel.py:97", launches, err, k_ms,
         p_ms, nbytes, ops, lib_ms)
+    per_call = device_kernels_per_call(
+        lambda: kernel.edge_relax_scan(*args, skey=skey))
     emit({"phase": "k2_lanes_timing", "lanes": L, "cells": S, "width": es,
           "elements": S * L * es, "library": "scatter_reduce_ amin, values "
-          "only", **{k: row[k] for k in ("launches", "max_abs_err", "ms",
+          "only", "device_kernels_per_call": per_call,
+          **{k: row[k] for k in ("launches", "max_abs_err", "ms",
                                          "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "bytes")}})
     if device.type == "cuda":
@@ -1121,6 +1232,14 @@ def trace(name: str, run) -> dict:
                    if e.device_type == DeviceType.CUDA and dev(e) > 0),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    # K2's and K4's device time and their share of the busy and wall time
+    shares = {}
+    for label, frag in (("K2", "scan_pass"), ("K4", "flash_fwd")):
+        ms = sum(r[1] for r in rows if frag in r[0])
+        shares[label] = {"device_ms": ms,
+                         "launches": sum(r[2] for r in rows if frag in r[0]),
+                         "share_of_busy": ms / busy_ms if busy_ms else 0.0,
+                         "share_of_wall": ms / (wall * 1e3)}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / f"profile_{name}.txt").write_text(avg.table(
         sort_by="self_cuda_time_total", row_limit=40))
@@ -1128,6 +1247,7 @@ def trace(name: str, run) -> dict:
             "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / (wall * 1e3),
             "kernel_launches": sum(r[2] for r in rows), "ranges": ranges,
+            "kernel_shares": shares,
             "top": [{"kernel": k[:80], "ms": ms, "calls": n}
                     for k, ms, n in rows[:10]]}
 
@@ -1183,22 +1303,64 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
 
 K4_F32_TOL = 2e-5
 K4_BF16_ULP = 2.0 ** -7
+K4_BF16_P = 2.0 ** -8
 
 
-def k4_err(got, want) -> tuple:
-    """(max abs error, within tolerance) of K4 against its plain version.
-    Both compute in f32 and differ there by sums in other orders: f32
-    agrees to 2e-5 max abs on N(0, 1) inputs (sound runs: 7.5e-7).  In
-    bf16 each side rounds its f32 result once, so the two differ by at
-    most one bf16 ulp of the value (<= 2^-7 |want|) on top of that: the
-    bf16 limit is 2^-7 |want| + 2e-5 per element (sound runs: 2^-9 max
-    abs, one ulp of outputs in [0.25, 0.5))."""
+def k4_err(got, want, q=None, k=None, v=None, **kw) -> tuple:
+    """(max abs error, within tolerance) of K4 against its plain version
+    ``flash_attention_ref`` on the same inputs (``kw``: its masks).
+
+    f32: both run the same online softmax in f32 and differ by sums in
+    other orders: 2e-5 max abs on N(0, 1) inputs (sound runs: 7.5e-7).
+
+    bf16, per element: |got - want| <= 2^-7 |want| + 2^-8 A + 2e-5, with
+    A = ``flash_attention_ref(q, k, |v|)`` under the same masks.  The
+    kernel rounds P to bf16 before P V (the plain version keeps P in f32;
+    JAX's default matmul precision rounds f32 dot operands to bf16 on the
+    TPU's MXU too): each weight moves by at most 2^-9 of itself, so an
+    output moves by at most 2^-9 (sum_j p_j |v_j|) / l = 2^-9 A.  The
+    limit takes twice that, one bf16 ulp of the output (2^-7 relative:
+    each side rounds its f32 result once) and the f32 limit.  A limit of
+    one ulp alone, 2^-7 |want| + 2e-5, has no A term and fails near
+    outputs close to zero, whose error is set by the |v| they average."""
+    from repro_torch.kernels.flash_attention import ref
+
     diff = (got.float() - want.float()).abs()
     if got.dtype == torch.float32:
         limit = K4_F32_TOL
     else:
-        limit = K4_BF16_ULP * want.float().abs() + K4_F32_TOL
+        a = ref.flash_attention_ref(q, k, v.abs(), **kw).float()
+        limit = K4_BF16_ULP * want.float().abs() + K4_BF16_P * a + K4_F32_TOL
     return float(diff.max()), bool((diff <= limit).all())
+
+
+def k4_sass_check() -> dict:
+    """The bf16 instances of K4 run both products on the tensor cores: the
+    SASS of each ``flash_fwd_wgmma`` function in the built library (from
+    ``cuobjdump -sass``) holds HGMMA instructions, and the f32 instances
+    (``flash_fwd``) hold none.  Returns the HGMMA count per function."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as k4
+
+    lib = _build.library_paths(k4.KERNEL_SOURCES)["flash_attention"]
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        inst = re.search(r"flash_fwd(_wgmma)?ILi(\d+)E", name)
+        if inst:
+            kind = "bf16" if inst.group(1) else "f32"
+            counts[f"{kind}/D{inst.group(2)}"] = chunk.count("HGMMA")
+    for d in (64, 128):
+        check(counts.get(f"bf16/D{d}", 0) > 0,
+              f"K4's bf16 D={d} instance has no HGMMA in its SASS: {counts}")
+        check(counts.get(f"f32/D{d}", -1) == 0,
+              f"K4's f32 D={d} instance is missing or uses HGMMA: {counts}")
+    return counts
 
 
 def phase_k4_vs_plain(device) -> dict:
@@ -1225,7 +1387,7 @@ def phase_k4_vs_plain(device) -> dict:
                             got = kernel.flash_attention(q, k, v, **kw)
                             want = ref.flash_attention_ref(q, k, v, **kw)
                             sync(device)
-                            err, ok = k4_err(got, want)
+                            err, ok = k4_err(got, want, q, k, v, **kw)
                             tag = str(dtype).split(".")[-1]
                             check(got.dtype == dtype and ok,
                                   f"K4 {tag} d={d} g={groups} sq={sq} "
@@ -1235,7 +1397,8 @@ def phase_k4_vs_plain(device) -> dict:
                             n += 1
     return {"cases": n, "max_abs_err": worst,
             "tolerance": {"float32": K4_F32_TOL,
-                          "bfloat16": "2^-7 |want| + 2e-5"}}
+                          "bfloat16": "2^-7 |want| + 2^-8 A + 2e-5, A = "
+                                      "the plain version on |v|"}}
 
 
 def k5_inputs(n: int, device, f: int = 128):
@@ -1538,7 +1701,7 @@ def phase_k4_timing(args, launches: int, device, reps: int) -> dict:
     got = kernel.flash_attention(q, k, v, causal=True)
     want = ref.flash_attention_ref(q, k, v, causal=True)
     sync(device)
-    err, ok = k4_err(got, want)
+    err, ok = k4_err(got, want, q, k, v, causal=True)
     check(got.shape == q.shape and got.dtype == q.dtype and ok,
           f"K4 at the prefill shape {list(q.shape)}: max abs err {err}")
     del got, want
@@ -1560,6 +1723,7 @@ def phase_k4_timing(args, launches: int, device, reps: int) -> dict:
     emit({"phase": "k4_timing", "shape": [1, hq, s, d], "kv_heads": hkv,
           "dtype": str(cfg.dtype), "causal": True, "max_abs_err": err,
           "tflops": flops / (k_ms * 1e-3) / 1e12,
+          "library_tflops": flops / (lib_ms * 1e-3) / 1e12,
           **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}})
     return row
@@ -1633,6 +1797,7 @@ def main(argv=None) -> int:
                  for k, v in logs.items()}
         emit({"phase": "build", "seconds": time.perf_counter() - t,
               "ptxas": ptxas})
+        emit({"phase": "k4_sass", "hgmma": k4_sass_check()})
 
     src, dst, w, n = make_graph_family("scale_free", args.kernel_n, seed=0)
     ksess = DiffusionSession.from_edges(src, dst, n, w, n_cells=4,

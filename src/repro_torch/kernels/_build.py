@@ -21,7 +21,7 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "BUILD_DIR", "build", "nvcc_path", "build_logs",
-           "bind", "stream", "raise_on"]
+           "library_paths", "bind", "stream", "raise_on"]
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -111,6 +111,11 @@ def build_logs(libs: dict) -> dict:
         log = _target(name, sources).with_suffix(".log")
         out[name] = log.read_text() if log.exists() else ""
     return out
+
+
+def library_paths(libs: dict) -> dict:
+    """The shared library each of ``libs`` (name -> sources) builds to."""
+    return {name: _target(name, sources) for name, sources in libs.items()}
 
 
 def bind(sources: dict, symbols: dict, fns: dict) -> None:

@@ -74,27 +74,41 @@ __device__ __forceinline__ int pay_rule(T va, int pa, T vb, int pb) {
   return max(pa, pb);
 }
 
+// The message of an edge from its source's state x, its weight w (read
+// only by kAddWeight and kMinWeight) and its source's divisor d (read only
+// by kPushShare).  Only the forms a kernel instantiates are compiled (int
+// messages: kCopy only).
+template <typename T, int EMIT>
+__device__ __forceinline__ T emit_value(T x, float w, float d, float c) {
+  if constexpr (EMIT == kAddWeight) {
+    return x + w;
+  } else if constexpr (EMIT == kAddConst) {
+    return x + c;
+  } else if constexpr (EMIT == kMinWeight) {
+    return fminf(x, w);
+  } else if constexpr (EMIT == kPushShare) {
+    return (c * x) / d;
+  } else {
+    return x;
+  }
+}
+
+// Whether an emit form reads the edge weight.
+template <int EMIT>
+constexpr bool kEmitReadsWeight = EMIT == kAddWeight || EMIT == kMinWeight;
+
 // The message of an edge whose source vertex sits at `v` of the field
-// (and divisor) and whose weight sits at `e`.  Only the forms a kernel
-// instantiates are compiled (int messages: kCopy only).
+// (and divisor) and whose weight sits at `e`.
 template <typename T, int EMIT>
 __device__ __forceinline__ T emit_message(const T* __restrict__ field,
                                           const float* __restrict__ divisor,
                                           long long v,
                                           const float* __restrict__ weight,
                                           long long e, float c) {
-  const T x = field[v];
-  if constexpr (EMIT == kAddWeight) {
-    return x + weight[e];
-  } else if constexpr (EMIT == kAddConst) {
-    return x + c;
-  } else if constexpr (EMIT == kMinWeight) {
-    return fminf(x, weight[e]);
-  } else if constexpr (EMIT == kPushShare) {
-    return (c * x) / divisor[v];
-  } else {
-    return x;
-  }
+  float w = 0.0f, d = 1.0f;
+  if constexpr (kEmitReadsWeight<EMIT>) w = weight[e];
+  if constexpr (EMIT == kPushShare) d = divisor[v];
+  return emit_value<T, EMIT>(field[v], w, d, c);
 }
 
 }  // namespace

@@ -11,15 +11,19 @@
 * :func:`edge_relax_scan` (K2, ``csrc/edge_relax_scan.cu``) replaces
   ``repro/kernels/edge_relax/kernel.py :: edge_relax_scan``: any emit form
   and a segmented inclusive scan of (value, count[, argbest payload]) in a
-  fixed tile/tree order (see ``ref.stream_scan``), over every monoid class
+  fixed order (see ``ref.stream_scan``), over every monoid class
   and over multi-query lanes ([S, L, Np] vertex blocks against the shared
   [S, E] stream).  Sum programs (PPR, PageRank) and every laned run.  Bound
-  by memory: about 20-28 B per edge and lane over 3.35 TB/s.  Design: a
-  shared-memory tree per 1024-element tile, a one-warp sequential carry,
-  and a pass over the leading open runs only; one grid row per (cell,
-  lane).  A second input mode, :func:`edge_relax_scan_pre`, scans
-  message/send/payload streams that the push sweep already emitted, in
-  the same order.
+  by memory: the shared stream once, the lanes' state and the [S, L, E]
+  outputs over 3.35 TB/s.  Design: one launch, one CTA per (1024-element
+  tile, cell) that reads its tile of the stream once and loops over the
+  lanes; the launch's first CTAs pack each vertex's lanes into 32-byte
+  records, so an edge gathers one sector per group of 4 lanes; a
+  register-blocked in-tile scan (8 elements a thread, warp shuffles, the
+  warp aggregates in order) and the carry across tiles by look-back over
+  published tile aggregates, in the same pass.  A second
+  input mode, :func:`edge_relax_scan_pre`, scans message/send/payload
+  streams that the push sweep already emitted, in the same order.
 * :func:`edge_relax_push_blocks` (K3, ``csrc/edge_relax_push_blocks.cu``)
   replaces ``repro/kernels/edge_relax/kernel.py :: edge_relax_push_blocks``:
   K1's body (shared through ``csrc/edge_relax_block_body.cuh``) over the
@@ -88,9 +92,9 @@ _SYMBOLS = {
             [_P] * 10 + [_I, _I, _LL, _LL, _I, _I, _I, _I, _F, _P]},
     "edge_relax_scan": {
         "edge_relax_scan_launch":
-            [_P] * 18 + [_I, _I, _I, _LL, _I, _I, _I, _I, _I, _F, _P],
+            [_P] * 16 + [_I, _I, _I, _LL, _I, _I, _I, _I, _I, _F, _P],
         "edge_relax_scan_pre_launch":
-            [_P] * 14 + [_I, _I, _LL, _LL, _I, _I, _I, _I, _P]},
+            [_P] * 11 + [_I, _I, _LL, _LL, _I, _I, _I, _I, _P]},
     "edge_relax_push_blocks": {
         "edge_relax_push_blocks_launch":
             [_P] * 11 + [_I, _I, _LL, _LL, _I, _I, _I, _I, _I, _F, _P]},
@@ -266,20 +270,28 @@ def _scan_variant(combine: str, payload: bool, laned: bool) -> str:
 
 def _scan_outputs(msg, rows_shape, es, payload, dev):
     """K2's outputs ``[*rows_shape, es]`` (value, count, payload | None)
-    and its scratch: seven ``[rows, ceil(es / tile)]`` planes (agg_v,
-    agg_c, agg_p, first, carry_v, carry_c, carry_p; the value planes hold
-    the message dtype's bits)."""
+    and its look-back scratch: three ``[rows, ceil(es / tile)]`` aggregate
+    planes (value bits, count, payload) and the state the launch clears
+    (the planes' ready flags, the tile ticket, the packers' count), as one
+    tensor and the four pointers the launch takes."""
     shape = tuple(rows_shape) + (es,)
     v = torch.empty(shape, dtype=msg, device=dev)
     c = torch.empty(shape, dtype=torch.int32, device=dev)
     p = torch.empty(shape, dtype=torch.int32, device=dev) if payload else None
-    rows = math.prod(rows_shape)
-    if rows > 65535:
-        raise ValueError(f"K2 scans at most 65535 rows (cells x lanes), "
-                         f"got {rows}")
-    nt = -(-es // ref.SCAN_TILE)
-    scratch = torch.empty((7, rows, nt), dtype=torch.int32, device=dev)
-    return v, c, p, [scratch[k].data_ptr() for k in range(7)]
+    plane = math.prod(rows_shape) * -(-es // ref.SCAN_TILE)
+    scratch = torch.empty(4 * plane + 2, dtype=torch.int32, device=dev)
+    base, step = scratch.data_ptr(), 4 * plane
+    return v, c, p, scratch, [base + k * step for k in range(4)]
+
+
+def _pack_records(form: str, cells: int, lanes: int, np_: int, dev):
+    """The emit mode's scratch of packed vertex records: ``[S, ceil(L /
+    G), Np, 8]`` int32, one 32-byte record per (cell, lane group, vertex)
+    holding G lanes' emit fields (and divisors) and senders bits; G = 3
+    for ``push_share``, else 4."""
+    g = 3 if form == "push_share" else 4
+    return torch.empty((cells, -(-lanes // g), np_, 8), dtype=torch.int32,
+                       device=dev)
 
 
 def _check_scan_instance(kind: str, msg, form: str | None) -> None:
@@ -336,13 +348,15 @@ def edge_relax_scan(prog, vstate, senders, gid, key, src, weight, dst_gid,
     for name, t in (("key", key), ("skey", skey), ("src", src)):
         _check(name, t, torch.int32, (s_, es), dev, rows)
     _check("weight", weight, torch.float32, (s_, es), dev, rows)
-    v, c, p, scratch = _scan_outputs(msg, rows_shape, es,
-                                     prog.with_payload, dev)
+    v, c, p, _scratch, ptrs = _scan_outputs(msg, rows_shape, es,
+                                            prog.with_payload, dev)
+    pack = _pack_records(ke.form, s_, lanes, np_, dev)
     err = _fn("edge_relax_scan_launch")(
         field.data_ptr(), divisor.data_ptr() if divisor is not None else None,
         senders.data_ptr(), gid.data_ptr(), key.data_ptr(), skey.data_ptr(),
-        src.data_ptr(), weight.data_ptr(), v.data_ptr(), c.data_ptr(),
-        p.data_ptr() if p is not None else None, *scratch, s_, lanes, np_,
+        src.data_ptr(), weight.data_ptr(), pack.data_ptr(), v.data_ptr(),
+        c.data_ptr(), p.data_ptr() if p is not None else None, *ptrs, s_,
+        lanes, np_,
         rows[0], es, int(msg == torch.int32), _COMBINE_CODE[prog.combine],
         _EMIT_CODE[ke.form], int(prog.with_payload), float(ke.const),
         _build.stream())
@@ -386,13 +400,13 @@ def edge_relax_scan_pre(monoid, cand, send, skey, pay=None):
     if krows[-1] != 1:
         raise ValueError("skey must have unit last-dim stride")
     _check("skey", skey, torch.int32, (s_, es), dev, krows)
-    v, c, p, scratch = _scan_outputs(cand.dtype, rows_shape, es,
-                                     pay is not None, dev)
+    v, c, p, _scratch, ptrs = _scan_outputs(cand.dtype, rows_shape, es,
+                                            pay is not None, dev)
     err = _fn("edge_relax_scan_pre_launch")(
         cand.data_ptr(), send.data_ptr(),
         pay.data_ptr() if pay is not None else None, skey.data_ptr(),
         v.data_ptr(), c.data_ptr(), p.data_ptr() if p is not None else None,
-        *scratch, s_, lanes, krows[0], st[-2], es,
+        *ptrs, s_, lanes, krows[0], st[-2], es,
         int(cand.dtype == torch.int32), _COMBINE_CODE[monoid.kind],
         int(pay is not None), _build.stream())
     _build.raise_on("edge_relax_scan (pre-emitted)", err)

@@ -14,14 +14,16 @@ shared by every lane.
   order-free, so how the reduction is written cannot change a bit).
 * :func:`stream_scan` — the segmented inclusive scan that the CUDA kernel
   ``edge_relax_scan`` (K2) computes, in the port's own fixed association
-  order: a Hillis–Steele tree within tiles of :data:`SCAN_TILE` elements,
-  a sequential carry across tile aggregates in tile order, and the carry
-  applied to each tile's leading open run.  The order depends only on the
-  stream length, so the kernel and this version agree bit for bit, and a
-  lane's scan is bitwise the same query's scan run solo; against the JAX
-  package's ``lax.associative_scan`` tree a float sum agrees only to
-  rounding (min/max, with or without the argbest payload, are order-free
-  and agree bitwise).
+  order: within tiles of :data:`SCAN_TILE` elements, a sequential fold of
+  each thread's :data:`SCAN_PER_THREAD` elements, a Hillis–Steele scan
+  over a warp's thread aggregates and the warps folded in order; a
+  sequential carry across tile aggregates in tile order, applied to each
+  tile's leading open run.  The order depends only on the stream length
+  and those constants, so the kernel and this version agree bit for bit,
+  and a lane's scan is bitwise the same query's scan run solo; against
+  the JAX package's ``lax.associative_scan`` tree a float sum agrees only
+  to rounding (min/max, with or without the argbest payload, are
+  order-free and agree bitwise).
 * :func:`gather_runs`, :func:`delta_tables`, :func:`merge_tables`,
   :func:`flat_combine`, :func:`stream_combine` — the phase-2 combines
   shared by both.
@@ -55,8 +57,12 @@ __all__ = [
     "edge_relax_push_stream",
 ]
 
-# Tile width of the scan's fixed association order (one CUDA thread block).
+# The scan's fixed association order, as the CUDA kernel runs it: tiles of
+# SCAN_TILE elements (one thread block), SCAN_PER_THREAD consecutive
+# elements per thread, warps of SCAN_WARP threads.
 SCAN_TILE = 1024
+SCAN_PER_THREAD = 8
+SCAN_WARP = 32
 
 def _take(a, idx):
     """``a[..., idx]`` per leading row (``idx`` int64, same leading dims,
@@ -153,21 +159,57 @@ def _pay_rule(monoid, va, pa, vb, pb):
                                    torch.maximum(pa, pb)))
 
 
-def stream_scan(monoid, cand, send, key, pay=None, tile: int = SCAN_TILE):
+def _seg_combine(monoid, a, b):
+    """The segmented combine ``a (+) b`` of (value, count, run-start flag,
+    payload | None) partials: where ``b`` holds a run start it is ``b``;
+    else the monoid op with ``a`` on the left, the counts added and the
+    payload by :func:`_pay_rule`."""
+    av, ac, af, ap = a
+    bv, bc, bf, bp = b
+    v = torch.where(bf, bv, monoid.elem(av, bv))
+    c = torch.where(bf, bc, ac + bc)
+    p = None
+    if ap is not None:
+        p = torch.where(bf, bp, _pay_rule(monoid, av, ap, bv, bp))
+    return v, c, af | bf, p
+
+
+def _pick(cond, a, b):
+    """``cond ? a : b`` on partials."""
+    return tuple(None if x is None else torch.where(cond, x, y)
+                 for x, y in zip(a, b))
+
+
+def stream_scan(monoid, cand, send, key, pay=None, tile: int = SCAN_TILE,
+                per_thread: int = SCAN_PER_THREAD, warp: int = SCAN_WARP):
     """Segmented inclusive scan of (value, sending count[, argbest
     payload]) over the destination-sorted stream, resetting where ``key``
     changes; element ``e`` holds the combine of its run up to ``e``.
 
-    The association order is fixed by the stream length and ``tile``
-    alone: (a) a Hillis–Steele tree inside each tile, (b) a sequential
-    carry across the tile aggregates in tile order, (c) the carry combined
-    (on the left) into each tile's leading open run.  The CUDA kernel
-    executes the same operations in the same order.  A run start takes
-    the right operand; otherwise the payload follows :func:`_pay_rule`.
+    The association order is the CUDA kernel's, fixed by the stream length
+    and the constants ``tile``, ``per_thread`` and ``warp`` alone (the
+    card's: 1024, 8, 32).  A tile holds ``tile / (per_thread * warp)``
+    warps of ``warp`` threads, thread ``t`` the ``per_thread`` consecutive
+    elements from ``t * per_thread``.  With ``(+)`` the segmented combine
+    (a run start takes the right operand):
+
+    (a) each thread folds its elements left to right;
+    (b) a Hillis–Steele scan over a warp's thread aggregates (step ``d``
+        combines lane ``i`` with lane ``i - d``, the left operand first);
+    (c) the warp aggregates ``B_w`` fold sequentially, ``P_1 = B_0``,
+        ``P_w = P_{w-1} (+) B_{w-1}``; the tile aggregate is ``P_W``;
+    (d) a thread's elements combine, on the left, ``P_w (+) W_{lane-1}``
+        (only the part that exists);
+    (e) ``carry_j = carry_{j-1} (+) agg_{j-1}`` across tiles, combined on
+        the left of each tile's leading open run.
 
     ``cand``/``send``/``pay`` are [..., E], optionally lane-stacked
     ([S, L, E]) against a shared [S, E] ``key``.
     """
+    if tile % (per_thread * warp):
+        raise ValueError(f"tile {tile} is not a multiple of per_thread "
+                         f"{per_thread} x warp {warp}")
+    n_warps = tile // (per_thread * warp)
     e = key.shape[-1]
     if cand.ndim == key.ndim + 1:
         key = key.unsqueeze(-2)
@@ -176,44 +218,68 @@ def stream_scan(monoid, cand, send, key, pay=None, tile: int = SCAN_TILE):
     ident = monoid.identity(cand.dtype)
     nt = -(-e // tile)
     pad = nt * tile - e
-    tiles = lambda a: a.reshape(a.shape[:-1] + (nt, tile))
-    v = tiles(_pad_tail(cand, pad, ident))
-    c = tiles(_pad_tail(send.to(torch.int32), pad, 0))
-    f = tiles(_pad_tail(start, pad, True))
-    p = None if pay is None else tiles(_pad_tail(pay, pad, -1))
-    # (a) the in-tile tree: step d combines each element with the one d
-    # to its left (left operand first), for d = 1, 2, 4, ..., tile / 2
+    split = lambda a: a.reshape(a.shape[:-1] + (nt, n_warps, warp,
+                                                per_thread))
+    x = (split(_pad_tail(cand, pad, ident)),
+         split(_pad_tail(send.to(torch.int32), pad, 0)),
+         split(_pad_tail(start.expand(cand.shape), pad, True)),
+         None if pay is None else split(_pad_tail(pay, pad, -1)))
+    comb = lambda a, b: _seg_combine(monoid, a, b)
+    at = lambda part, i: tuple(None if z is None else z[..., i]
+                               for z in part)
+    # (a) the thread's sequential fold
+    loc = [at(x, 0)]
+    for j in range(1, per_thread):
+        loc.append(comb(loc[-1], at(x, j)))
+    # (b) Hillis–Steele over the warp's thread aggregates [..., nt, W, warp]
+    w = loc[-1]
     d = 1
-    while d < tile:
-        lv, lc, lf = v[..., :-d], c[..., :-d], f[..., :-d]
-        rv, rc, rf = v[..., d:], c[..., d:], f[..., d:]
-        if p is not None:
-            p = torch.cat([p[..., :d], torch.where(
-                rf, p[..., d:], _pay_rule(monoid, lv, p[..., :-d], rv,
-                                          p[..., d:]))], -1)
-        v = torch.cat([v[..., :d], torch.where(rf, rv, monoid.elem(lv, rv))],
-                      -1)
-        c = torch.cat([c[..., :d], torch.where(rf, rc, lc + rc)], -1)
-        f = torch.cat([f[..., :d], rf | lf], -1)
+    while d < warp:
+        shifted = tuple(None if z is None else z[..., :-d] for z in w)
+        right = tuple(None if z is None else z[..., d:] for z in w)
+        w = tuple(None if z is None else torch.cat([z[..., :d], y], -1)
+                  for z, y in zip(w, comb(shifted, right)))
         d *= 2
-    # (b) carry_j = agg_{j-1} if tile j-1 holds a run start, else
-    # carry_{j-1} (+) agg_{j-1}.  Computed as a fixed-point sweep over all
+    # (c) the warps' prefixes P_w ([..., nt, W]; P_0 absent) and the tile
+    # aggregate
+    bw = at(w, warp - 1)
+    wat = lambda part, u: tuple(None if z is None else z[..., u]
+                                for z in part)
+    pws = [wat(bw, 0)]                     # stands in for the absent P_0
+    for u in range(1, n_warps + 1):
+        pws.append(wat(bw, 0) if u == 1 else comb(pws[-1], wat(bw, u - 1)))
+    agg = pws[n_warps]
+    pw = tuple(None if z[0] is None else torch.stack(z, -1)
+               for z in zip(*pws[:n_warps]))
+    # (d) each thread's exclusive prefix, then its elements
+    wx = tuple(None if z is None else torch.cat([z[..., :1], z[..., :-1]],
+                                                -1) for z in w)
+    pw_b = tuple(None if z is None else z[..., None].expand(wx[0].shape)
+                 for z in pw)
+    lane = torch.arange(warp, device=key.device)
+    wid = torch.arange(n_warps, device=key.device)[:, None]
+    ex = _pick(wid > 0, comb(pw_b, wx), wx)
+    ex = _pick(lane > 0, ex, pw_b)
+    has_e = ((lane > 0) | (wid > 0))[..., None]
+    locs = tuple(None if z[0] is None else torch.stack(z, -1)
+                 for z in zip(*loc))        # [..., nt, W, warp, per_thread]
+    exb = tuple(None if z is None else z[..., None] for z in ex)
+    v, c, f, p = _pick(has_e, comb(exb, locs), locs)
+    # (e) carry_j = carry_{j-1} (+) agg_{j-1}, carry_1 = agg_0 (tile 0
+    # opens with a run start).  Computed as a fixed-point sweep over all
     # tiles at once; after as many sweeps as the longest chain of
     # start-free tiles every carry holds exactly the sequential value.
-    agg_v, agg_c, agg_f = v[..., -1], c[..., -1], f[..., -1]
+    agg_v, agg_c, agg_f, agg_p = agg
     carry_v = torch.full_like(agg_v, ident)
     carry_c = torch.zeros_like(agg_c)
-    carry_p = None
-    if p is not None:
-        agg_p = p[..., -1]
-        carry_p = torch.full_like(agg_p, -1)
+    carry_p = None if agg_p is None else torch.full_like(agg_p, -1)
     if nt > 1:
         idx = torch.arange(nt, device=key.device)
         last = torch.cummax(torch.where(agg_f, idx, -1), dim=-1).values
         depth = int((idx[1:] - last[..., :-1]).max())
         for _ in range(depth):
             af = agg_f[..., :-1]
-            if p is not None:
+            if carry_p is not None:
                 npay = torch.where(af, agg_p[..., :-1], _pay_rule(
                     monoid, carry_v[..., :-1], carry_p[..., :-1],
                     agg_v[..., :-1], agg_p[..., :-1]))
@@ -224,15 +290,16 @@ def stream_scan(monoid, cand, send, key, pay=None, tile: int = SCAN_TILE):
                              carry_c[..., :-1] + agg_c[..., :-1])
             carry_v = torch.cat([carry_v[..., :1], nv], -1)
             carry_c = torch.cat([carry_c[..., :1], nc], -1)
-    # (c) the leading open run of each tile (no start at or before the
-    # element inside the tile) takes the carry from the left
-    if p is not None:
-        p = torch.where(f, p, _pay_rule(monoid, carry_v[..., None],
-                                        carry_p[..., None], v, p))
-    v = torch.where(f, v, monoid.elem(carry_v[..., None], v))
-    c = torch.where(f, c, carry_c[..., None] + c)
-    flat = lambda a: a.reshape(a.shape[:-2] + (nt * tile,))[..., :e]
-    return flat(v), flat(c), None if p is None else flat(p)
+    # the leading open run of each tile (no start at or before the element
+    # inside the tile) takes the carry from the left
+    flat = lambda a: a.reshape(a.shape[:-4] + (nt * tile,))[..., :e]
+    v, c, f = flat(v), flat(c), flat(f)
+    p = None if p is None else flat(p)
+    rep = lambda a: None if a is None else a.repeat_interleave(
+        tile, -1)[..., :e]
+    cr = (rep(carry_v), rep(carry_c), torch.zeros_like(f), rep(carry_p))
+    out = _pick(f, (v, c, f, p), comb(cr, (v, c, f, p)))
+    return out[0], out[1], out[3]
 
 
 def edge_relax_scan_ref(prog, vstate, senders, gid, key, src, weight,

@@ -5,7 +5,11 @@ TPU kernel ``repro/kernels/flash_attention/kernel.py :: flash_attention``:
 the FA2 online-softmax forward with GQA, an optional logit softcap, a
 ``kv_len`` mask and a causal diagonal at ``q_offset``.  Bound by the
 operations (4 B Hq Sq Skv D flops, halved when causal) at the prefill
-shapes; this first kernel runs them as f32 FMAs on shared-memory tiles.
+shapes.  bf16 inputs run both products on the tensor cores (``wgmma``,
+K/V tiles by TMA through a three-stage mbarrier ring); P is rounded to bf16
+before P V, so bf16 outputs differ from the plain version (f32 P) by up to
+2^-9 of ``flash_attention_ref(q, k, |v|)`` more.  f32 inputs run f32 FMAs
+on shared-memory tiles and never round through TF32 or bf16.
 
 Dispatch follows the tensors' device: CPU tensors take
 ``ref.flash_attention_ref``; CUDA tensors launch the kernel (built at first
@@ -79,6 +83,8 @@ def flash_attention(q, k, v, causal: bool = True, softcap: float = 0.0,
                             f"{q.dtype} on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (TMA)")
     kv_len = skv if kv_len is None else int(kv_len)
     if not 0 <= kv_len <= skv:
         raise ValueError(f"kv_len {kv_len} is outside [0, {skv}]")

@@ -226,6 +226,64 @@ def test_k2_every_instance_matches_plain_bitwise(gpu_session, name, kw,
             assert torch.equal(a, c)
 
 
+def _hub_stream(cells, width, np_, seed):
+    """A synthetic destination-sorted stream [cells, width] on the card:
+    per cell a hub run of 3.5 tiles from position 0, short runs, a hub of
+    4 tiles that opens mid-tile, then short runs; a tenth of the
+    positions tombstoned (``key`` -1, ``skey`` keeps the run)."""
+    rng = np.random.default_rng(seed)
+    tile = ref.SCAN_TILE
+    skey, key = [], []
+    for c in range(cells):
+        lengths = [3 * tile + tile // 2]
+        lengths += rng.integers(1, 40, 100 + c).tolist()
+        lengths += [4 * tile + 3]
+        lengths += rng.integers(1, 60, width).tolist()
+        ids = np.repeat(np.arange(len(lengths)), lengths)[:width]
+        ids = np.sort(rng.choice(cells * np_, ids[-1] + 1,
+                                 replace=False))[ids]
+        skey.append(ids)
+        key.append(np.where(rng.random(width) < 0.1, -1, ids))
+    as_t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).cuda()
+    src = rng.integers(0, np_, (cells, width))
+    weight = torch.from_numpy(
+        (1 + 7 * rng.random((cells, width))).astype(np.float32)).cuda()
+    gid = as_t(np.arange(cells * np_).reshape(cells, np_))
+    return as_t(key), as_t(skey), as_t(src), weight, gid
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 4, 5, 16],
+                         ids=["solo", "L1", "L4", "L5", "L16"])
+@pytest.mark.parametrize("name,kw", SCAN_CASES)
+def test_k2_hub_stream_bitwise_and_repeatable(cuda, name, kw, lanes):
+    """K2 in both input modes on a stream whose hub runs span 3 and 4 whole
+    tiles (the look-back walks over them), bitwise against the plain
+    versions, one launch per call, and five repeated launches bitwise
+    equal (tiles run in any order)."""
+    S, E, Np = 4, 12 * ref.SCAN_TILE + 77, 3000
+    key, skey, src, weight, gid = _hub_stream(S, E, Np, 17)
+    prog = PROGRAMS[name].factory(**kw)
+    if lanes:
+        prog = make_laned([prog] * lanes)
+    shape = (S, Np) if lanes is None else (S, lanes, Np)
+    vstate, senders = _random_state(prog, shape, 23)
+    args = (prog, vstate, senders, gid, key, src, weight, key)
+    kernel.reset_launches()
+    runs = [kernel.edge_relax_scan(*args, skey=skey) for _ in range(5)]
+    assert kernel.LAUNCHES["edge_relax_scan"] == 5
+    want = ref.edge_relax_scan_ref(*args, skey=skey)
+    cand, send, pay = ref.edge_messages(*args)
+    pre = [kernel.edge_relax_scan_pre(prog.monoid, cand, send, skey, pay)
+           for _ in range(5)]
+    pre_want = ref.stream_scan(prog.monoid, cand, send, skey, pay)
+    torch.cuda.synchronize()
+    for out in runs + pre:
+        for a, b, c in zip(out, want, pre_want):
+            assert (a is None) == (b is None)
+            if b is not None:
+                assert torch.equal(a, b) and torch.equal(b, c)
+
+
 def test_push_sweeps_and_commit_on_gpu_match_cpu(gpu_session):
     _, (src, dst, w, n) = gpu_session
     kw = dict(n_cells=4, edge_slack=0.2, node_slack=0.05)
@@ -274,6 +332,30 @@ def cuda():
     return torch.device("cuda")
 
 
+# K4's tolerance against its plain version ``flash_attention_ref``.  f32:
+# 2e-5 max abs (the same online softmax, sums in other orders).  bf16, per
+# element: |got - want| <= 2^-7 |want| + 2^-8 A + 2e-5, where A is
+# ``flash_attention_ref(q, k, |v|)`` under the same masks.  The kernel
+# rounds P to bf16 before P V (the plain version keeps it in f32): each
+# weight moves by at most 2^-9 of itself, so an output moves by at most
+# 2^-9 (sum_j p_j |v_j|) / l = 2^-9 A; the limit takes twice that, one
+# bf16 ulp of the output (2^-7 relative: both sides round their f32 result
+# once) and the f32 limit.  An output near zero averages |v| of order 1,
+# so a limit without the A term would fail there.
+K4_F32_TOL = 2e-5
+
+
+def _k4_ok(got, want, q, k, v, **kw):
+    from repro_torch.kernels.flash_attention import ref as r4
+
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        return bool((diff <= K4_F32_TOL).all()), float(diff.max())
+    a = r4.flash_attention_ref(q, k, v.abs(), **kw).float()
+    limit = 2.0 ** -7 * want.float().abs() + 2.0 ** -8 * a + K4_F32_TOL
+    return bool((diff <= limit).all()), float(diff.max())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv,sq,skv,d,causal,softcap", [
     (4, 4, 128, 128, 64, True, 0.0), (8, 1, 200, 200, 64, True, 30.0),
@@ -281,24 +363,59 @@ def cuda():
     (32, 4, 1, 77, 64, True, 0.0)])
 def test_k4_kernel_matches_plain(cuda, dtype, hq, hkv, sq, skv, d, causal,
                                  softcap):
-    """f32: 2e-5 max abs (the same online softmax, other summation
-    orders); bf16: 3e-2 (one bf16 rounding of O(1) outputs, 2^-8
-    relative, plus the inputs' own rounding is shared)."""
+    """Within the tolerance of :func:`_k4_ok` (f32 2e-5; bf16 with the P
+    rounding term)."""
     from repro_torch.kernels.flash_attention import kernel as k4, ref as r4
 
     g = torch.Generator(device="cpu").manual_seed(sq + skv + d)
     q, k, v = (torch.randn(shape, generator=g).to(cuda, dtype) for shape in
                ((2, hq, sq, d), (2, hkv, skv, d), (2, hkv, skv, d)))
+    kw = dict(causal=causal, softcap=softcap, q_offset=skv - sq)
     n0 = k4.LAUNCHES["flash_attention"]
-    got = k4.flash_attention(q, k, v, causal=causal, softcap=softcap,
-                             q_offset=skv - sq)
+    got = k4.flash_attention(q, k, v, **kw)
     assert k4.LAUNCHES["flash_attention"] == n0 + 1
-    want = r4.flash_attention_ref(q, k, v, causal=causal, softcap=softcap,
-                                  q_offset=skv - sq)
+    want = r4.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
-    tol = 2e-5 if dtype == torch.float32 else 3e-2
     assert got.dtype == dtype
-    assert float((got.float() - want.float()).abs().max()) <= tol
+    ok, err = _k4_ok(got, want, q, k, v, **kw)
+    assert ok, err
+
+
+@pytest.mark.parametrize("kv_len", [None, 150, 0], ids=["full", "kv150",
+                                                        "kv0"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv", [(192, 192), (100, 300)])
+@pytest.mark.parametrize("groups", [1, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_k4_bf16_wgmma_within_the_stated_tolerance(cuda, d, groups, sq, skv,
+                                                   causal, softcap, kv_len):
+    """The bf16 kernel over phase 2b's grid, with kv_len masks: kv_len 150
+    at sq == skv leaves the causal rows 0..149 partly and, with q_offset
+    -60 as well, rows that see no key (output 0); kv_len 0 masks every
+    row.  The launch counter moves once per call."""
+    from repro_torch.kernels.flash_attention import kernel as k4, ref as r4
+
+    g = torch.Generator(device="cpu").manual_seed(d + groups + sq)
+    q, k, v = (torch.randn(shape, generator=g).to(cuda, torch.bfloat16)
+               for shape in ((2, 2 * groups, sq, d), (2, 2, skv, d),
+                             (2, 2, skv, d)))
+    offsets = [skv - sq] if kv_len is None else [skv - sq, -60]
+    for off in offsets:
+        kw = dict(causal=causal, softcap=softcap, kv_len=kv_len,
+                  q_offset=off)
+        n0 = k4.LAUNCHES["flash_attention"]
+        got = k4.flash_attention(q, k, v, **kw)
+        assert k4.LAUNCHES["flash_attention"] == n0 + 1
+        want = r4.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        ok, err = _k4_ok(got, want, q, k, v, **kw)
+        assert ok, (off, err)
+        dead = want.float().abs().amax(dim=-1) == 0
+        if kv_len == 0 or (causal and off < 0):
+            assert bool(dead.any())
+        assert bool((got.float().abs().amax(dim=-1)[dead] == 0).all())
 
 
 def test_k4_kernel_kv_len_and_dead_rows(cuda):

@@ -215,35 +215,72 @@ def test_k2_plain_matches_pallas_scan_within_tolerance(graphs, name, kw):
                                    atol=SCAN_ATOL)
 
 
-def _sequential_order_scan(vals, keys, tile):
-    """The fixed order written as loops in numpy float32: a Hillis-Steele
-    tree per tile, a sequential carry over tile aggregates, the carry added
-    on the left of each tile's leading open run."""
+def _sequential_order_scan(vals, keys, tile, per_thread, warp):
+    """The kernel's fixed order written as loops in numpy float32 (a sum's
+    values): per tile, each thread folds its ``per_thread`` elements left to
+    right, a Hillis-Steele scan runs over each warp's thread aggregates, the
+    warp aggregates fold in order, and each thread's exclusive prefix
+    combines on the left of its elements; then the tile aggregates carry in
+    tile order onto each tile's leading open run."""
+    def comb(a, b):                       # (value, holds a run start)
+        return (b[0] if b[1] else np.float32(a[0] + b[0]), a[1] or b[1])
+
     e = vals.shape[0]
     nt = -(-e // tile)
     v = np.zeros(nt * tile, np.float32)
     f = np.ones(nt * tile, bool)
     v[:e] = vals
     f[:e] = np.concatenate([[True], keys[1:] != keys[:-1]])
-    v, f = v.reshape(nt, tile), f.reshape(nt, tile)
-    d = 1
-    while d < tile:
-        nv, nf = v.copy(), f.copy()
-        for i in range(d, tile):
-            nv[:, i] = np.where(f[:, i], v[:, i], v[:, i - d] + v[:, i])
-            nf[:, i] = f[:, i] | f[:, i - d]
-        v, f = nv, nf
-        d *= 2
-    carry = np.float32(0)
+    n_threads = tile // per_thread
+    n_warps = n_threads // warp
+    out = [None] * (nt * tile)
+    aggs = []
     for j in range(nt):
-        cj = carry
-        carry = v[j, -1] if f[j, -1] else np.float32(carry + v[j, -1])
-        v[j] = np.where(f[j], v[j], cj + v[j])
-    return v.reshape(-1)[:e]
+        loc = []
+        for th in range(n_threads):
+            at = j * tile + th * per_thread
+            run = [(v[at], bool(f[at]))]
+            for r in range(1, per_thread):
+                run.append(comb(run[-1], (v[at + r], bool(f[at + r]))))
+            loc.append(run)
+        w = [run[-1] for run in loc]
+        for wi in range(n_warps):
+            lanes = w[wi * warp:(wi + 1) * warp]
+            d = 1
+            while d < warp:
+                lanes = [lanes[i] if i < d else comb(lanes[i - d], lanes[i])
+                         for i in range(warp)]
+                d *= 2
+            w[wi * warp:(wi + 1) * warp] = lanes
+        b = [w[wi * warp + warp - 1] for wi in range(n_warps)]
+        pw = [None, b[0]]
+        for u in range(2, n_warps + 1):
+            pw.append(comb(pw[-1], b[u - 1]))
+        aggs.append(pw[n_warps])
+        for th in range(n_threads):
+            wi, ln = divmod(th, warp)
+            ex = None
+            if ln > 0:
+                ex = w[th - 1] if wi == 0 else comb(pw[wi], w[th - 1])
+            elif wi > 0:
+                ex = pw[wi]
+            for r in range(per_thread):
+                x = loc[th][r]
+                out[j * tile + th * per_thread + r] = x if ex is None \
+                    else comb(ex, x)
+    carry = None
+    for j in range(1, nt):
+        carry = aggs[0] if j == 1 else comb(carry, aggs[j - 1])
+        for i in range(j * tile, (j + 1) * tile):
+            if not out[i][1]:
+                out[i] = comb(carry, out[i])
+    return np.array([x[0] for x in out[:e]], np.float32)
 
 
-@pytest.mark.parametrize("tile", [4, 16, 64])
-def test_stream_scan_is_the_fixed_sequential_order(tile):
+@pytest.mark.parametrize("tile,per_thread,warp", [(4, 2, 2), (16, 2, 4),
+                                                  (64, 4, 4)],
+                         ids=["4", "16", "64"])
+def test_stream_scan_is_the_fixed_sequential_order(tile, per_thread, warp):
     rng = np.random.default_rng(tile)
     # long runs spanning many tiles, short runs, and -1 padding at the end
     lengths = np.concatenate([[9 * tile + 3], rng.integers(1, 3 * tile, 40),
@@ -256,8 +293,9 @@ def test_stream_scan_is_the_fixed_sequential_order(tile):
     m = tprograms.ppr.build(0).monoid
     v, c, _ = tref.stream_scan(m, torch.from_numpy(vals),
                                torch.from_numpy(send), torch.from_numpy(keys),
-                               tile=tile)
-    assert_bits(v, _sequential_order_scan(vals, keys, tile), "values")
+                               tile=tile, per_thread=per_thread, warp=warp)
+    assert_bits(v, _sequential_order_scan(vals, keys, tile, per_thread,
+                                          warp), "values")
     # counts are exact: the run-prefix count of senders
     want_c = np.zeros(keys.shape[0], np.int64)
     for i in range(keys.shape[0]):

@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (only the
-tests import both)."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and not ``chip_k2_ablation.py`` imports ``jax`` or the
+JAX package ``repro`` (only the tests import both)."""
 
 import ast
 from pathlib import Path
@@ -13,7 +13,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
 def _files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_k2_ablation.py"]
 
 
 def _imports(path: Path):
