@@ -46,19 +46,22 @@ VARIANTS = {
 }
 
 
-def build_variants(nvcc: str, flags, argtypes) -> dict:
-    """Compile every variant in parallel; name -> its launch entry point."""
-    src = (CSRC / "edge_relax_scan.cu").read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
+def build_variants(nvcc: str, flags, argtypes, source="edge_relax_scan.cu",
+                   variants=VARIANTS, symbol="edge_relax_scan_launch",
+                   out=OUT) -> dict:
+    """Compile every variant of ``source`` (name -> text substitutions) in
+    parallel into ``out``; name -> its entry point ``symbol``."""
+    src = (CSRC / source).read_text()
+    out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         text = src
         for old, new in subs:
             if old not in text:
                 raise RuntimeError(f"variant {name}: the kernel changed; "
                                    f"{old!r} is not in it")
             text = text.replace(old, new)
-        cu, so = OUT / f"{name}.cu", OUT / f"lib{name}.so"
+        cu, so = out / f"{name}.cu", out / f"lib{name}.so"
         cu.write_text(text)
         procs[name] = (subprocess.Popen(
             [nvcc, *flags, "-I", str(CSRC), "-o", str(so), str(cu)],
@@ -68,7 +71,7 @@ def build_variants(nvcc: str, flags, argtypes) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(so)).edge_relax_scan_launch
+        fn = getattr(ctypes.CDLL(str(so)), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[name] = fn
     return fns

@@ -16,8 +16,11 @@ kernels line and the final result line):
    ``cuobjdump -sass`` of K4's library: its bf16 instances must hold
    HGMMA (wgmma) instructions and its f32 instances none;
 2. each graph kernel against its plain PyTorch version on the card, on the
-   ``scale_free`` family with 4 cells: K1 (``edge_relax_blocks``) for every
-   min/max builtin, bitwise; K2 (``edge_relax_scan``) for the push_share
+   ``scale_free`` family with 4 cells: K1 (``edge_relax_blocks``, the
+   per-destination tables) for every min/max builtin, bitwise, and on a
+   synthetic stream of hub runs over whole tiles, tombstone-split runs and
+   an unsorted tail (one key in several runs of a tile), five launches
+   bitwise; K2 (``edge_relax_scan``) for the push_share
    emit, bitwise, and bitwise run to run, and in its pre-emitted input
    mode, and in both modes for every builtin's (emit form, monoid, dtype,
    payload) instance with 4 and 5 lanes, bitwise, and on a synthetic
@@ -25,7 +28,7 @@ kernels line and the final result line):
    lanes, bitwise in both modes and over five repeated launches; K3
    (``edge_relax_push_blocks``) for every min/max builtin at three
    frontiers (one vertex, 1 %, all vertices), bitwise on its raw outputs and
-   after phase 2;
+   after phase 2 (``ref.combine_blocks``);
 2b. K4 (``flash_attention``) against its plain version: bf16 and f32, head
    dims 64 and 128, causal or not, softcap 0 and 30, GQA groups 1 and 8,
    sq == skv and sq < skv (64 cases, tolerance at ``k4_err``: f32 2e-5,
@@ -47,15 +50,20 @@ kernels line and the final result line):
    bitwise equal to the same root queried solo, push/auto lanes to pull,
    and a later solo query of a root served from the cache;
 4a. K1 and K2 timed at the main path's shapes against their plain
-   versions, their bounds and one PyTorch library call each (K2: the
-   device kernels one call runs, from a profiler trace);
+   versions, their bounds and one PyTorch library call each, with the
+   device kernels one call runs (from a profiler trace); K1 also with
+   what its tables replaced timed beside it: phase 2 alone
+   (``ref.combine_blocks`` over the plain partials) and the dense-rank
+   block body over every block (K3's kernel) followed by phase 2, held
+   bitwise against K1;
 4f. K2's laned payload instance at phase 3d's sssp shape (16 lanes) held
    against its plain version and timed beside its bound and
    ``scatter_reduce_`` amin over the same messages;
 4c. K6 (``relax_sorted``) through its entry point ``relax`` on cell 0 of the
    session's destination-sorted stream with phase 3's sssp distances and a
    50 % random active set: launches counted, bitwise against its plain
-   version and ``scatter_reduce_``, timed;
+   version and ``scatter_reduce_``, timed; and bitwise on a synthetic
+   stream of 1,000,003 edges with hub runs over many tiles;
 3c. the commit path at full width: with sssp, bfs, cc and ppr cached, and
    four more sssp entries from one laned query, three commits (256 edge
    adds; 256 edge deletes, 32 of them SSSP tree edges; 16 vertex adds with
@@ -83,8 +91,10 @@ kernels line and the final result line):
    one in the kernels line), then timed against the plain version, its
    bound and ``scaled_dot_product_attention``, with both TFLOP/s.
 
-With ``--profile``, each trace also gives K2's and K4's device time and
-their share of the busy and the wall time.
+With ``--profile``, each trace also gives K1's, K2's and K4's device time
+and their share of the busy and the wall time, and the device time under
+the engine's ``repro_torch.*`` ranges (relax, outbox_merge, receive,
+counters, poll, exchange, the phase-2 combines).
 
 With ``--cpu-rehearsal`` the same phases run on the CPU on the kernels'
 plain versions at tiny sizes (the serving phases on the smoke config).
@@ -125,7 +135,14 @@ MINMAX_CASES = [
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line, and append it to ``chip_smoke.jsonl`` under
+    OUT_DIR, the run's whole record where only the end of the printed
+    output is kept."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / "chip_smoke.jsonl", "a") as f:
+        f.write(line + "\n")
 
 
 def check(cond: bool, what: str) -> None:
@@ -190,25 +207,33 @@ def stream_inputs(sess, prog, vstate, senders):
                              sgd["csr_weight"], sgd["csr_dst_gid"])
 
 
-def compare_k1(sess, prog, vstate, senders):
-    """K1 against its plain version on the same inputs: bitwise."""
+def hold_k1(args, n_keys: int, tag: str, repeats: int = 1) -> float:
+    """K1's tables against its plain version on the same inputs (the
+    blocked partials and ``ref.combine_blocks``): bitwise, for each of
+    ``repeats`` launches (their atomics land in any order)."""
     from repro_torch.kernels.edge_relax import kernel, ref
 
+    prog = args[0]
+    runs = [kernel.edge_relax_blocks(*args, n_keys) for _ in range(repeats)]
+    want = ref.combine_blocks(
+        *ref.edge_relax_blocks_ref(*args, block_e=kernel.BLOCK_E), n_keys,
+        prog.combine)
+    sync(args[2].device)
+    for got in runs:
+        for g, w, what in zip(got, want, ("table", "cnt", "pay")):
+            check((g is None) == (w is None), f"K1 {tag}: {what} output")
+            check(w is None or torch.equal(g, w),
+                  f"K1 {tag}: {what} differs from the plain version or "
+                  f"from another launch")
+    fin = torch.isfinite(want[0].float())
+    return float((runs[0][0].float() - want[0].float())[fin].abs().max()) \
+        if bool(fin.any()) else 0.0
+
+
+def compare_k1(sess, prog, vstate, senders):
+    """K1 on the session's streams against its plain version: bitwise."""
     _, args = stream_inputs(sess, prog, vstate, senders)
-    got = kernel.edge_relax_blocks(*args, block_e=kernel.BLOCK_E)
-    want = ref.edge_relax_blocks_ref(*args, block_e=kernel.BLOCK_E)
-    sync(senders.device)
-    err = 0.0
-    for g, w, what in zip(got, want, ("part", "cnt", "uniq", "pay")):
-        if w is None:
-            check(g is None, f"K1 {prog.name}: unexpected {what}")
-            continue
-        check(torch.equal(g, w), f"K1 {prog.name}: {what} differs from the "
-                                 f"plain version")
-        fin = torch.isfinite(w.float())
-        if fin.any():
-            err = max(err, float((g.float() - w.float())[fin].abs().max()))
-    return err
+    return hold_k1(args, sess.sg.n_shards * sess.sg.n_per_shard, prog.name)
 
 
 def compare_k2(sess, prog, vstate, senders):
@@ -271,10 +296,10 @@ def compare_k3(sess, prog, vstate, senders, cap=None):
         if fin.any():
             err = max(err, float((g.float() - w.float())[fin].abs().max()))
     n_keys = sess.sg.n_shards * sess.sg.n_per_shard
-    tg = ops._combine_blocks(*ops._mask_fill_blocks(*got, valid), n_keys,
-                             prog.combine)
-    tw = ops._combine_blocks(*ops._mask_fill_blocks(*want, valid), n_keys,
-                             prog.combine)
+    tg = ref.combine_blocks(*ops._mask_fill_blocks(*got, valid), n_keys,
+                            prog.combine)
+    tw = ref.combine_blocks(*ops._mask_fill_blocks(*want, valid), n_keys,
+                            prog.combine)
     sync(senders.device)
     for g, w in zip(tg, tw):
         check((g is None and w is None) or torch.equal(g, w),
@@ -384,6 +409,36 @@ def hub_stream(cells: int, width: int, np_: int, seed: int, device):
             weight, as_t(np.arange(cells * np_).reshape(cells, np_)))
 
 
+def k1_hub_stream(cells: int, width: int, np_: int, seed: int, device):
+    """:func:`hub_stream` (``width`` a multiple of 128) with its last 384
+    positions an unsorted tail of 5 keys drawn from the stream, as a
+    staged delta segment holds them: one key then closes several runs of
+    a tile, besides the runs the tombstones split.  Returns key, src,
+    weight, gid."""
+    key, skey, src, weight, gid = hub_stream(cells, width, np_, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    for c in range(cells):
+        pick = rng.choice(skey[c, :width - 384].cpu().numpy(), 5)
+        key[c, width - 384:] = torch.from_numpy(
+            rng.choice(pick, 384).astype(np.int32)).to(device)
+    return key, src, weight, gid
+
+
+def compare_k1_hub(stream, name, kw, seed: int, device) -> float:
+    """K1 on :func:`k1_hub_stream` against its plain version, five
+    launches bitwise, with ``n_keys`` below the stream's largest keys (K1
+    and the plain scatter drop them)."""
+    from repro_torch.core.programs import PROGRAMS
+
+    key, src, weight, gid = stream
+    prog = PROGRAMS[name].factory(**kw)
+    S, np_ = gid.shape
+    vstate, senders = random_lane_state(prog, (S, np_), seed, device)
+    args = (prog, vstate, senders, gid, key, src, weight, key)
+    return hold_k1(args, S * np_ - 1000, f"hub stream {name} {kw}",
+                   repeats=5)
+
+
 def compare_k2_hub(stream, name, kw, lanes, seed: int, device) -> float:
     """K2 in both input modes on :func:`hub_stream`, solo (``lanes`` None)
     or laned: bitwise against the plain versions, and five launches of the
@@ -428,7 +483,9 @@ def phase_kernels(sess, device) -> dict:
     """Phase 2: every kernel against its plain version."""
     from repro_torch.core.programs import PROGRAMS
 
-    out = {"k1": {}, "k2": {}, "k2_pre": {}, "k3": {}, "k2_lanes": {}}
+    out = {"k1": {}, "k1_hub": {}, "k2": {}, "k2_pre": {}, "k3": {},
+           "k2_lanes": {}}
+    k1_hub = k1_hub_stream(4, 40 * 1024 + 3 * 128, 16384, 19, device)
     one = torch.zeros_like(sess.sg.node_ok)
     one[sess.ns.resolve(0)] = True
     frontiers = {"one": one, "1pct": None, "all": sess.sg.node_ok.clone()}
@@ -439,6 +496,8 @@ def phase_kernels(sess, device) -> dict:
         tag = f"{name}{'+pay' if prog.with_payload else ''}"
         out["k1"][tag] = compare_k1(sess, prog, vstate,
                                     random_senders(sess, i))
+        out["k1_hub"][tag] = compare_k1_hub(k1_hub, name, kw, 400 + i,
+                                            device)
         for f, senders in frontiers.items():
             if senders is None:
                 senders = random_senders(sess, 100 + i, p=0.01)
@@ -1006,9 +1065,30 @@ def phase_timing(sess, launches, sources, device, reps: int) -> list:
     _, args = stream_inputs(sess, prog, vstate, senders)
     err = compare_k1(sess, prog, vstate, senders)
     kernel.reset_launches()                 # timing launches never count
-    k_ms = clock.ms(lambda: kernel.edge_relax_blocks(*args), reps)
-    p_ms = clock.ms(lambda: ref.edge_relax_blocks_ref(*args, block_e=128),
-                    max(2, reps // 10), warmup=1)
+    k1 = lambda: kernel.edge_relax_blocks(*args, n_keys)
+    k_ms = clock.ms(k1, reps)
+    plain = lambda: ref.combine_blocks(
+        *ref.edge_relax_blocks_ref(*args, block_e=kernel.BLOCK_E), n_keys,
+        prog.combine)
+    p_ms = clock.ms(plain, max(2, reps // 10), warmup=1)
+    # what the tables replaced: phase 2 alone (ref.combine_blocks over the
+    # plain partials, on the card), and the dense-rank block body over every
+    # block (K3's kernel with every block listed, bitwise the former K1)
+    # with phase 2 after it
+    parts = ref.edge_relax_blocks_ref(*args, block_e=kernel.BLOCK_E)
+    p2_ms = clock.ms(lambda: ref.combine_blocks(*parts, n_keys,
+                                                prog.combine), reps)
+    del parts
+    nb = es // kernel.BLOCK_E
+    every = torch.arange(nb, dtype=torch.int32, device=device).expand(
+        S, nb).contiguous()
+    blocks = lambda: kernel.edge_relax_push_blocks(*args, every)
+    blocks_p2 = lambda: ref.combine_blocks(*blocks(), n_keys, prog.combine)
+    for g, w_ in zip(blocks_p2(), k1()):
+        check(torch.equal(g, w_), "K1's tables differ from the block body "
+                                  "and phase 2")
+    blocks_ms = clock.ms(blocks, reps)
+    blocks_p2_ms = clock.ms(blocks_p2, reps)
     cand, send, _ = ref.edge_messages(*args)
     ids = torch.where(send, args[4], n_keys).long()
     ids = ids + torch.arange(S, device=device)[:, None] * (n_keys + 1)
@@ -1016,14 +1096,27 @@ def phase_timing(sess, launches, sources, device, reps: int) -> list:
     table = torch.empty(S * (n_keys + 1), dtype=cand.dtype, device=device)
     lib_ms = clock.ms(lambda: table.fill_(float("inf")).scatter_reduce_(
         0, flat_i, flat_c, "amin"), reps)
+    del cand, send, ids, flat_c, flat_i, table
+    # each byte once: the stream (key, src, weight), the vertex block
+    # (senders, dist, gid) and the tables (table, cnt, pay)
     k1_bytes = S * es * (4 + 4 + 4) + S * Np * (1 + 4 + 4) \
-        + S * es * 4 * 4
+        + S * n_keys * (4 + 4 + 4)
     k1_ops = S * es * 6
     rows.append(kernel_row(
         "edge_relax_blocks", "src/repro_torch/kernels/edge_relax/csrc/"
-        "edge_relax_blocks.cu", "src/repro/kernels/edge_relax/kernel.py:220",
+        "edge_relax_tables.cu", "src/repro/kernels/edge_relax/kernel.py:220",
         launches["edge_relax_blocks"], err, k_ms, p_ms, k1_bytes, k1_ops,
         lib_ms))
+    emit({"phase": "k1_timing", "program": "sssp+parents", "cells": S,
+          "width": es, "n_keys": n_keys, "ms": k_ms,
+          "phase2_alone_ms": p2_ms,
+          "block_body_ms": blocks_ms,
+          "block_body_plus_phase2_ms": blocks_p2_ms,
+          "device_kernels_per_call": device_kernels_per_call(k1),
+          "block_body_plus_phase2_device_kernels":
+              device_kernels_per_call(blocks_p2),
+          **{k: rows[-1][k] for k in ("plain_ms", "bound_ms", "library_ms",
+                                      "bytes")}})
 
     # K2 on pagerank's full first sweep
     prog = PROGRAMS["pagerank"].factory(eps=1e-7)
@@ -1224,17 +1317,30 @@ def trace(name: str, run) -> dict:
                             getattr(e, "self_cuda_time_total", 0))
     tot = lambda e: getattr(e, "device_time_total",
                             getattr(e, "cuda_time_total", 0))
-    ranges = {e.key: {"device_ms": tot(e) / 1e3, "calls": e.count,
-                      "cpu_ms": e.cpu_time_total / 1e3}
-              for e in avg if e.key.startswith("repro_torch.")}
-    # device-side events only: an aten op's row repeats its kernels' time
+    # a range has a host row (calls, host time) and a device row (the time
+    # of its kernels outside the ranges nested in it)
+    ranges = {}
+    for e in avg:
+        if e.key.startswith("repro_torch."):
+            r = ranges.setdefault(e.key, {"device_ms": 0.0, "calls": 0,
+                                          "cpu_ms": 0.0})
+            if e.device_type == DeviceType.CUDA:
+                r["device_ms"] = tot(e) / 1e3
+            else:
+                r["calls"], r["cpu_ms"] = e.count, e.cpu_time_total / 1e3
+    # device-side events only: an aten op's row repeats its kernels' time,
+    # and a range's device-side row (its kernels, outside nested ranges)
+    # repeats theirs
     rows = sorted(((e.key, dev(e) / 1e3, e.count) for e in avg
-                   if e.device_type == DeviceType.CUDA and dev(e) > 0),
+                   if e.device_type == DeviceType.CUDA and dev(e) > 0
+                   and not e.key.startswith("repro_torch.")),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    # K2's and K4's device time and their share of the busy and wall time
+    # K1's, K2's and K4's device time and their share of the busy and wall
+    # time
     shares = {}
-    for label, frag in (("K2", "scan_pass"), ("K4", "flash_fwd")):
+    for label, frag in (("K1", "tables_kernel"), ("K2", "scan_pass"),
+                        ("K4", "flash_fwd")):
         ms = sum(r[1] for r in rows if frag in r[0])
         shares[label] = {"device_ms": ms,
                          "launches": sum(r[2] for r in rows if frag in r[0]),
@@ -1505,6 +1611,7 @@ def phase_k6(sess, sources, device, reps: int) -> dict:
     check(torch.equal(got, want) and torch.equal(out, want),
           "K6 differs from its plain version")
     check(torch.equal(lib[:n_keys], want), "K6 differs from scatter_reduce_")
+    hub = k6_hub_check(dist, active, n_keys, device)
     clock = Clock(device)
     kernel.reset_launches()
     k_ms = clock.ms(lambda: kernel.relax_sorted(*args), reps)
@@ -1521,10 +1628,42 @@ def phase_k6(sess, sources, device, reps: int) -> dict:
         launches, 0.0, k_ms, p_ms, nbytes, 2 * e, lib_ms)
     emit({"phase": "k6", "cell": 0, "edges": e, "np": int(dist.shape[0]),
           "n_keys": n_keys, "live_edges": int((dst >= 0).sum()),
-          "messages": int(live.sum()), "bitwise": True,
+          "messages": int(live.sum()), "bitwise": True, "hub_stream": hub,
           **{k: row[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")}})
     return row
+
+
+def k6_hub_check(dist, active, n_keys: int, device) -> dict:
+    """K6 on a synthetic sorted stream of 1,000,003 edges (no multiple of
+    the 1024-edge tile or of 8): dead edges first, hub runs of 20,000 and
+    70,000 edges among short runs, a few sources outside the cell (the
+    clamp): bitwise against its plain version and ``scatter_reduce_``."""
+    from repro_torch.kernels.sssp_relax import kernel, ref
+
+    rng = np.random.default_rng(16)
+    e, np_ = 1_000_003, dist.shape[0]
+    lengths = [333, 20_000] + rng.integers(1, 40, 2000).tolist() \
+        + [70_000] + rng.integers(1, 60, e).tolist()
+    ids = np.repeat(np.arange(len(lengths)), lengths)[:e]
+    keys = np.sort(rng.integers(0, n_keys, ids[-1] + 1))
+    dst = np.where(ids == 0, -1, keys[ids]).astype(np.int32)
+    src = rng.integers(-3, np_ + 3, e).astype(np.int32)
+    w = (1 + 7 * rng.random(e)).astype(np.float32)
+    as_t = lambda a: torch.from_numpy(a).to(device)
+    w_, s_, d_ = as_t(w), as_t(src), as_t(dst)
+    got = kernel.relax_sorted(dist, active, w_, s_, d_, n_keys)
+    want = ref.relax_ref(dist, w_, s_, d_, active, n_keys)
+    s = s_.long().clamp(0, np_ - 1)
+    cand = torch.where((d_ >= 0) & active[s], dist[s] + w_, float("inf"))
+    lib = torch.full((n_keys + 1,), float("inf"), device=device)
+    lib.scatter_reduce_(0, torch.where(d_ >= 0, d_, n_keys).long(), cand,
+                        "amin")
+    sync(device)
+    check(torch.equal(got, want) and torch.equal(lib[:n_keys], want),
+          "K6 on the hub stream differs from its plain version or from "
+          "scatter_reduce_")
+    return {"edges": e, "hub_runs": [20_000, 70_000], "bitwise": True}
 
 
 def reset_all_launches() -> None:
@@ -1751,6 +1890,7 @@ def main(argv=None) -> int:
                     help="run the path on the CPU with the plain versions "
                          "(tiny sizes); exits 3 and prints no result")
     args = ap.parse_args(argv)
+    (OUT_DIR / "chip_smoke.jsonl").unlink(missing_ok=True)
 
     if args.cpu_rehearsal:
         device = torch.device("cpu")

@@ -105,30 +105,35 @@ def _local_iter(prog: VertexProgram, sgd, st, relax, mine, diag, node_ok,
     senders = _gate(prog, vstate, active, threshold)
     if lane_live is not None:
         senders = senders & lane_live[:, None]
-    table, cnt, pay = relax(vstate, senders, sgd, bucket)
-    inbox = table[diag, diag]
-    has_local = cnt[diag, diag] > 0
-    pay_in = pay[diag, diag] if prog.with_payload else None
+    with torch.profiler.record_function("repro_torch.relax"):
+        table, cnt, pay = relax(vstate, senders, sgd, bucket)
+    with torch.profiler.record_function("repro_torch.outbox_merge"):
+        inbox = table[diag, diag]
+        has_local = cnt[diag, diag] > 0
+        pay_in = pay[diag, diag] if prog.with_payload else None
 
-    contrib = torch.where(mine, ident, table)
-    contrib_has = (cnt > 0) & ~mine
-    if prog.with_payload:
-        take_new = contrib_has & monoid.improves(contrib, outbox)
-        outbox_pay = torch.where(take_new, torch.where(mine, -1, pay),
-                                 outbox_pay)
-    outbox = monoid.merge(outbox, contrib, contrib_has)
-    outbox_has = outbox_has | contrib_has
+        contrib = torch.where(mine, ident, table)
+        contrib_has = (cnt > 0) & ~mine
+        if prog.with_payload:
+            take_new = contrib_has & monoid.improves(contrib, outbox)
+            outbox_pay = torch.where(take_new, torch.where(mine, -1, pay),
+                                     outbox_pay)
+        outbox = monoid.merge(outbox, contrib, contrib_has)
+        outbox_has = outbox_has | contrib_has
 
-    vstate = prog.on_send(vstate, senders)
-    vstate, activated = prog.receive(vstate, inbox, has_local, pay_in,
-                                     node_ok)
-    activated = activated | (active & ~senders)   # withheld stay active
+    with torch.profiler.record_function("repro_torch.receive"):
+        vstate = prog.on_send(vstate, senders)
+        vstate, activated = prog.receive(vstate, inbox, has_local, pay_in,
+                                         node_ok)
+        activated = activated | (active & ~senders)   # withheld stay active
 
-    n_send = cnt.sum(dtype=torch.int64)
-    counts = {
-        "actions": n_send,
-        "remote": n_send - torch.where(mine, cnt, 0).sum(dtype=torch.int64),
-    }
+    with torch.profiler.record_function("repro_torch.counters"):
+        n_send = cnt.sum(dtype=torch.int64)
+        counts = {
+            "actions": n_send,
+            "remote": n_send - torch.where(mine, cnt, 0).sum(
+                dtype=torch.int64),
+        }
     return (vstate, activated, outbox, outbox_has, outbox_pay), counts
 
 
@@ -207,16 +212,17 @@ def _run_rounds(sg: ShardedGraph, prog: VertexProgram, vstate0, active0,
         """One device read: is any vertex active, does any pass the gate,
         and (push/auto) the sweep's bucket from the max over cells of the
         gated frontier's active-block count."""
-        gated = _gate(prog, vstate, active, thr)
-        flags = [active.any(), gated.any()]
-        if sweep != "pull":
-            with torch.profiler.record_function(
-                    "repro_torch.push_selector"):
-                if lane_live is not None:
-                    gated = gated & lane_live[:, None]
-                flags.append(active_push_blocks(gated, sgd["push_src"],
-                                                block).max())
-        got = torch.stack([f.to(torch.int64) for f in flags]).tolist()
+        with torch.profiler.record_function("repro_torch.poll"):
+            gated = _gate(prog, vstate, active, thr)
+            flags = [active.any(), gated.any()]
+            if sweep != "pull":
+                with torch.profiler.record_function(
+                        "repro_torch.push_selector"):
+                    if lane_live is not None:
+                        gated = gated & lane_live[:, None]
+                    flags.append(active_push_blocks(gated, sgd["push_src"],
+                                                    block).max())
+            got = torch.stack([f.to(torch.int64) for f in flags]).tolist()
         bucket = (select_bucket(got[2], nb, sweep, push_threshold)
                   if sweep != "pull" else None)
         return bool(got[0]), bool(got[1]), bucket
@@ -264,16 +270,18 @@ def _run_rounds(sg: ShardedGraph, prog: VertexProgram, vstate0, active0,
             if liters < max_local_iters:
                 _, gated_live, bucket = poll(vstate, active, thr, lane_live)
         # ---- exchange: deliver every outbox to its destination cell ----
-        operons = operons + outbox_has.sum()
-        inbox = monoid.reduce_rows(outbox, outbox_has, dim=0)
-        has = outbox_has.any(dim=0)
-        pay = None
-        if prog.with_payload:
-            best = monoid.argbest(outbox, dim=0)
-            pay = outbox_pay.gather(0, best[None])[0]
-        vstate, activated = prog.receive(vstate, inbox, has, pay, node_ok)
-        active = active | activated
-        outbox, outbox_has, outbox_pay = empty_outbox()
+        with torch.profiler.record_function("repro_torch.exchange"):
+            operons = operons + outbox_has.sum()
+            inbox = monoid.reduce_rows(outbox, outbox_has, dim=0)
+            has = outbox_has.any(dim=0)
+            pay = None
+            if prog.with_payload:
+                best = monoid.argbest(outbox, dim=0)
+                pay = outbox_pay.gather(0, best[None])[0]
+            vstate, activated = prog.receive(vstate, inbox, has, pay,
+                                             node_ok)
+            active = active | activated
+            outbox, outbox_has, outbox_pay = empty_outbox()
         rounds += 1
         max_frontier = torch.maximum(max_frontier, active.sum())
 

@@ -1,9 +1,11 @@
-// The per-block relaxation body shared by K1 (edge_relax_blocks.cu, the
-// dense sweep over every block of the destination-sorted stream) and K3
-// (edge_relax_push_blocks.cu, the push sweep over a compacted list of
-// blocks of the source-sorted stream).  Each including file defines its own
-// extern "C" entry point; this header defines nothing outside an anonymous
-// namespace.
+// K3's per-block relaxation body (edge_relax_push_blocks.cu, the push sweep
+// over a compacted list of blocks of the source-sorted stream): the TPU
+// kernels' dense-rank partial tables per 128-edge block.  K1 had the same
+// body over every block of the destination-sorted stream (PUSH = false)
+// until it came to write the per-destination tables itself
+// (edge_relax_tables.cu); no library instantiates PUSH = false now.  The
+// including file defines its own extern "C" entry point; this header
+// defines nothing outside an anonymous namespace.
 //
 // One CTA of 128 threads per (block slot, cell).  Each thread loads its
 // key/src (and weight where the emit form reads it), gathers senders[src]
@@ -15,7 +17,7 @@
 //     TPU kernel).  Ranks come from `key != prev` alone, never from
 //     sortedness: a push block (source-sorted) or a staged delta block may
 //     hold one destination in several runs, which phase 2's order-free
-//     min/max scatter merges;
+//     min/max scatter (ref.combine_blocks) merges;
 //   * reduces each run serially in the thread that starts it (min/max are
 //     order-free, so the result is bitwise the plain version's), writing
 //     column `rank`; columns past the last run get identity/0/-1/-1.

@@ -1,6 +1,6 @@
 // The emit forms and combine monoids shared by every edge_relax kernel:
-// K1 and K3 (through edge_relax_block_body.cuh) and K2
-// (edge_relax_scan.cu).  One definition, so the kernels cannot drift from
+// K1 (edge_relax_tables.cu), K3 (through edge_relax_block_body.cuh) and
+// K2 (edge_relax_scan.cu).  One definition, so the kernels cannot drift from
 // each other or from the builtins' `emit` (repro_torch/core/programs.py,
 // EMIT_FORMS).  This header defines nothing outside an anonymous
 // namespace.

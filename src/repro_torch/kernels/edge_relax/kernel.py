@@ -1,13 +1,18 @@
 """Hand-written Hopper kernels for one relaxation sweep, and their wrappers.
 
-* :func:`edge_relax_blocks` (K1, ``csrc/edge_relax_blocks.cu``) replaces
+* :func:`edge_relax_blocks` (K1, ``csrc/edge_relax_tables.cu``) replaces
   the Pallas TPU kernel ``repro/kernels/edge_relax/kernel.py ::
-  edge_relax_blocks``: per 128-edge block of each cell's
-  destination-sorted stream, gather + emit + the dense-rank combine into
-  ``(part, cnt, uniq[, pay])``.  Min/max programs (SSSP, BFS, CC, widest,
-  reach).  Bound by memory: about 20-28 B per edge slot over 3.35 TB/s.
-  Design: one CTA per (block, cell), ballot/popc ranks, one pass, no
-  atomics; the vertex block is served from L2.
+  edge_relax_blocks`` together with the cross-block phase 2 after it: one
+  sweep of each cell's destination-sorted stream (gather + emit), combined
+  by run of equal keys straight into the per-destination tables ``(table,
+  cnt, pay | None)`` [S, n_keys].  Single-query min/max programs (SSSP,
+  BFS, CC, widest, reach).  Bound by memory: the stream (8-12 B an edge
+  slot), the vertex block and the tables (12 B a key) over 3.35 TB/s.
+  Design: one CTA per (1024-position tile, cell), 8 positions a thread
+  read with 16-byte loads, runs folded in registers and across threads by
+  a warp-shuffle segmented scan, one atomic per run and tile (a 64-bit
+  packed key for the argbest payload); a prologue packs each vertex into
+  one record, so an edge gathers one sector.
 * :func:`edge_relax_scan` (K2, ``csrc/edge_relax_scan.cu``) replaces
   ``repro/kernels/edge_relax/kernel.py :: edge_relax_scan``: any emit form
   and a segmented inclusive scan of (value, count[, argbest payload]) in a
@@ -26,11 +31,13 @@
   streams that the push sweep already emitted, in the same order.
 * :func:`edge_relax_push_blocks` (K3, ``csrc/edge_relax_push_blocks.cu``)
   replaces ``repro/kernels/edge_relax/kernel.py :: edge_relax_push_blocks``:
-  K1's body (shared through ``csrc/edge_relax_block_body.cuh``) over the
-  ``cap`` compacted active blocks of the source-sorted push stream, each CTA
-  reading its block id from ``idx``.  Min/max push sweeps and commit
-  repairs.  Bound by memory (the same bytes per swept block as K1); at the
-  small caps of a repair, by launch latency.
+  the dense-rank block body of ``csrc/edge_relax_block_body.cuh`` (the
+  TPU kernel's per-128-edge partial tables) over the ``cap`` compacted
+  active blocks of the source-sorted push stream, each CTA reading its
+  block id from ``idx``; phase 2 (``ref.combine_blocks``) scatters the
+  partials.  Min/max push sweeps and commit repairs.  Bound by memory
+  (key/src/weight of the swept blocks and 16 B of partials per slot); at
+  the small caps of a repair, by launch latency.
 
 Dispatch follows the tensors' device: CPU tensors take the plain version in
 ``ref.py``; CUDA tensors launch the kernel (built at first use, see
@@ -58,11 +65,11 @@ __all__ = ["edge_relax_blocks", "edge_relax_scan", "edge_relax_scan_pre",
            "edge_relax_push_blocks", "build", "LAUNCHES", "SCAN_LAUNCHES",
            "reset_launches", "KERNEL_SOURCES", "BLOCK_E"]
 
-BLOCK_E = 128          # K1's block width (one thread per edge)
+BLOCK_E = 128          # the stream's block width (K3: one thread per edge)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 KERNEL_SOURCES = {
-    "edge_relax_blocks": [_CSRC / "edge_relax_blocks.cu"],
+    "edge_relax_blocks": [_CSRC / "edge_relax_tables.cu"],
     "edge_relax_scan": [_CSRC / "edge_relax_scan.cu"],
     "edge_relax_push_blocks": [_CSRC / "edge_relax_push_blocks.cu"],
 }
@@ -88,8 +95,8 @@ _F = ctypes.c_float
 # library -> {C entry point: argtypes}
 _SYMBOLS = {
     "edge_relax_blocks": {
-        "edge_relax_blocks_launch":
-            [_P] * 10 + [_I, _I, _LL, _LL, _I, _I, _I, _I, _F, _P]},
+        "edge_relax_tables_launch":
+            [_P] * 11 + [_I, _I, _LL, _LL, _LL, _I, _I, _I, _I, _F, _P]},
     "edge_relax_scan": {
         "edge_relax_scan_launch":
             [_P] * 16 + [_I, _I, _I, _LL, _I, _I, _I, _I, _I, _F, _P],
@@ -150,32 +157,49 @@ def _kernel_emit(prog):
 
 
 def edge_relax_blocks(prog, vstate, senders, gid, key, src, weight, dst_gid,
-                      block_e: int = BLOCK_E):
-    """K1: per-block partial tables of one sweep of every cell.
+                      n_keys: int, block_e: int = BLOCK_E):
+    """K1: one sweep of every cell, combined into its per-destination
+    tables.
 
     ``vstate`` leaves, ``senders`` and ``gid`` are ``[S, Np]``; ``key``,
     ``src``, ``weight``, ``dst_gid`` are ``[S, W]`` with ``W % block_e ==
     0`` (rows may be slices of wider streams: unit last-dim stride, all
-    with the key's strides).  Returns ``(part, cnt, uniq, pay | None)``
-    each ``[S, W / block_e, block_e]``.  CPU tensors take
-    ``ref.edge_relax_blocks_ref``.
+    with the key's strides; on the card 16-byte aligned rows).  Returns
+    ``(table, cnt, pay | None)`` each ``[S, n_keys]`` — keys outside
+    ``[0, n_keys)`` dropped.  CPU tensors take
+    ``ref.edge_relax_blocks_ref`` and ``ref.combine_blocks``.
     """
     if not key.is_cuda:
-        return ref.edge_relax_blocks_ref(prog, vstate, senders, gid, key, src,
-                                         weight, dst_gid, block_e)
+        return ref.combine_blocks(
+            *ref.edge_relax_blocks_ref(prog, vstate, senders, gid, key, src,
+                                       weight, dst_gid, block_e),
+            n_keys, prog.combine)
     a = _block_inputs("edge_relax_blocks", prog, vstate, senders, gid, key,
                       src, weight, block_e)
-    nb = a["w"] // BLOCK_E
-    part, cnt, uniq, pay = _block_outputs(a, nb)
-    err = _fn("edge_relax_blocks_launch")(
+    for name, t in (("key", key), ("src", src), ("weight", weight)):
+        if t.data_ptr() % 16 or a["row"] % 4:
+            raise ValueError(f"{name} rows must be 16-byte aligned for "
+                             f"K1's vector loads")
+    if n_keys <= 0 or n_keys >= 2 ** 31:
+        raise ValueError(f"n_keys {n_keys} is outside [1, 2^31)")
+    shape, dev = (a["s"], n_keys), a["dev"]
+    table = torch.empty(shape, dtype=a["msg"], device=dev)
+    cnt = torch.empty(shape, dtype=torch.int32, device=dev)
+    best = pay = None
+    if a["payload"]:
+        best = torch.empty(shape, dtype=torch.int64, device=dev)
+        pay = torch.empty(shape, dtype=torch.int32, device=dev)
+    pack = torch.empty((a["s"], a["np"], 4 if a["payload"] else 2),
+                       dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = _fn("edge_relax_tables_launch")(
         a["field"].data_ptr(), senders.data_ptr(), gid.data_ptr(),
-        key.data_ptr(), src.data_ptr(), weight.data_ptr(), part.data_ptr(),
-        cnt.data_ptr(), uniq.data_ptr(),
-        pay.data_ptr() if pay is not None else None,
-        a["s"], a["np"], a["w"], a["row"], *a["flags"], _build.stream())
+        key.data_ptr(), src.data_ptr(), weight.data_ptr(), pack.data_ptr(),
+        table.data_ptr(), cnt.data_ptr(), ptr(best), ptr(pay), a["s"],
+        a["np"], n_keys, a["w"], a["row"], *a["flags"], _build.stream())
     _build.raise_on("edge_relax_blocks", err)
     LAUNCHES["edge_relax_blocks"] += 1
-    return part, cnt, uniq, pay
+    return table, cnt, pay
 
 
 def _block_inputs(name, prog, vstate, senders, gid, key, src, weight,
@@ -216,6 +240,7 @@ def _block_inputs(name, prog, vstate, senders, gid, key, src, weight,
 
 
 def _block_outputs(a, slots: int):
+    """K3's partial tables ``[S, slots, BLOCK_E]``."""
     shape = (a["s"], slots, BLOCK_E)
     dev = a["dev"]
     part = torch.empty(shape, dtype=a["msg"], device=dev)

@@ -14,20 +14,21 @@ lanes) sweep the shared stream once per lane and return [S, L, n_keys].
 
 Dispatch (the JAX package's rule): sum programs and every laned run take
 the fixed-order scan kernel K2 and the run-end gather, so a lane is
-bitwise its query run solo; single-query min/max takes the blocked kernel
-K1 and a cross-block scatter.  The frontier-compacted push sweep
-(:func:`edge_relax_push`) takes K3 and the same scatter for single-query
-min/max, and K2's pre-emitted mode for sums and lanes.
-Phase 2 is plain torch, as the JAX package also runs it outside its Pallas
-kernels.  Which of each kernel or its plain version runs follows the
-tensors' device (see kernel.py).
+bitwise its query run solo; single-query min/max takes K1, which writes
+the tables itself (on the CPU: the blocked partials and the cross-block
+scatter ``ref.combine_blocks``, the JAX package's phase 2).  The
+frontier-compacted push sweep (:func:`edge_relax_push`) takes K3's block
+partials and that scatter for single-query min/max, and K2's pre-emitted
+mode for sums and lanes.  Phase 2 (the run-end gather, the scatter) is
+plain torch, as the JAX package also runs it outside its Pallas kernels.
+Which of each kernel or its plain version runs follows the tensors'
+device (see kernel.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...core.msg import segment_combine
 from .kernel import (
     edge_relax_blocks,
     edge_relax_push_blocks,
@@ -35,6 +36,7 @@ from .kernel import (
     edge_relax_scan_pre,
 )
 from .ref import (
+    combine_blocks,
     compact_push_blocks,
     delta_tables,
     edge_messages,
@@ -44,23 +46,6 @@ from .ref import (
 )
 
 __all__ = ["edge_relax", "edge_relax_push"]
-
-
-def _combine_blocks(part, cnt, uniq, pay, n_keys: int, combine: str):
-    """Phase 2: scatter the per-block partial tables ``[..., nb, block_e]``
-    into the flat key space, per leading cell."""
-    lead = part.shape[:-2]
-    flat = lambda a: a.reshape(lead + (-1,))
-    ids, p = flat(uniq), flat(part)
-    table = segment_combine(p, ids, n_keys, combine)
-    cnt_t = segment_combine(flat(cnt), ids, n_keys, "sum")
-    pay_t = None
-    if pay is not None:
-        # winners: block partials equal to the globally combined value
-        win = (ids >= 0) & (p == table.gather(-1, ids.clamp(min=0).long()))
-        pay_t = segment_combine(torch.where(win, flat(pay), -1), ids,
-                                n_keys, "max", fill=-1)
-    return table, cnt_t, pay_t
 
 
 def edge_relax(prog, vstate, senders, gid, key, src, weight, dst_gid,
@@ -80,8 +65,9 @@ def edge_relax(prog, vstate, senders, gid, key, src, weight, dst_gid,
         scanned = edge_relax_scan(
             prog, vstate, senders, gid, key[..., :es], src[..., :es],
             weight[..., :es], dst_gid[..., :es], skey=skey[..., :es])
-        out = gather_runs(scanned, skey[..., :es], n_keys, prog.monoid,
-                          prog.msg_dtype)
+        with torch.profiler.record_function("repro_torch.phase2_gather"):
+            out = gather_runs(scanned, skey[..., :es], n_keys, prog.monoid,
+                              prog.msg_dtype)
         if delta_e:
             tail = lambda a: a[..., es:]
             cand, send, pay = edge_messages(
@@ -90,9 +76,8 @@ def edge_relax(prog, vstate, senders, gid, key, src, weight, dst_gid,
             out = merge_tables(prog, out, delta_tables(
                 prog, cand, send, pay, tail(key), n_keys))
         return out
-    part, cnt, uniq, pay = edge_relax_blocks(
-        prog, vstate, senders, gid, key, src, weight, dst_gid, block_e)
-    return _combine_blocks(part, cnt, uniq, pay, n_keys, prog.combine)
+    return edge_relax_blocks(prog, vstate, senders, gid, key, src, weight,
+                             dst_gid, n_keys, block_e)
 
 
 def _mask_fill_blocks(part, cnt, uniq, pay, valid):
@@ -134,4 +119,5 @@ def edge_relax_push(prog, vstate, senders, gid, sg_push, csr_key,
         sg_push["push_src"], sg_push["push_weight"],
         sg_push["push_dst_gid"], idx, block_e)
     part, cnt, uniq, pay = _mask_fill_blocks(part, cnt, uniq, pay, valid)
-    return _combine_blocks(part, cnt, uniq, pay, n_keys, prog.combine)
+    with torch.profiler.record_function("repro_torch.phase2_combine"):
+        return combine_blocks(part, cnt, uniq, pay, n_keys, prog.combine)

@@ -7,11 +7,13 @@ an axis at -2 to the vertex state, the senders and every message stream
 (``[S, L, Np]``, ``[S, L, E]``); the edge streams stay ``[S, E]`` and are
 shared by every lane.
 
-* :func:`edge_relax_blocks_ref` — the blocked dense-rank combine that the
-  CUDA kernel ``edge_relax_blocks`` (K1) computes, per 128-edge block:
-  ``(part, cnt, uniq[, pay])`` each ``[..., nb, block_e]``, bitwise equal to
-  the kernel and to the JAX package's ``block_combine`` (min/max are
-  order-free, so how the reduction is written cannot change a bit).
+* :func:`edge_relax_blocks_ref` — the blocked dense-rank combine per
+  128-edge block, ``(part, cnt, uniq[, pay])`` each ``[..., nb, block_e]``,
+  bitwise the JAX package's ``block_combine``, and :func:`combine_blocks`,
+  its cross-block scatter into ``[..., n_keys]``: together the plain
+  version of the CUDA kernel ``edge_relax_blocks`` (K1), which writes the
+  tables itself (min/max are order-free, so how the reduction is written
+  cannot change a bit).
 * :func:`stream_scan` — the segmented inclusive scan that the CUDA kernel
   ``edge_relax_scan`` (K2) computes, in the port's own fixed association
   order: within tiles of :data:`SCAN_TILE` elements, a sequential fold of
@@ -25,8 +27,8 @@ shared by every lane.
   to rounding (min/max, with or without the argbest payload, are
   order-free and agree bitwise).
 * :func:`gather_runs`, :func:`delta_tables`, :func:`merge_tables`,
-  :func:`flat_combine`, :func:`stream_combine` — the phase-2 combines
-  shared by both.
+  :func:`flat_combine`, :func:`stream_combine` — the scan path's phase-2
+  combines.
 * :func:`compact_push_blocks`, :func:`push_gather`,
   :func:`edge_relax_push_blocks_ref` (the plain version of K3,
   ``edge_relax_push_blocks``) and :func:`edge_relax_push_stream` — the
@@ -45,6 +47,7 @@ __all__ = [
     "block_combine",
     "flat_combine",
     "edge_relax_blocks_ref",
+    "combine_blocks",
     "edge_relax_scan_ref",
     "stream_scan",
     "gather_runs",
@@ -141,6 +144,29 @@ def edge_relax_blocks_ref(prog, vstate, senders, gid, key, src, weight,
     blk = lambda a: None if a is None else a.reshape(shp)
     return block_combine(blk(cand), blk(send), blk(key), blk(pay),
                          prog.combine, block_e)
+
+
+def combine_blocks(part, cnt, uniq, pay, n_keys: int, combine: str):
+    """Phase 2 of the blocked path: scatter the per-block partial tables
+    ``[..., nb, block_e]`` (:func:`block_combine`'s) into the flat key space
+    ``[..., n_keys]``, per leading cell; keys outside ``[0, n_keys)``
+    dropped.  The payload is the max over the winners, the partials equal
+    to the combined value (the JAX package's ``ops._combine_blocks``, whose
+    gather clamps where this one masks)."""
+    lead = part.shape[:-2]
+    flat = lambda a: a.reshape(lead + (-1,))
+    ids, p = flat(uniq), flat(part)
+    table = segment_combine(p, ids, n_keys, combine)
+    cnt_t = segment_combine(flat(cnt), ids, n_keys, "sum")
+    pay_t = None
+    if pay is not None:
+        # winners: block partials equal to the globally combined value
+        ok = (ids >= 0) & (ids < n_keys)
+        at = ids.clamp(0, n_keys - 1).long()
+        win = ok & (p == table.gather(-1, at))
+        pay_t = segment_combine(torch.where(win, flat(pay), -1), ids,
+                                n_keys, "max", fill=-1)
+    return table, cnt_t, pay_t
 
 
 def _pad_tail(a, pad: int, value):
@@ -456,7 +482,7 @@ def edge_relax_push_blocks_ref(prog, vstate, senders, gid, key, src, weight,
                                dst_gid, idx, block_e: int):
     """Plain version of K3: gather the ``idx`` blocks (``[S, cap]``, fill
     slots clamped to the last block) of the push streams ``[S, W]``, then
-    the K1 body — :func:`edge_messages` + :func:`block_combine`.  Returns
+    the block body — :func:`edge_messages` + :func:`block_combine`.  Returns
     (part, cnt, uniq, pay | None) each ``[S, cap, block_e]``."""
     nb = key.shape[-1] // block_e
     pos = _block_positions(idx, nb, block_e)

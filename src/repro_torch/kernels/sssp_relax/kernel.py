@@ -3,9 +3,11 @@
 :func:`relax_sorted` (``csrc/relax_sorted.cu``) replaces the Pallas TPU
 kernel ``repro/kernels/sssp_relax/kernel.py :: relax_sorted`` and its XLA
 phase 2: gather ``dist[src] + w`` from active sources, min per run of
-equal destinations in each 256-edge block, one atomic min per run.  Bound
-by memory (the edge stream read once).  Min is order-free: the kernel
-agrees with its plain version bit for bit.
+equal destinations, one atomic min per run and 1024-edge tile (K1's tile
+body: 8 edges a thread read with 16-byte loads, a warp-shuffle segmented
+min across threads; a prologue folds the frontier into the distances, so
+an edge gathers one word).  Bound by memory (the edge stream read once).
+Min is order-free: the kernel agrees with its plain version bit for bit.
 
 Dispatch follows the tensors' device: CPU tensors take ``ref.relax_ref``;
 CUDA tensors launch the kernel (built at first use) or raise.  The wrapper
@@ -32,7 +34,7 @@ LAUNCHES = {"relax_sorted": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SYMBOLS = {"relax_sorted": {
-    "relax_sorted_launch": [_P] * 6 + [_LL, _I, _I, _P]}}
+    "relax_sorted_launch": [_P] * 7 + [_LL, _I, _I, _P]}}
 _FNS: dict = {}
 
 
@@ -49,7 +51,9 @@ def build() -> None:
 def relax_sorted(dist, active, weight, src, dst_sorted, n_nodes: int):
     """K6: dist [Np] float32, active [Np] bool, weight [E] float32, src [E]
     int32 (local), dst_sorted [E] int32 ascending (-1 = dead) -> [n_nodes]
-    float32 (+inf where no message).  CPU tensors take ``ref.relax_ref``."""
+    float32 (+inf where no message).  On the card weight, src and
+    dst_sorted must be 16-byte aligned.  CPU tensors take
+    ``ref.relax_ref``."""
     if not dist.is_cuda:
         return ref.relax_ref(dist, weight, src, dst_sorted, active, n_nodes)
     np_ = dist.shape[0]
@@ -65,6 +69,9 @@ def relax_sorted(dist, active, weight, src, dst_sorted, n_nodes: int):
                             f" got {tuple(t.shape)} {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16 and name in ("weight", "src", "dst_sorted"):
+            raise ValueError(f"{name} must be 16-byte aligned for K6's "
+                             f"vector loads")
     if np_ == 0:
         raise ValueError("dist is empty")
     out = torch.full((n_nodes,), float("inf"), dtype=torch.float32,
@@ -73,9 +80,10 @@ def relax_sorted(dist, active, weight, src, dst_sorted, n_nodes: int):
     if fn is None:
         build()
         fn = _FNS["relax_sorted_launch"]
+    dm = torch.empty_like(dist)          # the frontier folded into dist
     err = fn(dist.data_ptr(), active.data_ptr(), weight.data_ptr(),
-             src.data_ptr(), dst_sorted.data_ptr(), out.data_ptr(), e, np_,
-             int(n_nodes), _build.stream())
+             src.data_ptr(), dst_sorted.data_ptr(), dm.data_ptr(),
+             out.data_ptr(), e, np_, int(n_nodes), _build.stream())
     _build.raise_on("relax_sorted", err)
     LAUNCHES["relax_sorted"] += 1
     return out

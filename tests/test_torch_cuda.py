@@ -5,7 +5,9 @@ Run on a machine with the card (no JAX needed):
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain version on the same CUDA inputs —
-K1-K3 and K6 bitwise (K3 at compaction caps with fill slots, K2 in both
+K1-K3 and K6 bitwise (K1's tables against the plain partials + phase 2,
+also on hub runs and repeated keys over five launches; K3 at compaction
+caps with fill slots, K2 in both
 input modes for every builtin's instance, solo and with 4 or 5 lanes on 4
 cells), K4 and K5 within the tolerances stated at their tests — the
 session on the card (pull, push and auto sweeps, and a commit's repairs)
@@ -50,21 +52,84 @@ def _args(sess, prog, vstate, seed):
             sgd["csr_src"], sgd["csr_weight"], sgd["csr_dst_gid"])
 
 
+def _k1_plain(args, n_keys):
+    """K1's plain version: the blocked partials and their scatter."""
+    return ref.combine_blocks(
+        *ref.edge_relax_blocks_ref(*args, block_e=kernel.BLOCK_E), n_keys,
+        args[0].combine)
+
+
 @pytest.mark.parametrize("name,kw", MINMAX)
 def test_k1_kernel_matches_plain_bitwise(gpu_session, name, kw):
+    """K1's per-destination tables against the plain partials + phase 2."""
     sess, _ = gpu_session
     prog = PROGRAMS[name].factory(**kw)
     sess.query(name, **kw)
     args = _args(sess, prog, sess.vertex_state(name, **kw), 3)
+    n_keys = sess.sg.n_shards * sess.sg.n_per_shard
     n0 = kernel.LAUNCHES["edge_relax_blocks"]
-    got = kernel.edge_relax_blocks(*args)
+    got = kernel.edge_relax_blocks(*args, n_keys)
     assert kernel.LAUNCHES["edge_relax_blocks"] == n0 + 1
-    want = ref.edge_relax_blocks_ref(*args, block_e=kernel.BLOCK_E)
+    want = _k1_plain(args, n_keys)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert (g is None) == (w is None)
         if w is not None:
+            assert g.shape == (sess.sg.n_shards, n_keys)
             assert torch.equal(g, w)
+
+
+def _k1_streams(cells, width, np_, seed, tail_keys):
+    """K2's hub stream at a width that is a multiple of 128 (hub runs over
+    whole 1024-position tiles, a tenth tombstoned, which splits runs of one
+    key), its last 384 positions an unsorted tail of ``tail_keys`` keys
+    drawn from the stream (a staged delta segment: one key in several runs
+    of a tile).  Returns key, src, weight, gid."""
+    key, skey, src, weight, gid = _hub_stream(cells, width, np_, seed)
+    rng = np.random.default_rng(seed + 1)
+    for c in range(cells):
+        pick = rng.choice(skey[c, :width - 384].cpu().numpy(), tail_keys)
+        key[c, width - 384:] = torch.from_numpy(
+            rng.choice(pick, 384).astype(np.int32)).cuda()
+    return key, src, weight, gid
+
+
+@pytest.mark.parametrize("tail_keys", [2, 40])
+@pytest.mark.parametrize("name,kw", MINMAX)
+def test_k1_hub_stream_bitwise_and_repeatable(cuda, name, kw, tail_keys):
+    """K1 on hub runs over many whole tiles and on one key in several runs
+    of a tile, with n_keys below the stream's largest keys (dropped):
+    bitwise against the plain version over five launches (the atomics
+    land in any order)."""
+    key, src, weight, gid = _k1_streams(4, 40 * 1024 + 3 * 128, 4096, 21,
+                                        tail_keys)
+    prog = PROGRAMS[name].factory(**kw)
+    vstate, senders = _random_state(prog, tuple(gid.shape), 13)
+    args = (prog, vstate, senders, gid, key, src, weight, key)
+    n_keys = gid.numel() - 300
+    want = _k1_plain(args, n_keys)
+    runs = [kernel.edge_relax_blocks(*args, n_keys) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert int(want[1].sum()) > 0
+    for got in runs:
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if w is not None:
+                assert torch.equal(g, w)
+
+
+def test_k1_refuses_unaligned_rows(gpu_session):
+    """K1's 16-byte loads: a row stride that is no multiple of 4 raises
+    (no scalar fallback)."""
+    sess, _ = gpu_session
+    prog = PROGRAMS["sssp"].factory(source=1)
+    sess.query("sssp", source=1)
+    args = list(_args(sess, prog, sess.vertex_state("sssp", source=1), 3))
+    w = args[4].shape[-1]
+    wide = lambda a: torch.nn.functional.pad(a, (0, 2))[..., :w]
+    args[4:] = [wide(a) for a in args[4:]]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernel.edge_relax_blocks(*args, sess.sg.n_shards * sess.sg.n_per_shard)
 
 
 @pytest.mark.parametrize("name,kw", [("ppr", {"source": 1}),
@@ -458,17 +523,35 @@ def test_k5_kernel_matches_plain(cuda, e, f, n):
     assert bool(((got - want).abs() <= 1e-6 * mag + 1e-30).all())
 
 
-def test_k6_kernel_matches_plain_bitwise(cuda):
+def _k6_hub(np_, e, n, seed):
+    """A sorted dst stream of ``e`` edges: dead edges first, hub runs of
+    3,000 and 9,000 edges (over many 1024-edge tiles) among short runs."""
+    rng = np.random.default_rng(seed)
+    lengths = [17, 3000] + rng.integers(1, 30, 200).tolist() + [9000] \
+        + rng.integers(1, 40, e).tolist()
+    ids = np.repeat(np.arange(len(lengths)), lengths)[:e]
+    keys = np.sort(rng.integers(0, n, ids[-1] + 1))
+    return torch.from_numpy(np.where(ids == 0, -1, keys[ids]).astype(
+        np.int32))
+
+
+@pytest.mark.parametrize("e,hub", [(40000, False), (40003, False),
+                                   (1021, False), (7, False), (50001, True),
+                                   (65536, True)])
+def test_k6_kernel_matches_plain_bitwise(cuda, e, hub):
+    """K6 against its plain version, bitwise: edge counts that are and are
+    not multiples of the 1024-edge tile and of 8 (the ragged thread), a
+    hub stream whose runs cross many tiles, sources outside the cell."""
     from repro_torch.kernels.sssp_relax import kernel as k6
 
     g = torch.Generator(device="cpu").manual_seed(6)
-    np_, e = 5000, 40000
+    np_ = 5000
     dist = torch.where(torch.rand(np_, generator=g) < 0.7,
                        torch.rand(np_, generator=g) * 10, float("inf"))
     active = torch.rand(np_, generator=g) < 0.5
-    src = torch.randint(0, np_, (e,), generator=g, dtype=torch.int32)
-    dst = torch.sort(torch.randint(-1, 3 * np_, (e,), generator=g,
-                                   dtype=torch.int32)).values
+    src = torch.randint(-2, np_ + 2, (e,), generator=g, dtype=torch.int32)
+    dst = _k6_hub(np_, e, 3 * np_, e) if hub else torch.sort(torch.randint(
+        -1, 3 * np_, (e,), generator=g, dtype=torch.int32)).values
     w = torch.rand(e, generator=g) * 5
     args = [t.to(cuda) for t in (dist, active, w, src, dst)]
     n0 = k6.LAUNCHES["relax_sorted"]
