@@ -49,6 +49,27 @@ kernels line and the final result line):
    read just after (K2's laned variants launched, K1/K3 not); every lane
    bitwise equal to the same root queried solo, push/auto lanes to pull,
    and a later solo query of a root served from the cache;
+3e. hub replicas: a second session on the same edges with
+   ``replica_threshold=16384`` (211 hubs split at scale 20): sssp with
+   parents, bfs and cc under pull, push and auto bitwise phase 3's unsplit
+   results (parents tight over logical ids), pagerank (rtol 1e-5, atol
+   1e-6) and ppr (atol 3 eps) against them, 16-lane sssp with phase 3d's
+   roots bitwise solo, and one commit around the heaviest hub (16 edge
+   adds, a deleted out-edge of it and a deleted vertex) with every repair
+   bitwise a fresh diffusion (ppr: n * eps L1); K1, K2 and K3 launched;
+3g. the watchdog on phase 3's graph: sssp with ``max_rounds=1`` raises
+   ``ConvergenceError`` under ``on_budget="raise"``, warns under
+   ``"warn"``, is silent under ``"partial"``; ``validate=True`` passes on
+   phase 3's cached results;
+3f. ``query("triangles")`` on graph500 scale 14 (n = 16384, the bitset's
+   ceiling) on the card equal to ``triangle_count_exact`` on the host, and
+   recounted after a commit; ``engine="event"`` (the host oracle) on
+   ``scale_free`` 512: sssp within atol 1e-4 of the pull result, cc and
+   widest bitwise through the generic interpreter, Dijkstra-Scholten
+   terminated and never early.  (The oracle's cap is n = 4096, but its
+   LIFO delivery on ``scale_free`` takes more actions an edge the larger
+   the graph, each one Python-dispatched: the cap does not fit the smoke
+   run's time limit.)
 4a. K1 and K2 timed at the main path's shapes against their plain
    versions, their bounds and one PyTorch library call each, with the
    device kernels one call runs (from a profiler trace); K1 also with
@@ -689,7 +710,7 @@ def phase_main(args, device):
         check(r["converged"], f"{r['query']} did not converge")
     report = scipy_checks(src, dst, w, n, results, sources)
     emit({"phase": "main_checks", "ok": True, **report})
-    return sess, launches, sources, results, walls, (src, dst, w, n)
+    return sess, launches, sources, results, walls, (src, dst, w, n), queries
 
 
 def trim(res, n: int):
@@ -723,6 +744,7 @@ def phase_push(sess, results, walls, sources, n, device) -> dict:
             sync(device)
             dt = time.perf_counter() - t
             key = (name,) + tuple(kw.values())
+            walls[(name, sweep) + tuple(kw.values())] = dt
             pull = results[key]
             what = f"{name} sweep={sweep}"
             check(same_bits(res.values, pull.values), f"{what}: values "
@@ -1023,6 +1045,371 @@ def phase_commits(args, sess, data, sources, roots, device) -> dict:
           "sssp_max_rel_err": float(rel.max(initial=0.0)),
           "reached": int(fin.sum())})
     return launches, frontier0
+
+
+def parents_tight_logical(sess, vstate, source: int) -> bool:
+    """On the device, over logical vertex ids (so a split hub's member
+    slots count as one vertex): every reached live vertex but the source
+    has its parent on a live in-edge with dist[parent] + w == dist[v]."""
+    sg = sess.sg
+    owner, local = sess._layout()
+    dist = vstate["dist"][owner, local]
+    par = vstate["parent"][owner, local].long()
+    cells = torch.arange(sg.n_shards, device=dist.device)[:, None]
+    sgid = sg.gid[cells, sg.src_local.long()].long()
+    dgid = sg.dst_gid.long()
+    tight = (sg.edge_ok & (par[dgid] == sgid)
+             & (dist[sgid] + sg.weight == dist[dgid]))
+    has = torch.zeros(dist.shape[0], dtype=torch.bool, device=dist.device)
+    has[dgid[tight]] = True
+    ids = torch.arange(dist.shape[0], device=dist.device)
+    live = sg.node_ok[owner, local] & (sg.gid[owner, local] == ids)
+    need = live & torch.isfinite(dist) & (ids != source)
+    return bool((has | ~need).all())
+
+
+def phase_replicas(args, sess, results, walls, sources, roots, data,
+                   device) -> dict:
+    """Phase 3e: a second session on phase 3's edges with hub replicas
+    (``replica_threshold``); every min/max result bitwise phase 3's and
+    3b's unsplit ones, pagerank/ppr at the reference test's limits, lanes
+    bitwise solo, and one commit around the heaviest hub repaired bitwise
+    a fresh diffusion."""
+    from repro_torch.core import DiffusionSession, diffuse
+    from repro_torch.core.programs import PROGRAMS
+    from repro_torch.kernels.edge_relax import kernel
+
+    src, dst, w, n = data
+    s0 = sources[0]
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    edge_slack = max(0.01, 4096 / src.shape[0])
+    node_slack = max(1e-4, 64 / n)
+    t = time.perf_counter()
+    split = DiffusionSession.from_edges(
+        src, dst, n, w, n_cells=4, edge_slack=edge_slack,
+        node_slack=node_slack, replica_threshold=args.replica_threshold,
+        device=device)
+    sync(device)
+    build_s = time.perf_counter() - t
+    rep = split.part.replica
+    check(rep is not None, f"replica_threshold={args.replica_threshold} "
+                           f"split no hub")
+    deg = np.bincount(src, minlength=n) + np.bincount(dst, minlength=n)
+    hubs = rep.hub_gid.astype(np.int64)
+    on = split.sg.edge_ok.sum(dim=1).tolist()
+    off = sess.sg.edge_ok.sum(dim=1).tolist()
+    members = np.bincount(rep.n_members).tolist()
+    emit({"phase": "replicas_setup", "threshold": args.replica_threshold,
+          "hubs": int(hubs.shape[0]),
+          "members_per_hub": {str(r): c for r, c in enumerate(members)
+                              if c},
+          "non_primary_slots": int((rep.n_members - 1).sum()),
+          "hub_endpoint_share": float(deg[hubs].sum() / deg.sum()),
+          "max_total_degree": int(deg.max()),
+          "n_per_shard": split.sg.n_per_shard,
+          "edges_per_shard": split.sg.edges_per_shard,
+          "live_edges_per_cell_on": on, "live_edges_per_cell_off": off,
+          "max_mean_on": [max(on), sum(on) / len(on)],
+          "max_mean_off": [max(off), sum(off) / len(off)],
+          "partition_upload_s": build_s})
+
+    sync(device)
+    kernel.reset_launches()
+    rows = []
+
+    def run(name, kw, sweep):
+        before = dict(kernel.LAUNCHES)
+        sync(device)
+        t = time.perf_counter()
+        res = trim(split.query(name, sweep=sweep, refresh=True, **kw), n)
+        sync(device)
+        dt = time.perf_counter() - t
+        off_key = ((name,) if sweep == "pull" else (name, sweep)) + tuple(
+            kw.values())
+        rows.append({"query": name, **kw, "sweep": sweep, "wall_s": dt,
+                     "off_wall_s": walls.get(off_key),
+                     "rounds": int(res.stats.rounds),
+                     "actions": int(res.stats.actions),
+                     "converged": bool(res.stats.converged),
+                     **{f"{k}_launches": kernel.LAUNCHES[k] - before[k]
+                        for k in kernel.LAUNCHES}})
+        return res
+
+    for sweep in ("pull", "push", "auto"):
+        for name, kw in (("sssp", {"source": s0}), ("bfs", {"source": s0}),
+                         ("cc", {})):
+            res = run(name, kw, sweep)
+            off_res = results[(name,) + tuple(kw.values())]
+            what = f"split {name} sweep={sweep}"
+            check(same_bits(res.values, off_res.values),
+                  f"{what}: values differ from the unsplit session's")
+            for k in off_res.extra:
+                check(same_bits(res.extra[k], off_res.extra[k]),
+                      f"{what}: {k} differs from the unsplit session's")
+            if name == "sssp":
+                check(parents_tight_logical(
+                    split, split.vertex_state(name, sweep=sweep, **kw), s0),
+                      f"{what}: a parent is not a tight in-edge")
+    # Sum programs: the reference test's limits (tests/test_rhizome.py:
+    # pagerank rtol 1e-5 / atol 1e-6 at n = 400 and eps = 1e-6; ppr atol
+    # 3 eps).  A push fixed point keeps up to eps of residual per vertex,
+    # so pagerank's eps scales with 1/n to keep the test's setting (eps
+    # 1e-6 for values near 1/400); phase 3's eps = 1e-7 run is compared
+    # too, for the record, unchecked.
+    eps_pr = 1e-6 * 400 / n
+    sums, failed = {}, []
+    for name, kw, rtol, atol, checked in (
+            ("pagerank", {"eps": 1e-7}, 1e-5, 1e-6, False),
+            ("pagerank", {"eps": eps_pr}, 1e-5, 1e-6, True),
+            ("ppr", {"source": s0}, 0.0, 3e-4, True)):
+        res = run(name, kw, "pull")
+        if checked and name == "pagerank":
+            off_res = trim(sess.query(name, refresh=True, **kw), n)
+        else:
+            off_res = results[(name,) + tuple(v for k, v in kw.items()
+                                               if k == "source")]
+        err = np.abs(res.values.astype(np.float64) - off_res.values)
+        limit = atol + rtol * np.abs(off_res.values.astype(np.float64))
+        out = int((err > limit).sum())
+        worst = int(np.argmax(err - limit))
+        sums[f"{name}_eps{kw.get('eps', 1e-4):.3g}"] = {
+            "max_abs_err": float(err.max()), "rtol": rtol, "atol": atol,
+            "outside": out, "checked": checked, "worst_vertex": worst,
+            "worst_unsplit": float(off_res.values[worst]),
+            "worst_split": float(res.values[worst]),
+            "worst_degree": int(deg[worst])}
+        if checked and out:
+            failed.append(f"split {name} (eps {kw.get('eps', 1e-4)}): {out} "
+                          f"values outside rtol={rtol} atol={atol} of the "
+                          f"unsplit session's")
+    emit({"phase": "replicas_sums", **sums})
+    check(not failed, "; ".join(failed))
+
+    # 16-lane sssp with phase 3d's roots, each lane bitwise its solo query
+    before = dict(kernel.LAUNCHES)
+    sync(device)
+    t = time.perf_counter()
+    lanes = split.query("sssp", sources=roots, refresh=True)
+    sync(device)
+    lanes_s = time.perf_counter() - t
+    lane_launches = {k: kernel.LAUNCHES[k] - before[k]
+                     for k in kernel.LAUNCHES}
+    solo_s = 0.0
+    for root, lane in zip(roots, lanes):
+        sync(device)
+        t = time.perf_counter()
+        solo = trim(split.query("sssp", source=root, refresh=True), n)
+        sync(device)
+        solo_s += time.perf_counter() - t
+        lane = trim(lane, n)
+        check(same_bits(lane.values, solo.values)
+              and same_bits(lane.extra["parent"], solo.extra["parent"]),
+              f"split sssp lane {root} differs from its solo query")
+    emit({"phase": "replicas_lanes", "lanes": len(roots), "wall_s": lanes_s,
+          "solo_wall_s": solo_s, "launches": lane_launches,
+          "bitwise_vs_solo": True})
+
+    # one commit around the heaviest hub, with four entries cached
+    cached = [("sssp", {"source": s0}), ("bfs", {"source": s0}), ("cc", {}),
+              ("ppr", {"source": s0})]
+    split.max_cache_entries = len(cached)
+    for name, kw in cached:
+        split.query(name, refresh=True, **kw)
+    rng = np.random.default_rng(args.seed + 5)
+    hub = int(hubs[np.argmax(deg[hubs])])
+    for a in rng.integers(0, n, 8):
+        split.add_edge(int(a), hub, 1.5)
+        split.add_edge(hub, int(a), 2.5)
+    out_hub = np.flatnonzero(src == hub)
+    i = int(rng.choice(out_hub))
+    split.delete_edge(hub, int(dst[i]))
+    pool = np.setdiff1d(np.nonzero(deg > 0)[0], np.concatenate(
+        [hubs, roots]))
+    victim = int(rng.choice(pool))
+    split.delete_vertex(victim)
+    before = dict(kernel.LAUNCHES)
+    info = split.commit()
+    commit_launches = {k: kernel.LAUNCHES[k] - before[k]
+                       for k in kernel.LAUNCHES}
+    checks = {}
+    for name, kw in cached:
+        spec = PROGRAMS[name]
+        got = split.vertex_state(name, **kw)
+        fresh, _ = diffuse(split.sg, spec.factory(**kw))
+        vk = spec.value_key
+        live = split.sg.node_ok
+        if name == "ppr":
+            l1 = float((got[vk] - fresh[vk]).abs()[live].sum())
+            limit = int(live.sum()) * 1e-4
+            check(l1 <= limit, f"split commit: ppr L1 {l1} > {limit}")
+            checks[name] = {"l1": l1, "limit": limit}
+            continue
+        check(torch.equal(torch.where(live, got[vk], 0),
+                          torch.where(live, fresh[vk], 0)),
+              f"split commit: repaired {name} differs from a fresh "
+              f"diffusion")
+        checks[name] = "bitwise"
+        if name == "sssp":
+            check(parents_tight_logical(split, got, s0),
+                  "split commit: a repaired parent is not a tight in-edge")
+            checks["sssp_parents"] = "tight"
+    launches = dict(kernel.LAUNCHES)
+    for r in rows:
+        emit({"phase": "replicas_query", **r})
+        check(r["converged"], f"split {r['query']} did not converge")
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if device.type == "cuda" else None)
+    emit({"phase": "replicas_commit", "hub": hub, "hub_degree":
+          int(deg[hub]), "edge_adds": 16, "edge_deletes": 1,
+          "vertex_deletes": 1, "apply_s": info.apply_s,
+          "repair_s": info.repair_s,
+          "repairs": {k[0]: v[0] for k, v in info.repairs.items()},
+          "launches": commit_launches, "checks": checks})
+    if device.type == "cuda":
+        for k in ("edge_relax_blocks", "edge_relax_scan",
+                  "edge_relax_push_blocks"):
+            check(launches[k] > 0, f"kernel {k} was not launched on the "
+                                   f"split-graph path")
+    report = {"phase": "replicas_checks", "ok": True, "launches": launches,
+              "sums": sums, "peak_gib": peak,
+              "seconds": time.perf_counter() - t0}
+    emit(report)
+    return report
+
+
+def phase_oracles(args, device) -> dict:
+    """Phase 3f: ``query("triangles")`` on graph500 at ``--tri-scale`` on
+    the card against the exact host count, recounted after a commit; and
+    ``engine="event"`` (the host oracle) on ``scale_free`` at
+    ``--event-n`` against the sharded engine."""
+    from repro_torch.core import DiffusionSession
+    from repro_torch.core.generators import make_graph_family
+    from repro_torch.core.triangles import triangle_count_exact
+
+    t0 = time.perf_counter()
+    src, dst, w, n = make_graph_family("graph500", 1 << args.tri_scale,
+                                       seed=0)
+    sess = DiffusionSession.from_edges(src, dst, n, w, n_cells=4,
+                                       edge_slack=0.01, device=device)
+    sync(device)
+    t = time.perf_counter()
+    tri = sess.query("triangles")
+    sync(device)
+    tri_s = time.perf_counter() - t
+    t = time.perf_counter()
+    exact = triangle_count_exact(src, dst, n)
+    exact_s = time.perf_counter() - t
+    check(int(tri.values) == exact,
+          f"triangles {int(tri.values)} != exact {exact}")
+    # a commit: three new pairs closing a triangle and two deleted ones,
+    # both directions each (the list stays simple and symmetric)
+    rng = np.random.default_rng(args.seed + 7)
+    have = set(zip(src.tolist(), dst.tolist()))
+    while True:
+        a, b, c = (int(x) for x in rng.choice(n, 3, replace=False))
+        if not {(a, b), (a, c), (b, c)} & have:
+            break
+    for u, v in ((a, b), (a, c), (b, c)):
+        sess.add_edge(u, v, 1.0)
+        sess.add_edge(v, u, 1.0)
+    for i in rng.choice(src.shape[0], 2, replace=False):
+        sess.delete_edge(int(src[i]), int(dst[i]))
+        sess.delete_edge(int(dst[i]), int(src[i]))
+    info = sess.commit()
+    sync(device)
+    key = next(k for k in info.repairs if k[0] == "triangles")
+    check(info.repairs[key][0] == "recount", "triangles not recounted")
+    es, ed, _ = sess.edge_list()
+    recount = int(sess.query("triangles").values)
+    exact2 = triangle_count_exact(es, ed, sess.n_ids)
+    check(recount == exact2, f"recounted triangles {recount} != exact "
+                             f"{exact2}")
+    emit({"phase": "triangles", "graph": "graph500",
+          "scale": args.tri_scale, "n": n, "edges": int(src.shape[0]),
+          "triangles": exact, "card_s": tri_s, "exact_host_s": exact_s,
+          "after_commit": recount, "commit_s": info.apply_s + info.repair_s})
+
+    src, dst, w, n = make_graph_family("scale_free", args.event_n, seed=0)
+    ev_sess = DiffusionSession.from_edges(src, dst, n, w, n_cells=4,
+                                          device=device)
+    rows = {}
+    for name, kw in (("sssp", {"source": 0}), ("cc", {}),
+                     ("widest", {"source": 0})):
+        t = time.perf_counter()
+        ev = ev_sess.query(name, engine="event", **kw)
+        ev_s = time.perf_counter() - t
+        ref = ev_sess.query(name, **kw)
+        live = ev.extra["live"]
+        got, want = np.asarray(ev.values)[live], ref.values[live]
+        if name == "sssp":          # the oracle adds in Python doubles
+            check(np.array_equal(np.isfinite(got), np.isfinite(want)),
+                  "event sssp: reachability differs from the pull result")
+            fin = np.isfinite(want)
+            err = float(np.abs(got[fin] - want[fin]).max(initial=0.0))
+            check(err <= 1e-4, f"event sssp: {err} > atol 1e-4")
+        else:
+            check(same_bits(got, want), f"event {name}: differs from the "
+                                        f"sharded engine")
+            err = 0.0
+        st = ev.stats
+        check(st.ds_terminated and not st.ds_was_premature,
+              f"event {name}: Dijkstra-Scholten verdict wrong")
+        rows[name] = {"actions": st.actions, "acks": st.acks,
+                      "max_queue": st.max_queue, "host_s": ev_s,
+                      "max_abs_err": err}
+    report = {"phase": "event_oracle", "graph": "scale_free",
+              "n": n, "edges": int(src.shape[0]), **rows,
+              "seconds": time.perf_counter() - t0}
+    emit(report)
+    return report
+
+
+def phase_watchdog(sess, queries, sources, device) -> dict:
+    """Phase 3g: on phase 3's graph, an sssp with ``max_rounds=1`` under
+    each ``on_budget`` policy (fresh sessions over the same partition, so
+    the main session's cache stays whole), and ``validate=True`` on phase
+    3's cached results."""
+    import warnings
+
+    from repro_torch.core import (
+        ConvergenceError,
+        ConvergenceWarning,
+        DiffusionSession,
+    )
+
+    t0 = time.perf_counter()
+    s0 = sources[0]
+    seen = {}
+    for policy in ("raise", "warn", "partial"):
+        cut = DiffusionSession(sess.part, max_rounds=1, on_budget=policy)
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            try:
+                res = cut.query("sssp", source=s0)
+                outcome = "returned"
+                check(not bool(res.stats.converged),
+                      f"on_budget={policy}: one round converged")
+            except ConvergenceError:
+                outcome = "raised"
+        warned = any(issubclass(x.category, ConvergenceWarning)
+                     for x in got)
+        seen[policy] = {"outcome": outcome, "warned": warned}
+    check(seen["raise"] == {"outcome": "raised", "warned": False},
+          f"on_budget='raise': {seen['raise']}")
+    check(seen["warn"] == {"outcome": "returned", "warned": True},
+          f"on_budget='warn': {seen['warn']}")
+    check(seen["partial"] == {"outcome": "returned", "warned": False},
+          f"on_budget='partial': {seen['partial']}")
+    validated = []
+    for name, kw in queries:
+        sess.query(name, validate=True, **kw)     # cache hits, re-checked
+        validated.append(name)
+    report = {"phase": "watchdog", **seen, "validated": validated,
+              "seconds": time.perf_counter() - t0}
+    emit(report)
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -1879,6 +2266,13 @@ def main(argv=None) -> int:
                     help="scale_free vertices of K5's aggregation layer")
     ap.add_argument("--prompt-len", type=int, default=1024,
                     help="tokens per prompt on the serving path")
+    ap.add_argument("--replica-threshold", type=int, default=16384,
+                    help="hub-split degree bound of phase 3e's session")
+    ap.add_argument("--tri-scale", type=int, default=14,
+                    help="Graph500 scale of phase 3f's triangle count "
+                         "(14: n = 16384, the bitset's ceiling)")
+    ap.add_argument("--event-n", type=int, default=512,
+                    help="scale_free vertices of phase 3f's event oracle")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
@@ -1897,6 +2291,9 @@ def main(argv=None) -> int:
         args.scale, args.kernel_n, args.reps = (min(args.scale, 10),
                                                 min(args.kernel_n, 2048), 2)
         args.k5_n = min(args.k5_n, 2048)
+        args.replica_threshold = min(args.replica_threshold, 64)
+        args.tri_scale = min(args.tri_scale, 10)
+        args.event_n = min(args.event_n, 128)
     elif not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
               file=sys.stderr)
@@ -1949,13 +2346,18 @@ def main(argv=None) -> int:
     k4_check = phase_k4_vs_plain(device)
     emit({"phase": "k4_vs_plain", **k4_check})
 
-    sess, launches, sources, results, walls, data = phase_main(args, device)
+    sess, launches, sources, results, walls, data, queries = phase_main(
+        args, device)
     push_launches = phase_push(sess, results, walls, sources, data[3],
                                device)
     roots = lane_roots(data[0], data[3], sources, args.seed)
     lane_launches = phase_lanes(sess, results, roots, data, device)
+    replicas = phase_replicas(args, sess, results, walls, sources, roots,
+                              data, device)
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    watchdog = phase_watchdog(sess, queries, sources, device)
+    oracles = phase_oracles(args, device)
     rows = phase_timing(sess, launches, sources, device, args.reps)
     rows.append(phase_k2_lanes_timing(
         sess, roots, lane_launches["min/max+payload/laned"], device,
@@ -1982,6 +2384,8 @@ def main(argv=None) -> int:
     rows += [k4_row, k5_row, k6_row]
     detail = {"nvidia_smi": smi, "kernels": rows, "k3": k3_detail,
               "serve": served, "lm_checks": lm, "k4_vs_plain": k4_check,
+              "replicas": replicas, "oracles": oracles,
+              "watchdog": watchdog,
               "seconds": time.perf_counter() - t0}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

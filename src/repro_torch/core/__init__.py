@@ -1,7 +1,8 @@
 # The diffusive-computation engine on PyTorch: the session (queries, graph
-# mutation and incremental repair at commit), the logical sharded engine
-# (pull, push and auto sweeps), and the programs, with the relaxation step
-# on hand-written CUDA kernels (kernels/edge_relax).
+# mutation and incremental repair at commit, the convergence watchdog), the
+# logical sharded engine (pull, push and auto sweeps, hub replicas), the
+# programs, the event-engine host oracle and triangle counting, with the
+# relaxation step on hand-written CUDA kernels (kernels/edge_relax).
 from .api import (
     Result,
     bfs,
@@ -17,9 +18,10 @@ from .api import (
 )
 from .diffuse import DiffuseStats, diffuse, diffuse_from
 from .dynamic import NameServer
+from .event import EventStats, event_diffuse, event_sssp
 from .graph import Graph, ShardedGraph, from_edges
 from .monoid import MONOIDS, Monoid, register_monoid
-from .partition import Partitioned, partition
+from .partition import Partitioned, ReplicaInfo, partition
 from .programs import (
     BoundQuery,
     DiffusiveProgram,
@@ -37,9 +39,20 @@ from .programs import (
 )
 from .session import (
     CommitInfo,
+    ConvergenceError,
+    ConvergenceWarning,
     DiffusionSession,
     ProgramSpec,
+    ValidationError,
     register_program,
+)
+from .triangles import (
+    PAPER_TABLE_III,
+    CcaCost,
+    cca_cost_model,
+    triangle_count_bitset,
+    triangle_count_exact,
+    wedge_count,
 )
 from .updates import AppliedUpdates, UpdateBatch
 
@@ -54,4 +67,8 @@ __all__ = [
     "pagerank_program", "widest_program", "reach_program",
     "DiffusionSession", "ProgramSpec", "register_program", "CommitInfo",
     "UpdateBatch", "AppliedUpdates", "NameServer", "incremental_sssp",
+    "ReplicaInfo", "EventStats", "event_sssp", "event_diffuse",
+    "triangle_count_exact", "triangle_count_bitset", "wedge_count",
+    "cca_cost_model", "CcaCost", "PAPER_TABLE_III",
+    "ConvergenceError", "ConvergenceWarning", "ValidationError",
 ]

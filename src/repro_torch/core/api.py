@@ -28,7 +28,8 @@ def build(src, dst, n_nodes: int, weight=None, n_cells: int = 4,
           node_slack: float = 0.0, replica_threshold=None,
           device="cuda") -> Partitioned:
     """Build + partition a graph over ``n_cells`` compute cells on
-    ``device``."""
+    ``device``; ``replica_threshold`` (``"auto"`` or an int degree bound)
+    splits hubs over member slots (partition.py)."""
     g = from_edges(src, dst, n_nodes, weight, edge_slack=edge_slack,
                    node_slack=node_slack, device=device)
     return partition(g, n_cells, strategy=strategy,

@@ -33,8 +33,16 @@ sub-iteration: whether any vertex is active, whether any passes the gate
 and, for the push and auto sweeps, the max over cells of the gated active
 push-block count, in one transfer — the host then picks the sweep's
 compaction bucket (``relax.select_bucket``).  Every statistic stays on
-the device until the caller reads it.  Not yet ported: hub replicas and
-the SPMD engine.
+the device until the caller reads it.
+
+**Hub replicas** (``partition(..., replica_threshold=...)``, rhizome.py):
+every member slot of a split hub mirrors one vertex state.  Messages to a
+member slot never apply mid-round, not even from the slot's own cell:
+they wait in the outbox; at the exchange each group's member entries fold
+through the monoid in a fixed member order and the merged message lands
+on every member.  At entry the primary's state and activity are copied
+over its members, so callers that touch only primaries (init, commit
+repairs) stay mirrored.  Not yet ported: the SPMD engine.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ from .relax import (
 )
 
 __all__ = ["diffuse", "diffuse_from", "exact_streams_for", "DiffuseStats",
-           "FRONTIER_LOG_CAP", "sweep_streams"]
+           "FRONTIER_LOG_CAP", "sweep_streams", "logical_view"]
 
 # Per-round introspection buffers record the first FRONTIER_LOG_CAP rounds;
 # later rounds overwrite the last slot.
@@ -89,14 +97,17 @@ def _gate(prog: VertexProgram, vstate, active, threshold):
 
 
 def _local_iter(prog: VertexProgram, sgd, st, relax, mine, diag, node_ok,
-                threshold=None, lane_live=None, bucket=None):
+                threshold=None, lane_live=None, bucket=None, member=None):
     """One local relaxation sub-iteration of every cell at once.
 
     ``relax`` maps the cells' vertex blocks and streams to the [S, S, Np]
-    ([S, S, L, Np] laned) message tables; row ``[c, c]`` applies as cell
-    c's local inbox inside this sub-iteration, the other rows merge into
-    the cross-cell outbox.  Only gated senders of live lanes send; the
-    rest of the frontier stays active.
+    ([S, S, L, Np] laned) message tables; the entries ``mine`` marks
+    (row ``[c, c]`` but its hub-member slots) apply as cell c's local
+    inbox inside this sub-iteration, the rest merge into the cross-cell
+    outbox.  ``member`` ([S, (1,) Np] bool, or None) marks the member
+    slots of split hubs: their messages wait for the exchange's replica
+    merge.  Only gated senders of live lanes send; the rest of the
+    frontier stays active.
     """
     vstate, active, outbox, outbox_has, outbox_pay = st
     monoid = prog.monoid
@@ -111,6 +122,11 @@ def _local_iter(prog: VertexProgram, sgd, st, relax, mine, diag, node_ok,
         inbox = table[diag, diag]
         has_local = cnt[diag, diag] > 0
         pay_in = pay[diag, diag] if prog.with_payload else None
+        if member is not None:
+            has_local = has_local & ~member
+            inbox = torch.where(member, ident, inbox)
+            if prog.with_payload:
+                pay_in = torch.where(member, -1, pay_in)
 
         contrib = torch.where(mine, ident, table)
         contrib_has = (cnt > 0) & ~mine
@@ -147,6 +163,111 @@ def _sg_as_dict(sg: ShardedGraph, with_push: bool = False):
     if with_push:
         d.update(sg.push_view())
     return d
+
+
+# --------------------------------------------------------------------------
+# hub replicas: the member maps, the entry broadcast and the round merge
+# --------------------------------------------------------------------------
+
+def _replica_maps(rmem: torch.Tensor, S: int, Np: int):
+    """[G, Rmax] flat member keys -> (member mask [S, Np] bool marking
+    every member slot, ``rsrc`` [S*Np] int64 mapping each slot to its
+    group primary's flat key, the identity outside groups)."""
+    tot = S * Np
+    valid = rmem >= 0
+    keys = rmem[valid].long()
+    member = torch.zeros(tot, dtype=torch.bool, device=rmem.device)
+    member[keys] = True
+    rsrc = torch.arange(tot, dtype=torch.int64, device=rmem.device)
+    rsrc[keys] = rmem[:, :1].expand_as(rmem)[valid].long()
+    return member.view(S, Np), rsrc
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """[S, (L,) Np] -> [(L,) S*Np]."""
+    return x.movedim(0, -2).reshape(x.shape[1:-1] + (-1,))
+
+
+def _unflat(x: torch.Tensor, S: int) -> torch.Tensor:
+    """[(L,) S*Np] -> [S, (L,) Np], contiguous (the kernels take laned
+    state only in that layout)."""
+    return x.reshape(x.shape[:-1] + (S, -1)).movedim(-2, 0).contiguous()
+
+
+def _broadcast_from_primary(x: torch.Tensor, rsrc: torch.Tensor,
+                            S: int) -> torch.Tensor:
+    """Copy each group primary's value over all its member slots
+    (identity elsewhere) of an [S, (L,) Np] tensor."""
+    return _unflat(_flat(x)[..., rsrc], S)
+
+
+def _fold_members(monoid, vals: torch.Tensor, has: torch.Tensor):
+    """Fold [R, ...] member entries along dim 0 in member order: a float
+    sum is folded one member after another, so its bits depend on the
+    member order alone (not on the lane count or the device's reduction
+    tree); selections and custom ops go through ``reduce_rows``."""
+    if monoid.kind != "sum" or monoid.op is not None:
+        return monoid.reduce_rows(vals, has, dim=0)
+    vals = torch.where(has, vals, torch.zeros_like(vals))
+    acc = vals[0]
+    for i in range(1, vals.shape[0]):
+        acc = acc + vals[i]
+    return acc
+
+
+def _merge_replicas(monoid, with_payload: bool, ident, rmem: torch.Tensor,
+                    S: int, inbox, has, pay):
+    """The round-boundary replica merge on the exchanged inboxes
+    ([S, (L,) Np]): gather each group's member entries, fold them in
+    member order through the monoid (the payload is the winning member's)
+    and write the merged message back to every member slot."""
+    valid = rmem >= 0                               # [G, R]
+    idx = rmem.clamp(min=0).long()
+    keys = rmem[valid].long()                       # member slots
+    grp = torch.nonzero(valid)[:, 0]                # their groups
+    fi, fh = _flat(inbox), _flat(has)
+    hm = fh[..., idx] & valid                       # [(L,) G, R]
+    vals = torch.where(hm, fi[..., idx], ident)
+    vr, hr = vals.movedim(-1, 0), hm.movedim(-1, 0)  # [R, (L,) G]
+    merged = _fold_members(monoid, vr, hr)          # [(L,) G]
+    fi, fh = fi.clone(), fh.clone()
+    fi[..., keys] = merged[..., grp]
+    fh[..., keys] = hr.any(dim=0)[..., grp]
+    out_pay = None
+    if with_payload:
+        fp = _flat(pay)
+        pr = fp[..., idx].movedim(-1, 0)            # [R, (L,) G]
+        best = monoid.argbest(vr, dim=0)
+        pay_g = pr.gather(0, best[None])[0]
+        fp = fp.clone()
+        fp[..., keys] = pay_g[..., grp]
+        out_pay = _unflat(fp, S)
+    return _unflat(fi, S), _unflat(fh, S), out_pay
+
+
+def logical_view(sg: ShardedGraph):
+    """The program-init view of a (possibly hub-split) graph: ``node_ok``
+    counts each hub once (False at non-primary member slots) and
+    ``out_degree`` carries the group-total degree at every member slot, so
+    degree-normalized emits (PPR, PageRank) divide by the hub's real
+    out-degree.  Unsplit graphs pass through unchanged."""
+    if sg.replica_members is None:
+        return sg
+    import types
+
+    S, Np = sg.n_shards, sg.n_per_shard
+    rmem = sg.replica_members
+    valid = rmem >= 0
+    nonprim = rmem[:, 1:][valid[:, 1:]].long()
+    node_ok = sg.node_ok.reshape(-1).clone()
+    node_ok[nonprim] = False
+    flatdeg = sg.out_degree.reshape(-1)
+    share = torch.where(valid, flatdeg[rmem.clamp(min=0).long()], 0)
+    total = share.sum(dim=1, dtype=flatdeg.dtype)   # [G]
+    deg = flatdeg.clone()
+    deg[rmem[valid].long()] = total[torch.nonzero(valid)[:, 0]]
+    return types.SimpleNamespace(gid=sg.gid, node_ok=node_ok.view(S, Np),
+                                 out_degree=deg.view(S, Np))
 
 
 def sweep_streams(sg: ShardedGraph, with_push: bool = False):
@@ -230,6 +351,18 @@ def _run_rounds(sg: ShardedGraph, prog: VertexProgram, vstate0, active0,
     mine = torch.eye(S, dtype=torch.bool, device=dev).view(
         (S, S) + (1,) * (len(lane) + 1))
     diag = torch.arange(S, device=dev)
+    rmem = sg.replica_members
+    member = None
+    if rmem is not None:
+        member_mask, rsrc = _replica_maps(rmem, S, Np)
+        # entry broadcast: init, adopted states and commit repairs touch
+        # only primaries — mirror them over the members
+        vstate0 = {k: _broadcast_from_primary(v, rsrc, S)
+                   for k, v in vstate0.items()}
+        active0 = _broadcast_from_primary(active0, rsrc, S)
+        member = member_mask.view((S,) + (1,) * len(lane) + (Np,))
+        # no mid-round delivery at member slots, even from their own cell
+        mine = mine & ~member[None]
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     actions = remote = operons = max_frontier = zero
     frontier_log = torch.full((FRONTIER_LOG_CAP,), -1, dtype=torch.int64,
@@ -259,7 +392,7 @@ def _run_rounds(sg: ShardedGraph, prog: VertexProgram, vstate0, active0,
                 dir_log[li] = is_push          # the round's opening sweep
             st = (vstate, active, outbox, outbox_has, outbox_pay)
             st, counts = _local_iter(prog, sgd, st, relax, mine, diag,
-                                     node_ok, thr, lane_live, bucket)
+                                     node_ok, thr, lane_live, bucket, member)
             vstate, active, outbox, outbox_has, outbox_pay = st
             local_iters += 1
             push_iters += is_push
@@ -278,6 +411,11 @@ def _run_rounds(sg: ShardedGraph, prog: VertexProgram, vstate0, active0,
             if prog.with_payload:
                 best = monoid.argbest(outbox, dim=0)
                 pay = outbox_pay.gather(0, best[None])[0]
+            if rmem is not None:
+                # the replica merge, folded into the exchange
+                inbox, has, pay = _merge_replicas(
+                    monoid, prog.with_payload, ident, rmem, S, inbox, has,
+                    pay)
             vstate, activated = prog.receive(vstate, inbox, has, pay,
                                              node_ok)
             active = active | activated
@@ -306,12 +444,9 @@ def exact_streams_for(sg: ShardedGraph, prog: VertexProgram) -> ShardedGraph:
     return sg.with_csr()
 
 
-def _check_ported(sweep: str, sg: ShardedGraph):
+def _check_sweep(sweep: str):
     if sweep not in RELAX_SWEEPS:
         raise ValueError(f"sweep must be one of {RELAX_SWEEPS}, got {sweep!r}")
-    if sg.replica_members is not None:
-        raise NotImplementedError(
-            "hub-replica graphs arrive with the replicas slice")
 
 
 def diffuse(part: Partitioned | ShardedGraph, prog: VertexProgram,
@@ -329,9 +464,9 @@ def diffuse(part: Partitioned | ShardedGraph, prog: VertexProgram,
     ``priority`` (see the module docstring).
     """
     sg = part.sg if isinstance(part, Partitioned) else part
-    _check_ported(sweep, sg)
+    _check_sweep(sweep)
     sg = exact_streams_for(sg, prog)
-    vstate0, active0 = prog.init(sg)   # unsplit: the graph is its own view
+    vstate0, active0 = prog.init(logical_view(sg))
     return _run_rounds(sg, prog, vstate0, active0, max_local_iters,
                        max_rounds, delta, sweep, push_threshold)
 
@@ -345,7 +480,7 @@ def diffuse_from(part: Partitioned | ShardedGraph, prog: VertexProgram,
     Repairs resume from a tiny frontier, which is where ``sweep="push"``
     turns the O(E) sweep into O(frontier-adjacent edges)."""
     sg = part.sg if isinstance(part, Partitioned) else part
-    _check_ported(sweep, sg)
+    _check_sweep(sweep)
     sg = exact_streams_for(sg, prog)
     return _run_rounds(sg, prog, vstate, active, max_local_iters, max_rounds,
                        delta, sweep, push_threshold)

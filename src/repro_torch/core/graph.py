@@ -182,8 +182,11 @@ class ShardedGraph:
     push twin.  ``csr_live`` masks tombstones, ``csr_inv``/``push_inv``
     map an edge slot back to its stream positions, and
     ``delta_count``/``tomb_count`` count staged adds and tombstones per
-    cell.  The replica maps are None on unsplit graphs (hub splitting is a
-    later slice).
+    cell.  The replica maps (``partition(..., replica_threshold=...)``) are
+    None on unsplit graphs: ``replica_of`` [S, Np] the hub gid at each
+    non-primary member slot, ``replica_group`` [S, Np] the group index at
+    every member slot, ``replica_members`` [G, Rmax] each group's member
+    slots as flat ``cell * Np + slot`` keys (primary first, -1 pad).
     """
 
     src_local: torch.Tensor   # [S, Ep] int32 — local index of the source
@@ -208,9 +211,9 @@ class ShardedGraph:
     push_inv: torch.Tensor | None = None   # [S, Ep] slot -> push pos
     delta_count: torch.Tensor | None = None  # [S] staged adds per cell
     tomb_count: torch.Tensor | None = None   # [S] tombstones per cell
-    replica_of: torch.Tensor | None = None
-    replica_group: torch.Tensor | None = None
-    replica_members: torch.Tensor | None = None
+    replica_of: torch.Tensor | None = None       # [S, Np] int32
+    replica_group: torch.Tensor | None = None    # [S, Np] int32
+    replica_members: torch.Tensor | None = None  # [G, Rmax] int32
     csr_block: int = DEFAULT_EDGE_BLOCK
     delta_blocks: int = -1               # staged blocks; -1 = policy default
 

@@ -149,7 +149,7 @@ class Field:
     ``gid`` / ``node_ok`` / ``out_degree`` tensors); ``on_dead``, when
     given, overwrites dead/free vertex slots.  ``domain`` declares the
     legal value range of live vertices at a fixed point (read by the
-    validation guard of a later slice).
+    session's ``validate=`` guard).
     """
 
     dtype: torch.dtype
@@ -246,6 +246,7 @@ class ProgramSpec(NamedTuple):
     value_key: str
     repair: str = "restart"      # 'parents' | 'component' | 'restart'
     monotone: bool = False       # insert-only warm start is sound
+    event_fn: Callable | None = None   # (session, **kwargs) -> (values, st)
     run_fn: Callable | None = None     # custom query (e.g. triangles)
     lane_param: str | None = None
 

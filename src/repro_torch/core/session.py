@@ -34,11 +34,26 @@ strategy:
 
 Warm repairs resume from a tiny frontier and so default to the push sweep.
 
+``query("triangles")`` counts triangles on the session's device (the
+bitset count of triangles.py), caches the Result and recounts it at
+``commit()``.  ``engine="event"`` runs the message-at-a-time host oracle
+(event.py) on a host copy of the live edge list: handwritten Dijkstra for
+sssp/bfs, the generic interpreter for any other program.  Graphs built
+with ``replica_threshold=`` split their hubs over member slots
+(rhizome.py, diffuse.py); their cache keys carry a ``("replicas",)``
+suffix.
+
+**The convergence watchdog**: a diffusion that exhausts ``max_rounds``
+before quiescence has ``stats.converged == False``, and ``on_budget``
+says what follows — ``"raise"`` (:class:`ConvergenceError`), ``"warn"``
+(:class:`ConvergenceWarning`, the default) or ``"partial"`` (silence).
+``validate=`` (per session, or per ``query`` call) checks every returned
+value of a live vertex against its program's Field schema and raises
+:class:`ValidationError` on NaN or a value outside the field's domain.
+
 Not ported yet, each raising :class:`NotImplementedError` that names its
-slice: ``save``/``open`` and the write-ahead journal, the ``spmd`` and
-``event`` engines, hub replicas, and the ``triangles`` query.  The
-``on_budget=`` / ``validate=`` watchdog is not ported either (a cut
-budget warns).
+slice: ``save``/``open`` and the write-ahead journal, and the ``spmd``
+engine.
 """
 
 from __future__ import annotations
@@ -51,7 +66,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from .diffuse import diffuse, diffuse_from, exact_streams_for
+from .diffuse import diffuse, diffuse_from, exact_streams_for, logical_view
 from .dynamic import NameServer, _invalidate_subtrees
 from .graph import from_edges
 from .partition import Partitioned, partition
@@ -69,9 +84,11 @@ from .relax import RELAX_SWEEPS
 from .updates import AppliedUpdates, UpdateBatch
 
 __all__ = ["DiffusionSession", "Result", "CommitInfo", "ProgramSpec",
-           "register_program", "PROGRAMS", "ENGINES"]
+           "register_program", "PROGRAMS", "ENGINES", "ON_BUDGET",
+           "ConvergenceError", "ConvergenceWarning", "ValidationError"]
 
 ENGINES = ("sharded", "event", "spmd")
+ON_BUDGET = ("raise", "warn", "partial")
 
 
 def _later(what: str, slice_name: str):
@@ -80,16 +97,55 @@ def _later(what: str, slice_name: str):
         f"{slice_name} slice")
 
 
+class ConvergenceError(RuntimeError):
+    """A diffusion hit its max_rounds budget before quiescence
+    (``on_budget="raise"``)."""
+
+
+class ConvergenceWarning(UserWarning):
+    """Budget-exhaustion warning (``on_budget="warn"``, the default)."""
+
+
+class ValidationError(RuntimeError):
+    """A query result violated its program's Field schema (``validate=``):
+    NaN in a float field, or a value outside the field's domain."""
+
+
 class Result(NamedTuple):
     values: np.ndarray          # per-vertex result in global vertex order
-    stats: Any                  # DiffuseStats (device tensors)
+    stats: Any                  # DiffuseStats (device tensors) | EventStats
+                                #   | None (triangles)
     extra: dict
 
 
-def _run_triangles(session, **kwargs):
-    _later("the triangles query", "oracles")
+def _event_sssp(session, source: int = 0, unit_weights: bool = False,
+                **_):
+    from .event import build_adjacency, event_sssp
+
+    src, dst, w = session.edge_list()
+    if unit_weights:
+        w = np.ones_like(w)
+    n = session.n_ids
+    dist, st = event_sssp(build_adjacency(src, dst, w, n), n, source)
+    return np.array(dist), st
 
 
+def _run_triangles(session, engine=None, **kwargs):
+    from .triangles import triangle_count_bitset
+
+    src, dst, _ = session.edge_list()
+    count = int(triangle_count_bitset(src, dst, session.n_ids,
+                                      device=session.device))
+    return Result(values=np.array(count), stats=None,
+                  extra={"triangles": count})
+
+
+# the session-level extras the @diffusive decorator cannot know about: the
+# host event-engine oracles and the non-diffusive custom queries
+PROGRAMS["sssp"] = PROGRAMS["sssp"]._replace(event_fn=_event_sssp)
+PROGRAMS["bfs"] = PROGRAMS["bfs"]._replace(
+    event_fn=lambda session, **kw: _event_sssp(session, unit_weights=True,
+                                               **kw))
 register_program(ProgramSpec("triangles", None, "", run_fn=_run_triangles))
 
 
@@ -98,7 +154,7 @@ class _Entry:
     """One cached (program, kwargs) fixed point."""
 
     spec: ProgramSpec
-    prog: VertexProgram
+    prog: VertexProgram | None
     value_key: str
     vstate: Any
     stats: Any
@@ -106,6 +162,9 @@ class _Entry:
                                  #   (queries use the session's, repairs
                                  #   default to the push sweep)
     delta: float | None = None   # delta-stepping gate, kept across repairs
+    kwargs: dict = dataclasses.field(default_factory=dict)  # run_fn's
+    raw: Any = None              # run_fn queries (triangles): the cached
+                                 #   Result itself, recounted at commit
 
 
 class CommitInfo(NamedTuple):
@@ -127,12 +186,16 @@ class DiffusionSession:
     def __init__(self, part: Partitioned, ns: NameServer | None = None,
                  engine: str = "sharded", sweep: str = "pull",
                  max_local_iters: int = 64, max_rounds: int = 10_000,
-                 max_cache_entries: int | None = None):
+                 max_cache_entries: int | None = None,
+                 on_budget: str = "warn", validate: bool = False):
         self._check_engine(engine)
         _check_sweep(sweep)
         if max_cache_entries is not None and max_cache_entries < 1:
             raise ValueError("max_cache_entries must be >= 1 (or None "
                              "for an unbounded cache)")
+        if on_budget not in ON_BUDGET:
+            raise ValueError(f"on_budget must be one of {ON_BUDGET}, "
+                             f"got {on_budget!r}")
         self.part = part
         self._ns = ns                # built on first mutation
         self.engine = engine
@@ -142,6 +205,10 @@ class DiffusionSession:
         # LRU query cache: insertion order doubles as recency (hits
         # reinsert); evicted entries recompute on their next query
         self.max_cache_entries = max_cache_entries
+        # the convergence watchdog: what a cut budget does, and whether
+        # results are checked against their programs' Field domains
+        self.on_budget = on_budget
+        self.validate = validate
         self._cache: dict[tuple, _Entry] = {}
         self._pending: UpdateBatch | None = None
 
@@ -152,8 +219,6 @@ class DiffusionSession:
                              f"got {engine!r}")
         if engine == "spmd":
             _later("engine='spmd'", "SPMD")
-        if engine == "event":
-            _later("engine='event' (the host oracle)", "oracles")
 
     # ------------------------------------------------------------------
     # construction
@@ -166,7 +231,9 @@ class DiffusionSession:
                    engine: str = "sharded", replica_threshold=None,
                    device="cuda", **kw) -> "DiffusionSession":
         """Build + partition a graph over ``n_cells`` compute cells on
-        ``device`` (the GPU unless the caller asks for the CPU)."""
+        ``device`` (the GPU unless the caller asks for the CPU).
+        ``replica_threshold`` (``"auto"`` or an int degree bound) splits
+        hubs over member slots (partition.py)."""
         g = from_edges(src, dst, n_nodes, weight, edge_slack=edge_slack,
                        node_slack=node_slack, device=device)
         part = partition(g, n_cells, strategy=strategy,
@@ -249,6 +316,10 @@ class DiffusionSession:
             key = key + (("delta", delta),)
         if sweep != "pull":
             key = key + (("sweep", sweep),)
+        if self.sg.replica_members is not None:
+            # a split graph holds the same fixed points only up to float
+            # re-association for sums: keep its entries apart
+            key = key + (("replicas",),)
         return key
 
     def _cache_get(self, key) -> _Entry | None:
@@ -286,26 +357,39 @@ class DiffusionSession:
 
     def query(self, prog, engine: str | None = None, sweep: str | None = None,
               refresh: bool = False, value_key: str | None = None,
-              delta: float | None = None, **kwargs) -> Result | list:
+              delta: float | None = None, validate: bool | None = None,
+              **kwargs) -> Result | list:
         """Run (or serve from cache) a named or ad-hoc vertex program.
 
         ``prog`` is a registry name ("sssp", "bfs", "cc", "ppr",
-        "pagerank", "widest", "reach"), a handle or bound query from
-        :func:`~.programs.diffusive`, or a raw :class:`VertexProgram`
-        (then ``value_key`` selects the result field).  Fixed points are
-        cached per (program, kwargs, sweep, delta) and repaired by
-        ``commit()``; ``refresh=True`` recomputes.  ``sweep`` ("pull" |
-        "push" | "auto") picks the direction; all give the same bits.
-        ``delta`` gates programs with a priority (delta-stepping) and is
-        kept for the entry's repairs.  A pluralized lane parameter
-        (``sources=[...]``) runs multi-query lanes and returns a list of
-        per-source Results (module docstring).
+        "pagerank", "widest", "reach", "triangles"), a handle or bound
+        query from :func:`~.programs.diffusive`, or a raw
+        :class:`VertexProgram` (then ``value_key`` selects the result
+        field).  Fixed points are cached per (program, kwargs, sweep,
+        delta) and repaired by ``commit()``; ``refresh=True`` recomputes.
+        ``sweep`` ("pull" | "push" | "auto") picks the direction; all give
+        the same bits.  ``delta`` gates programs with a priority
+        (delta-stepping) and is kept for the entry's repairs.  A
+        pluralized lane parameter (``sources=[...]``) runs multi-query
+        lanes and returns a list of per-source Results (module
+        docstring).  ``engine="event"`` runs the host oracle and caches
+        nothing.  A cut budget triggers the ``on_budget`` policy;
+        ``validate`` (default: the session's) checks the values against
+        the program's Field schema, on cache hits too.
         """
         engine = engine or self.engine
         explicit_sweep = sweep
         sweep = sweep or self.sweep
         self._check_engine(engine)
         _check_sweep(sweep)
+        if delta is not None and engine != "sharded":
+            raise ValueError(
+                "delta-stepping is only gated on engine='sharded'; the "
+                f"{engine!r} engine would silently run ungated")
+        if explicit_sweep is not None and engine == "event":
+            raise ValueError(
+                "the event oracle runs on the host and has no sweep "
+                "direction; sweep= would be silently ignored")
         spec, name, kwargs, adhoc = self._resolve(prog, kwargs)
         if adhoc is not None:
             if value_key is None:
@@ -315,43 +399,95 @@ class DiffusionSession:
                                value_key)
             name = spec.name
         elif spec.run_fn is not None:
-            return spec.run_fn(self, **kwargs)
+            # custom (non-diffusive) queries share the cache: the Result
+            # is cached whole and recounted at commit
+            if explicit_sweep is not None or delta is not None:
+                raise ValueError(
+                    f"{name!r} is a custom run_fn query with no relaxation "
+                    f"sweep; sweep=/delta= would be silently ignored")
+            key = self._key(name, engine, kwargs)
+            if not refresh:
+                hit = self._cache_get(key)
+                if hit is not None:
+                    return hit.raw
+            res = spec.run_fn(self, engine=engine, **kwargs)
+            self._cache_put(key, _Entry(spec, None, spec.value_key, None,
+                                        res.stats, kwargs=dict(kwargs),
+                                        raw=res))
+            return res
         lane_kw = spec.lane_param + "s" if spec.lane_param else None
         if lane_kw and lane_kw in kwargs:
             lane_vals = list(kwargs.pop(lane_kw))
             return self._query_lanes(spec, name, lane_vals, kwargs, engine,
                                      refresh, delta, value_key, sweep,
-                                     explicit_sweep)
+                                     explicit_sweep, validate)
 
         key = self._key(name, engine, kwargs, sweep, delta)
         if not refresh:
             hit = self._cache_get(key)
             if hit is not None:
-                return self._result(hit)
+                res = self._result(hit)
+                # re-validated on every serve: a poisoned cached state is
+                # caught at read time too
+                self._maybe_validate(hit, res, validate,
+                                     f"query {name!r} (cached)")
+                return res
+        if engine == "event":
+            return self._query_event(spec, name, adhoc, value_key, kwargs)
         program = adhoc if adhoc is not None else spec.factory(**kwargs)
         vstate, stats = self._run_diffusion(program, sweep, delta)
         entry = _Entry(spec, program, value_key or spec.value_key, vstate,
                        stats, sweep=explicit_sweep, delta=delta)
         self._cache_put(key, entry)
-        self._warn_budget(stats, f"query {name!r}")
-        return self._result(entry)
+        self._enforce_budget(stats, f"query {name!r}")
+        res = self._result(entry)
+        self._maybe_validate(entry, res, validate, f"query {name!r}")
+        return res
+
+    def _query_event(self, spec: ProgramSpec, name: str, adhoc,
+                     value_key: str | None, kwargs: dict) -> Result:
+        """The message-at-a-time host oracle on a host copy of the live
+        edge list: the program's handwritten ``event_fn`` (sssp, bfs) or
+        the generic interpreter (event.py)."""
+        if spec.event_fn is not None:
+            values, st = spec.event_fn(self, **kwargs)
+        elif spec.factory is not None:
+            from .event import event_diffuse
+
+            program = adhoc if adhoc is not None else spec.factory(**kwargs)
+            src, dst, w = self.edge_list()
+            state, st = event_diffuse(program, src, dst, w, self.n_ids,
+                                      node_ok=self.live_ids())
+            values = state[value_key or spec.value_key]
+        else:
+            raise ValueError(
+                f"program {name!r} has no event-engine oracle and no "
+                f"factory; use engine='sharded'")
+        return Result(values=values, stats=st,
+                      extra={"live": self.live_ids()})
 
     def _query_lanes(self, spec: ProgramSpec, name: str, lane_vals: list,
                      kwargs: dict, engine: str, refresh: bool, delta,
                      value_key: str | None, sweep: str,
-                     explicit_sweep: str | None) -> list:
+                     explicit_sweep: str | None,
+                     validate: bool | None = None) -> list:
         """Fan a pluralized lane parameter out into B lanes of one
         diffusion, and split the laned fixed point ([S, L, Np] leaves)
         into ordinary single-query cache entries ([S, Np]), so commit()
         repairs each lane like a query issued on its own.  A push / auto
-        sweep ORs every lane's senders into one compaction."""
+        sweep ORs every lane's senders into one compaction.  The event
+        oracle runs the lanes one after another."""
         per_lane = [dict(kwargs, **{spec.lane_param: v}) for v in lane_vals]
         keys = [self._key(name, engine, kw, sweep, delta) for kw in per_lane]
         if not refresh and all(k in self._cache for k in keys):
             return [self._result(self._cache_get(k)) for k in keys]
+        if engine == "event":
+            return [self.query(name, engine=engine, refresh=refresh,
+                               value_key=value_key, **kw)
+                    for kw in per_lane]
         progs = tuple(spec.factory(**kw) for kw in per_lane)
         vstate, stats = self._run_diffusion(make_laned(progs), sweep, delta)
-        self._warn_budget(stats, f"query {name!r} ({len(progs)} lanes)")
+        self._enforce_budget(stats, f"query {name!r} ({len(progs)} lanes)")
         vk = value_key or spec.value_key
         results = []
         for i, (prog, key) in enumerate(zip(progs, keys)):
@@ -359,14 +495,11 @@ class DiffusionSession:
             entry = _Entry(spec, prog, vk, lane_state, stats,
                            sweep=explicit_sweep, delta=delta)
             self._cache_put(key, entry)
-            results.append(self._result(entry))
+            res = self._result(entry)
+            self._maybe_validate(entry, res, validate,
+                                 f"query {name!r} lane {i}")
+            results.append(res)
         return results
-
-    def _warn_budget(self, stats, context: str):
-        if not bool(stats.converged):
-            warnings.warn(
-                f"{context} exhausted max_rounds={self.max_rounds} before "
-                f"quiescence — the fixed point is PARTIAL")
 
     def _compact_for(self, program: VertexProgram):
         """A sum-combine program must see compacted streams; persist the
@@ -409,6 +542,10 @@ class DiffusionSession:
                 f"no cached fixed point for {name!r} with {kwargs} — never "
                 f"queried, or evicted by max_cache_entries; query() "
                 f"recomputes it")
+        if entry.vstate is None:
+            raise ValueError(
+                f"{name!r} is a custom run_fn query; it caches a whole "
+                f"Result (query() serves it), not a vertex state")
         return entry.vstate
 
     def peek(self, u: int, prog="sssp", **kwargs) -> torch.Tensor:
@@ -419,6 +556,10 @@ class DiffusionSession:
         engine = kwargs.pop("engine", None) or self.engine
         sweep_kw = kwargs.pop("sweep", None)
         sweep = sweep_kw or self.sweep
+        if engine == "event":
+            raise ValueError(
+                "peek reads a cached shard-layout state; the event oracle "
+                "holds none — use engine='sharded'")
         spec, name, kwargs, adhoc = self._resolve(prog, kwargs)
         if adhoc is not None or spec.run_fn is not None:
             raise ValueError(
@@ -507,13 +648,18 @@ class DiffusionSession:
         t2 = time.perf_counter()
         for key, (strategy, stats) in repairs.items():
             if stats is not None:
-                self._warn_budget(stats, f"commit repair ({strategy}) of "
-                                         f"{key[0]!r}")
+                self._enforce_budget(stats, f"commit repair ({strategy}) "
+                                            f"of {key[0]!r}")
         return CommitInfo(applied=applied, repairs=repairs, apply_s=t1 - t0,
                           repair_s=t2 - t1)
 
     def _repair_entry(self, entry: _Entry, applied: AppliedUpdates,
                       mli: int):
+        if entry.spec.run_fn is not None:
+            # custom queries (triangles): recount on the committed graph
+            res = entry.spec.run_fn(self, **entry.kwargs)
+            entry.raw, entry.stats = res, res.stats
+            return ("recount", res.stats)
         strategy = entry.spec.repair
         if not applied.has_deletes and entry.spec.monotone:
             strategy = "frontier"
@@ -555,7 +701,7 @@ class DiffusionSession:
         (fresh slots may hold stale state from a deleted occupant)."""
         if not gids:
             return vstate
-        init_v, _ = entry.prog.init(self.sg)
+        init_v, _ = entry.prog.init(logical_view(self.sg))
         s, l = self._slots(gids)
         out = {}
         for k, cur in vstate.items():
@@ -630,7 +776,7 @@ class DiffusionSession:
             affected = sorted({int(c) for c in self._at(comp, ends)}) \
                 if ends else []
             if affected:
-                init_v, _ = entry.prog.init(sg)
+                init_v, _ = entry.prog.init(logical_view(sg))
                 aff = torch.isin(comp, torch.tensor(affected, dtype=comp.dtype,
                                                     device=comp.device))
                 comp = torch.where(aff, init_v[entry.value_key], comp)
@@ -642,6 +788,74 @@ class DiffusionSession:
             return out, active
 
         raise ValueError(f"unknown repair strategy {strategy!r}")
+
+    # ------------------------------------------------------------------
+    # convergence watchdog + result validation
+    # ------------------------------------------------------------------
+
+    def _enforce_budget(self, stats, context: str) -> None:
+        """Apply the on_budget policy to a diffusion's converged flag (one
+        host read, none under ``"partial"``)."""
+        conv = getattr(stats, "converged", None)
+        if conv is None or self.on_budget == "partial":
+            return
+        if bool(conv):
+            return
+        msg = (f"{context} exhausted max_rounds={self.max_rounds} before "
+               f"quiescence — the fixed point is PARTIAL "
+               f"(stats.converged=False); raise max_rounds, or accept "
+               f"partial results with on_budget='partial'")
+        if self.on_budget == "raise":
+            raise ConvergenceError(msg)
+        warnings.warn(msg, ConvergenceWarning)
+
+    def _maybe_validate(self, entry: _Entry, res: Result,
+                        validate: bool | None, context: str) -> None:
+        on = self.validate if validate is None else validate
+        if on:
+            self._validate_result(entry, res, context)
+
+    def _validate_result(self, entry: _Entry, res: Result,
+                         context: str) -> None:
+        """Schema-check a Result against its program's Field domains: NaN
+        is never valid in a float field; a declared ``domain=(lo, hi)``
+        bounds the values (None = open on that side); an int field without
+        one holds gid payloads, ``[-1, n_ids)``.  Only live vertices are
+        checked — dead slots legitimately hold stale bits."""
+        fields = getattr(entry.prog, "fields", None)
+        if fields is None:
+            return
+        live = np.asarray(res.extra["live"])
+        for fname, field in fields:
+            if fname == entry.value_key:
+                arr = res.values
+            elif fname in res.extra:
+                arr = res.extra[fname]
+            else:
+                continue
+            a = np.asarray(arr)[live]
+            if a.size == 0:
+                continue
+            lo = hi = None
+            if np.issubdtype(a.dtype, np.floating):
+                nan = np.isnan(a)
+                if nan.any():
+                    raise ValidationError(
+                        f"{context}: field {fname!r} holds NaN on "
+                        f"{int(nan.sum())} live vertices")
+                if field.domain is not None:
+                    lo, hi = field.domain
+            else:
+                lo, hi = (field.domain if field.domain is not None
+                          else (-1, self.n_ids - 1))
+            if lo is not None and bool((a < lo).any()):
+                raise ValidationError(
+                    f"{context}: field {fname!r} holds values below "
+                    f"{lo} on live vertices (min {a.min()})")
+            if hi is not None and bool((a > hi).any()):
+                raise ValidationError(
+                    f"{context}: field {fname!r} holds values above "
+                    f"{hi} on live vertices (max {a.max()})")
 
     # ------------------------------------------------------------------
     # later slices

@@ -272,7 +272,9 @@ class UpdateBatch:
             su, lu, vg, occ = (np.empty(n, np.int32) for _ in range(4))
             seen: Counter = Counter()     # occurrence index per (u, v)
             for j, (u, v) in enumerate(self._edels):
-                su[j], lu[j] = ns.resolve(u)
+                # a split source is probed at the member the rank hash
+                # stored this (u, v) edge in (build and add use it too)
+                su[j], lu[j] = ns.route_edge(u, v)
                 vg[j] = v
                 occ[j] = seen[(u, v)]
                 seen[(u, v)] += 1
@@ -281,7 +283,10 @@ class UpdateBatch:
             per_cell["dels"] = np.bincount(su, minlength=n_shards)
 
         if self._vdels:
-            pairs = [ns.resolve(gid) for gid in self._vdels]
+            # a split hub dies at ALL member slots (its out-edges are
+            # stored across them)
+            pairs = [p for gid in self._vdels
+                     for p in ns.members_of(gid) or [ns.resolve(gid)]]
             ops["vd_s"] = up(np.array([p[0] for p in pairs], np.int32))
             ops["vd_l"] = up(np.array([p[1] for p in pairs], np.int32))
 
@@ -292,8 +297,10 @@ class UpdateBatch:
             w = np.empty(n, np.float32)
             cell_rank: Counter = Counter()       # index among cell's adds
             for j, (u, v, wj) in enumerate(self._eadds):
-                su[j], lu[j] = ns.resolve(u)
-                sv[j], lv[j] = ns.resolve(v)
+                # split endpoints route by the rank hash (the slots the
+                # partition build picks: incremental == rebuild)
+                su[j], lu[j] = ns.route_edge(u, v)
+                sv[j], lv[j] = ns.route_target(v, u)
                 vg[j], w[j] = v, wj
                 rank[j] = cell_rank[int(su[j])]
                 cell_rank[int(su[j])] += 1

@@ -12,7 +12,8 @@ input modes for every builtin's instance, solo and with 4 or 5 lanes on 4
 cells), K4 and K5 within the tolerances stated at their tests — the
 session on the card (pull, push and auto sweeps, and a commit's repairs)
 against the session on the CPU, and the LM's prefill and decode on the
-card against the CPU."""
+card against the CPU, and the same for a hub-split session, the triangle
+count and the watchdog."""
 
 import numpy as np
 import pytest
@@ -395,6 +396,63 @@ def cuda():
         pytest.skip("needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def test_split_session_triangles_and_watchdog_on_gpu_match_cpu(cuda):
+    """Hub replicas on the card: every sweep, a laned query and a commit
+    around a hub give the CPU session's bits (sums: 1e-6); the triangle
+    count and the watchdog behave as on the CPU."""
+    from repro_torch.core import ConvergenceError
+
+    src, dst, w, n = make_graph_family("scale_free", 3000, seed=0)
+    kw = dict(n_cells=4, edge_slack=0.2, node_slack=0.05,
+              replica_threshold=64)
+    gpu = DiffusionSession.from_edges(src, dst, n, w, device="cuda", **kw)
+    cpu = DiffusionSession.from_edges(src, dst, n, w, device="cpu", **kw)
+    assert gpu.part.replica is not None
+    kernel.reset_launches()
+    for sweep in ("pull", "push", "auto"):
+        for name, q in MINMAX + [("ppr", {"source": 1}), ("pagerank", {})]:
+            a = gpu.query(name, sweep=sweep, **q)
+            b = cpu.query(name, sweep=sweep, **q)
+            if name in ("ppr", "pagerank"):
+                np.testing.assert_allclose(a.values, b.values, rtol=0,
+                                           atol=1e-6)
+                continue
+            assert np.array_equal(a.values, b.values), (name, sweep)
+            for k in b.extra:
+                assert np.array_equal(a.extra[k], b.extra[k]), (name, k)
+            assert int(a.stats.actions) == int(b.stats.actions)
+    lanes = gpu.query("sssp", sources=[1, 7, 99], refresh=True)
+    for root, lane in zip((1, 7, 99), lanes):
+        assert np.array_equal(lane.values,
+                              cpu.query("sssp", source=root).values)
+    for k in ("edge_relax_blocks", "edge_relax_scan",
+              "edge_relax_push_blocks"):
+        assert kernel.LAUNCHES[k] > 0, k
+    hub = int(gpu.part.replica.hub_gid[0])
+    for sess in (gpu, cpu):
+        sess.max_cache_entries = 2
+        sess.query("sssp", source=1, refresh=True)
+        sess.query("cc", refresh=True)
+        for v in (3, 50, 400):
+            sess.add_edge(v, hub, 0.5)
+            sess.add_edge(hub, v, 0.5)
+        sess.delete_edge(int(src[np.flatnonzero(src == hub)[0]]),
+                         int(dst[np.flatnonzero(src == hub)[0]]))
+        sess.delete_vertex(77)
+    a_info, b_info = gpu.commit(), cpu.commit()
+    assert a_info.applied == b_info.applied
+    for k, arr in cpu.sg.state_dict().items():
+        assert torch.equal(gpu.sg.state_dict()[k].cpu(), arr), k
+    for name, q in (("sssp", {"source": 1}), ("cc", {})):
+        a, b = gpu.query(name, **q), cpu.query(name, **q)
+        assert np.array_equal(a.values, b.values), name
+    assert gpu.query("triangles").extra == cpu.query("triangles").extra
+    cut = DiffusionSession(gpu.part, max_rounds=1, on_budget="raise")
+    with pytest.raises(ConvergenceError):
+        cut.query("sssp", source=1)
+    gpu.query("sssp", source=1, validate=True)
 
 
 # K4's tolerance against its plain version ``flash_attention_ref``.  f32:

@@ -130,9 +130,13 @@ def test_with_csr_folds_staged_edges_like_the_reference():
 
 def test_graph_and_partition_guards():
     src, dst, w, n = tgen.make_graph_family("erdos_renyi", 64, seed=0)
-    with pytest.raises(NotImplementedError, match="replicas"):
-        tbuild(src, dst, n, w, n_cells=2, replica_threshold="auto",
-               device="cpu")
+    # hub splitting is ported: a flat graph with nothing over the "auto"
+    # threshold keeps the unsplit layout, and a threshold below 1 raises
+    flat = tbuild(src, dst, n, w, n_cells=2, replica_threshold="auto",
+                  device="cpu")
+    assert flat.replica is None and flat.sg.replica_members is None
+    with pytest.raises(ValueError, match="replica_threshold"):
+        tbuild(src, dst, n, w, n_cells=2, replica_threshold=0, device="cpu")
     part = tbuild(src, dst, n, w, n_cells=2, device="cpu")
     assert int(part.sg.n_edges()) == src.shape[0]
     with pytest.raises(ValueError):

@@ -48,7 +48,8 @@ def test_the_port_has_modules():
     names = {p.relative_to(PORT).as_posix() for p in _files() if PORT in
              p.parents}
     for mod in ("core/session.py", "core/diffuse.py", "core/relax.py",
-                "core/updates.py", "core/dynamic.py",
+                "core/updates.py", "core/dynamic.py", "core/partition.py",
+                "core/rhizome.py", "core/event.py", "core/triangles.py",
                 "kernels/edge_relax/kernel.py", "kernels/_build.py",
                 "kernels/flash_attention/kernel.py",
                 "kernels/segment_reduce/kernel.py",

@@ -132,15 +132,16 @@ def test_not_yet_ported_paths_raise(small_session):
     sess, _ = small_session
     with pytest.raises(NotImplementedError, match="SPMD"):
         sess.query("cc", engine="spmd")
-    with pytest.raises(NotImplementedError, match="oracles"):
-        sess.query("cc", engine="event")
     with pytest.raises(ValueError, match="sweep"):
         sess.query("cc", sweep="sideways")
-    with pytest.raises(NotImplementedError, match="oracles"):
-        sess.query("triangles")
-    with pytest.raises(NotImplementedError, match="replicas"):
-        TSession.from_edges([0], [1], 2, n_cells=1, replica_threshold=4,
-                            device="cpu")
+    # the event oracle, triangles and hub replicas are ported
+    # (test_torch_event.py, test_torch_triangles.py, test_torch_rhizome.py)
+    ev = sess.query("cc", engine="event")
+    assert np.array_equal(ev.values, sess.query("cc").values)
+    assert sess.query("triangles").extra["triangles"] >= 0
+    split = TSession.from_edges([0, 1, 1, 2], [1, 0, 2, 1], 3, n_cells=2,
+                                replica_threshold=1, device="cpu")
+    assert split.sg.replica_members is not None
     with pytest.raises(NotImplementedError, match="durability"):
         sess.save("snap")
     with pytest.raises(NotImplementedError, match="durability"):
