@@ -29,6 +29,14 @@ kernels line and the final result line):
    (``edge_relax_push_blocks``) for every min/max builtin at three
    frontiers (one vertex, 1 %, all vertices), bitwise on its raw outputs and
    after phase 2 (``ref.combine_blocks``);
+2c. the generic instances (a program's own emit, payload and monoid op,
+   traced by ``emitgen.py``; every library they need built in parallel
+   first, the seconds printed) on the same session: K1 and K3 (three
+   frontiers) for the min/max programs, K2 solo (sums), with 4 and 5
+   lanes and in its pre-emitted mode, for every builtin stripped of its
+   KernelEmit, the quickstart's reliability, an int32 sum with a custom
+   op, an emit that reads dst_gid through where, and a min-class monoid
+   with a custom identity, each bitwise its plain version;
 2b. K4 (``flash_attention``) against its plain version: bf16 and f32, head
    dims 64 and 128, causal or not, softcap 0 and 30, GQA groups 1 and 8,
    sq == skv and sq < skv (64 cases, tolerance at ``k4_err``: f32 2e-5,
@@ -61,6 +69,15 @@ kernels line and the final result line):
    ``ConvergenceError`` under ``on_budget="raise"``, warns under
    ``"warn"``, is silent under ``"partial"``; ``validate=True`` passes on
    phase 3's cached results;
+3h. the generic instances on the main path: sssp (with parents), cc and
+   ppr stripped of their KernelEmit through pull, push and auto, bitwise
+   phase 3's builtin answers (values, state, rounds, local iterations,
+   actions), 16-lane stripped sssp bitwise phase 3d's lanes, and the
+   quickstart's reliability on a session of the same edges at weights
+   ``clip(w / w.max(), 0.05, 1)``: push and auto bitwise pull, 8 lanes
+   bitwise solo, a commit's repair bitwise a fresh query; counters zeroed
+   just before and read just after (generic K1, K2, K3 launched; the
+   fixed K1 and K3 not);
 3f. ``query("triangles")`` on graph500 scale 14 (n = 16384, the bitset's
    ceiling) on the card equal to ``triangle_count_exact`` on the host, and
    recounted after a commit; ``engine="event"`` (the host oracle) on
@@ -80,6 +97,9 @@ kernels line and the final result line):
 4f. K2's laned payload instance at phase 3d's sssp shape (16 lanes) held
    against its plain version and timed beside its bound and
    ``scatter_reduce_`` amin over the same messages;
+4g. each generic instance at its fixed row's shape (4a, 4f, 4b), on the
+   builtin stripped of its KernelEmit: bitwise the fixed instance, then
+   timed in turns with it (the kernels line's ``/generic`` rows);
 4c. K6 (``relax_sorted``) through its entry point ``relax`` on cell 0 of the
    session's destination-sorted stream with phase 3's sssp distances and a
    50 % random active set: launches counted, bitwise against its plain
@@ -126,6 +146,7 @@ Without a CUDA device it exits 2 before doing anything.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -361,6 +382,10 @@ def random_lane_state(prog, shape, seed: int, device):
             v = torch.randint(1, 9, shape, generator=g).float()
         elif k == "reached":
             v = (rand() < 0.5).int()
+        elif k == "rel":
+            v = torch.where(rand() < 0.2, 0.0, rand())
+        elif k in ("pending", "hops"):
+            v = torch.randint(0, 1200, shape, generator=g, dtype=torch.int32)
         else:
             v = torch.randint(-1, 1 << 16, shape, generator=g,
                               dtype=torch.int32)
@@ -368,14 +393,14 @@ def random_lane_state(prog, shape, seed: int, device):
     return out, (rand() < 0.5).to(device)
 
 
-def compare_k2_lanes(sess, name, kw, lanes: int, seed: int, device):
+def compare_k2_lanes(sess, base, lanes: int, seed: int, device, tag: str):
     """K2 in both input modes on lane-stacked inputs ([S, lanes, Np]
     state against the shared stream) against its plain versions, and the
     two modes against each other: bitwise on (value, count, payload)."""
-    from repro_torch.core.programs import PROGRAMS, make_laned
+    from repro_torch.core.programs import make_laned
     from repro_torch.kernels.edge_relax import kernel, ref
 
-    prog = make_laned([PROGRAMS[name].factory(**kw)] * lanes)
+    prog = make_laned([base] * lanes)
     S, Np = sess.sg.node_ok.shape
     vstate, senders = random_lane_state(prog, (S, lanes, Np), seed, device)
     senders &= sess.sg.node_ok[:, None]
@@ -386,7 +411,7 @@ def compare_k2_lanes(sess, name, kw, lanes: int, seed: int, device):
     pre = kernel.edge_relax_scan_pre(prog.monoid, cand, send, skey, pay)
     pre_want = ref.stream_scan(prog.monoid, cand, send, skey, pay)
     sync(device)
-    tag = f"K2 {name} {kw} lanes={lanes}"
+    tag = f"K2 {tag} lanes={lanes}"
     check((want[2] is None) == (not prog.with_payload),
           f"{tag}: payload output")
     for g, w, pg, pw, what in zip(got, want, pre, pre_want, "vcp"):
@@ -543,10 +568,174 @@ def phase_kernels(sess, device) -> dict:
                                                    ("pagerank", {})]):
         for lanes in (4, 5):
             out["k2_lanes"][f"{name}{kw}/L{lanes}"] = compare_k2_lanes(
-                sess, name, kw, lanes, 200 + i, device)
+                sess, PROGRAMS[name].factory(**kw), lanes, 200 + i, device,
+                f"{name} {kw}")
         for lanes in (None, 1, 16):
             out["k2_hub"][f"{name}{kw}/L{lanes or 'solo'}"] = compare_k2_hub(
                 hub, name, kw, lanes, 300 + i, device)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the generic instances: programs without a KernelEmit
+# --------------------------------------------------------------------------
+
+STRIPPED = MINMAX_CASES + [("ppr", {"source": 0}), ("pagerank", {})]
+CAP = 1000
+
+
+def stripped(name: str, kw: dict):
+    """The builtin ``name`` lowered without its KernelEmit: the same
+    functions on the kernels' generic instance."""
+    import dataclasses
+
+    from repro_torch.core import programs as P
+
+    spec = dataclasses.replace(getattr(P, name).fn(**kw), kernel_emit=None)
+    return P.lower(spec, name=f"{name}_generic")
+
+
+def register_stripped(name: str) -> str:
+    """Register ``<name>_generic``, the builtin without its KernelEmit, so
+    the session runs it (same value key, repair and lanes)."""
+    import dataclasses
+
+    from repro_torch.core import programs as P
+
+    gname = f"{name}_generic"
+    if gname not in P.PROGRAMS:
+        spec, fn = P.PROGRAMS[name], getattr(P, name).fn
+
+        @functools.wraps(fn)                # the builtin's signature
+        def factory(*a, **kw):
+            return dataclasses.replace(fn(*a, **kw), kernel_emit=None)
+
+        P.diffusive(gname, value_key=spec.value_key, repair=spec.repair,
+                    monotone=spec.monotone, lane_param=spec.lane_param)(
+            factory)
+    return gname
+
+
+def _capped(a, b):
+    return torch.clamp_max(a + b, CAP)
+
+
+def register_reliability() -> str:
+    """The quickstart's user program (examples/quickstart.py): max-product
+    path reliability over edge weights in (0, 1], written on torch with
+    no KernelEmit."""
+    from repro_torch.core import programs as P
+
+    if "reliability" not in P.PROGRAMS:
+        @P.diffusive("reliability", value_key="rel", monotone=True,
+                     lane_param="source")
+        def reliability(source: int) -> P.DiffusiveProgram:
+            def receive(vstate, inbox, has_msg, payload, node_ok):
+                better = has_msg & (inbox > vstate["rel"]) & node_ok
+                return ({"rel": torch.where(better, inbox, vstate["rel"])},
+                        better)
+
+            return P.DiffusiveProgram(
+                monoid="max", msg_dtype=torch.float32,
+                state={"rel": P.Field(torch.float32,
+                                      init=lambda v: torch.where(
+                                          v.gid == source, 1.0, 0.0),
+                                      on_dead=0.0)},
+                init_active=lambda v: v.gid == source,
+                emit=lambda s, weight, src_gid, dst_gid: s["rel"] * weight,
+                receive=receive)
+    return "reliability"
+
+
+def user_programs() -> dict:
+    """Programs written without a KernelEmit: the quickstart's
+    reliability, an int32 sum with a custom op (min(a + b, CAP)), an emit
+    that reads dst_gid through where (with a payload), and a min-class
+    int32 monoid with a custom identity."""
+    from repro_torch.core import programs as P
+    from repro_torch.core.monoid import Monoid
+
+    f32, i32 = torch.float32, torch.int32
+    keep = lambda s, ib, h, p, ok: (s, h & ok)  # noqa: E731
+    register_reliability()
+    return {
+        "reliability": P.PROGRAMS["reliability"].factory(source=0),
+        "capsum": P.lower(P.DiffusiveProgram(
+            monoid=Monoid("capsum", "sum", op=_capped), msg_dtype=i32,
+            state={"pending": P.Field(i32)},
+            emit=lambda s, w, sg, dg: s["pending"], receive=keep), "capsum"),
+        "dst_where": P.lower(P.DiffusiveProgram(
+            monoid="min", msg_dtype=f32, state={"dist": P.Field(f32)},
+            emit=lambda s, w, sg, dg: torch.where(dg > sg, s["dist"] + w,
+                                                  s["dist"] * 2.0 + 1.0),
+            payload=lambda s, sg: sg, receive=keep), "dst_where"),
+        "ident_min": P.lower(P.DiffusiveProgram(
+            monoid=Monoid("min1000", "min", identity_of=lambda dt: CAP),
+            msg_dtype=i32, state={"hops": P.Field(i32)},
+            emit=lambda s, w, sg, dg: torch.clamp_max(s["hops"] + 1, CAP),
+            receive=keep), "ident_min"),
+    }
+
+
+def build_generic(progs) -> float:
+    """Compile every generic library the programs need (their own, and a
+    custom monoid's pre-emitted combine) in parallel; seconds taken."""
+    from repro_torch.kernels.edge_relax import emitgen, kernel
+
+    trs = [p.kernel_gen for p in progs]
+    trs += [emitgen.translate_monoid(p.monoid, p.msg_dtype) for p in progs
+            if kernel._custom(p.monoid)]
+    t = time.perf_counter()
+    if torch.cuda.is_available():
+        kernel.build_generic(*trs)
+    return time.perf_counter() - t
+
+
+def phase_generic_kernels(sess, device) -> dict:
+    """Phase 2c: the generic instances against their plain versions,
+    bitwise: K1 and K3 (three frontiers) for the min/max programs, K2 solo
+    (sums), laned (4 and 5 lanes) and pre-emitted, for every builtin
+    stripped of its KernelEmit and for the user programs."""
+    from repro_torch.kernels.edge_relax import kernel
+
+    progs = {f"{n}{kw}": stripped(n, kw) for n, kw in STRIPPED}
+    progs.update(user_programs())
+    build_s = build_generic(progs.values())
+    out = {"build_s": build_s, "k1": {}, "k3": {}, "k2": {}, "k2_pre": {},
+           "k2_lanes": {}}
+    one = torch.zeros_like(sess.sg.node_ok)
+    one[sess.ns.resolve(0)] = True
+    kernel.reset_launches()
+    for i, (tag, prog) in enumerate(progs.items()):
+        S, Np = sess.sg.node_ok.shape
+        vstate, _ = random_lane_state(prog, (S, Np), 500 + i, device)
+        if prog.combine != "sum":
+            out["k1"][tag] = compare_k1(sess, prog, vstate,
+                                        random_senders(sess, 600 + i))
+            for f, senders in (("one", one),
+                               ("1pct", random_senders(sess, 700 + i, 0.01)),
+                               ("all", sess.sg.node_ok.clone())):
+                out["k3"][f"{tag}/{f}"] = compare_k3(sess, prog, vstate,
+                                                     senders)
+        else:
+            out["k2"][tag] = compare_k2(sess, prog, vstate,
+                                        random_senders(sess, 800 + i))
+        out["k2_pre"][tag] = compare_k2_pre(
+            sess, prog, vstate, random_senders(sess, 900 + i, p=0.05))
+        for lanes in (4, 5):
+            out["k2_lanes"][f"{tag}/L{lanes}"] = compare_k2_lanes(
+                sess, prog, lanes, 1000 + i, device, tag)
+    launches = {k: v for k, v in {**kernel.LAUNCHES,
+                                  **kernel.SCAN_LAUNCHES}.items() if v}
+    out["launches"] = launches
+    if device.type == "cuda":
+        for k in ("edge_relax_blocks/generic", "edge_relax_scan/generic",
+                  "edge_relax_push_blocks/generic", "sum/generic",
+                  "sum/laned/generic", "min/max+payload/laned/generic"):
+            check(launches.get(k, 0) > 0, f"phase 2c launched no {k}")
+        check(launches.get("edge_relax_blocks", 0) == 0
+              and launches.get("edge_relax_push_blocks", 0) == 0,
+              "phase 2c launched a fixed K1/K3 instance")
     return out
 
 
@@ -885,7 +1074,249 @@ def phase_lanes(sess, results, roots, data, device) -> dict:
               "gated sssp distances differ from the ungated lanes'")
     emit({"phase": "lanes_checks", "ok": True, "roots": roots,
           "delta": delta, "bitwise_vs_solo": True})
-    return scan
+    return scan, lanes_out[0]
+
+
+def phase_generic(args, sess, results, lanes16, roots, sources, data,
+                  device) -> dict:
+    """Phase 3h: the generic instances on the main path.  The builtins
+    sssp (with parents), cc and ppr stripped of their KernelEmit, through
+    pull, push and auto, bitwise the builtins' answers of phase 3 (values,
+    state, rounds, local iterations, actions); 16-lane stripped sssp
+    bitwise phase 3d's lanes; the quickstart's reliability on a session of
+    the same edges at weights ``clip(w / w.max(), 0.05, 1)``: push and
+    auto bitwise pull, 8 lanes bitwise their solo queries, and a commit's
+    repair bitwise a fresh query.  Counters zeroed just before, read just
+    after: the generic K1, K2 and K3 launched, the fixed K1 and K3 not."""
+    from repro_torch.core import DiffusionSession
+    from repro_torch.core.programs import PROGRAMS
+    from repro_torch.kernels.edge_relax import kernel
+
+    src, dst, w, n = data
+    s0 = sources[0]
+    names = {b: register_stripped(b) for b in ("sssp", "cc", "ppr")}
+    rel = register_reliability()
+    build_s = build_generic([
+        PROGRAMS[names["sssp"]].factory(source=s0),
+        PROGRAMS[names["cc"]].factory(),
+        PROGRAMS[names["ppr"]].factory(source=s0),
+        PROGRAMS[rel].factory(source=s0)])
+    emit({"phase": "generic_build", "seconds": build_s})
+    sync(device)
+    kernel.reset_launches()
+    rows = []
+
+    def run(s, name, **kw):
+        sync(device)
+        t = time.perf_counter()
+        res = s.query(name, refresh=True, **kw)
+        sync(device)
+        return res, time.perf_counter() - t
+
+    for base, kw in (("sssp", {"source": s0}), ("cc", {}),
+                     ("ppr", {"source": s0})):
+        want = results[(base,) + tuple(kw.values())]
+        for sweep in ("pull", "push", "auto"):
+            res, dt = run(sess, names[base], sweep=sweep, **kw)
+            res = trim(res, n)
+            what = f"{names[base]} sweep={sweep}"
+            check(same_bits(res.values, want.values),
+                  f"{what}: values differ from the builtin's")
+            for k in want.extra:
+                check(same_bits(res.extra[k], want.extra[k]),
+                      f"{what}: {k} differs from the builtin's")
+            for f in ("rounds", "local_iters", "actions"):
+                check(int(getattr(res.stats, f))
+                      == int(getattr(want.stats, f)),
+                      f"{what}: stats.{f} differs from the builtin's")
+            rows.append({"query": names[base], "sweep": sweep, **kw,
+                         "wall_s": dt, "rounds": int(res.stats.rounds),
+                         "actions": int(res.stats.actions)})
+    sync(device)
+    t = time.perf_counter()
+    lanes = sess.query(names["sssp"], sources=roots, refresh=True)
+    sync(device)
+    rows.append({"query": names["sssp"], "lanes": len(roots),
+                 "wall_s": time.perf_counter() - t})
+    for lane, want, r in zip(lanes, lanes16, roots):
+        lane = trim(lane, n)
+        check(same_bits(lane.values, want.values)
+              and all(same_bits(lane.extra[k], want.extra[k])
+                      for k in want.extra),
+              f"stripped sssp lane {r} differs from phase 3d's lane")
+    stripped_launches = dict(kernel.LAUNCHES)
+
+    # reliability on the same edges, weights as success probabilities
+    probs = np.clip(w / w.max(), 0.05, 1.0).astype(np.float32)
+    edge_slack = max(0.01, 4096 / src.shape[0])
+    node_slack = max(1e-4, 64 / n)
+    t = time.perf_counter()
+    rsess = DiffusionSession.from_edges(src, dst, n, probs, n_cells=4,
+                                        edge_slack=edge_slack,
+                                        node_slack=node_slack, device=device)
+    sync(device)
+    setup_s = time.perf_counter() - t
+    before = dict(kernel.LAUNCHES)
+    pull, dt = run(rsess, rel, source=s0)
+    rows.append({"query": rel, "sweep": "pull", "source": s0, "wall_s": dt,
+                 "rounds": int(pull.stats.rounds),
+                 "actions": int(pull.stats.actions),
+                 "reached": int((pull.values[:n] > 0).sum())})
+    for sweep in ("push", "auto"):
+        res, dt = run(rsess, rel, source=s0, sweep=sweep)
+        check(same_bits(res.values, pull.values),
+              f"reliability sweep={sweep}: values differ from pull")
+        for f in ("rounds", "local_iters", "actions"):
+            check(int(getattr(res.stats, f)) == int(getattr(pull.stats, f)),
+                  f"reliability sweep={sweep}: stats.{f} differs from pull")
+        rows.append({"query": rel, "sweep": sweep, "source": s0,
+                     "wall_s": dt})
+    lroots = roots[:8]
+    sync(device)
+    t = time.perf_counter()
+    rlanes = rsess.query(rel, sources=lroots, refresh=True)
+    sync(device)
+    rows.append({"query": rel, "lanes": len(lroots),
+                 "wall_s": time.perf_counter() - t})
+    for lane, r in zip(rlanes, lroots):
+        solo, _ = run(rsess, rel, source=r)
+        check(same_bits(lane.values, solo.values),
+              f"reliability lane {r} differs from its solo query")
+    rsess.query(rel, source=s0)                 # cached for the commit
+    rng = np.random.default_rng(args.seed + 7)
+    live = rng.choice(src.shape[0], 64, replace=False)
+    for i in live:
+        rsess.delete_edge(int(src[i]), int(dst[i]))
+    for u, v in rng.integers(0, n, (256, 2)):
+        rsess.add_edge(int(u), int(v), float(0.5 + 0.5 * rng.random()))
+    sync(device)
+    info = rsess.commit()
+    sync(device)
+    repaired = rsess.query(rel, source=s0)
+    fresh, _ = run(rsess, rel, source=s0)
+    check(same_bits(repaired.values, fresh.values),
+          "reliability: the commit's repair differs from a fresh query")
+    launches = dict(kernel.LAUNCHES)
+    scan = dict(kernel.SCAN_LAUNCHES)
+    rel_launches = {k: launches[k] - before[k] for k in launches}
+    del rsess
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        for k in ("edge_relax_blocks/generic", "edge_relax_scan/generic",
+                  "edge_relax_push_blocks/generic"):
+            check(launches[k] > 0, f"phase 3h launched no {k}")
+            check(rel_launches[k] > 0, f"reliability launched no {k}")
+        for k in ("edge_relax_blocks", "edge_relax_push_blocks"):
+            check(launches[k] == 0, f"phase 3h launched the fixed {k}")
+        check(rel_launches["edge_relax_scan"] == 0,
+              "reliability launched the fixed K2")
+    for r in rows:
+        emit({"phase": "generic_query", **r})
+    report = {"phase": "generic_checks", "ok": True, "build_s": build_s,
+              "reliability_setup_s": setup_s,
+              "commit": {"apply_s": info.apply_s, "repair_s": info.repair_s,
+                         "repairs": {str(k): v[0] for k, v in
+                                     info.repairs.items()}},
+              "launches": launches, "scan_variants": {
+                  k: v for k, v in scan.items() if v},
+              "stripped_launches": stripped_launches,
+              "reliability_launches": rel_launches}
+    emit(report)
+    return {**launches, **{f"scan:{k}": v for k, v in scan.items()}}
+
+
+def phase_generic_timing(sess, fixed_rows, gen_launches, sources, roots,
+                         device, reps: int, kernels) -> list:
+    """Phase 4g: each generic instance of ``kernels`` (fixed rows' names)
+    at its fixed row's shape, on the
+    builtin stripped of its KernelEmit (the same function on the same
+    inputs): bitwise the fixed instance's output, then timed in turns with
+    it (fixed, generic, generic, fixed).  The plain version is the same
+    code for both (its time is the fixed row's); the bound is the fixed
+    row's bytes plus the record words the generic instance packs beyond
+    the fixed one's (none for these programs)."""
+    from repro_torch.core.programs import PROGRAMS, make_laned
+    from repro_torch.kernels.edge_relax import kernel
+
+    clock = Clock(device)
+    sg = sess.sg
+    S, Np = sg.n_shards, sg.n_per_shard
+    es = sg.sorted_width
+    n_keys = S * Np
+    full = sg.node_ok.clone()
+    by_name = {r["name"]: r for r in fixed_rows}
+    kw = {"source": sources[0]}
+    sssp_state = sess.vertex_state("sssp", **kw)
+    pr_fixed = PROGRAMS["pagerank"].factory(eps=1e-7)
+    pr_state, _ = pr_fixed.init(sg)
+    nb = sg.csr_key.shape[-1] // kernel.BLOCK_E
+    L = len(roots)
+
+    def k1(prog):
+        _, a = stream_inputs(sess, prog, sssp_state, full)
+        return lambda: kernel.edge_relax_blocks(*a, n_keys)
+
+    def k2(prog):
+        skey, a = stream_inputs(sess, prog, pr_state, full)
+        return lambda: kernel.edge_relax_scan(*a, skey=skey)
+
+    def k2l(prog):
+        states = [sess.vertex_state("sssp", source=r) for r in roots]
+        lane_state = {k: torch.stack([st[k] for st in states], dim=1)
+                      for k in states[0]}
+        senders = sg.node_ok[:, None].expand(S, L, Np).contiguous()
+        skey, a = stream_inputs(sess, prog, lane_state, senders)
+        return lambda: kernel.edge_relax_scan(*a, skey=skey)
+
+    def k3(prog):
+        _, _, _, a = push_inputs(sess, prog, sssp_state, full, nb)
+        return lambda: kernel.edge_relax_push_blocks(*a)
+
+    cases = [
+        ("edge_relax_blocks", k1, PROGRAMS["sssp"].factory(**kw),
+         stripped("sssp", kw), "edge_relax_blocks/generic"),
+        ("edge_relax_scan", k2, pr_fixed,
+         stripped("pagerank", {"eps": 1e-7}), "scan:sum/generic"),
+        ("edge_relax_scan (laned, payload)", k2l,
+         make_laned([PROGRAMS["sssp"].factory(source=r) for r in roots]),
+         make_laned([stripped("sssp", {"source": r}) for r in roots]),
+         "scan:min/max+payload/laned/generic"),
+        ("edge_relax_push_blocks", k3, PROGRAMS["sssp"].factory(**kw),
+         stripped("sssp", kw), "edge_relax_push_blocks/generic"),
+    ]
+    rows = []
+    for name, make, fixed, gen, counter in cases:
+        if name not in kernels:
+            continue
+        fixed_fn, gen_fn = make(fixed), make(gen)
+        got, want = gen_fn(), fixed_fn()
+        sync(device)
+        for g, w_ in zip(got, want):
+            check((g is None) == (w_ is None)
+                  and (w_ is None or torch.equal(g, w_)),
+                  f"{name}: the generic instance differs from the fixed one")
+        del got, want
+        kernel.reset_launches()             # timing launches never count
+        f1 = clock.ms(fixed_fn, reps)
+        g1 = clock.ms(gen_fn, reps)
+        g2 = clock.ms(gen_fn, reps)
+        f2 = clock.ms(fixed_fn, reps)
+        base = by_name[name]
+        row = kernel_row(
+            f"{name}/generic", base["source"], base["replaces"],
+            gen_launches.get(counter, 0), base["max_abs_err"],
+            (g1 + g2) / 2, base["plain_ms"], base["bytes"], base["ops"],
+            base["library_ms"])
+        rows.append(row)
+        emit({"phase": "generic_timing", "kernel": name,
+              "program": gen.name, "generic_ms": [g1, g2],
+              "fixed_ms": [f1, f2], "ratio": (g1 + g2) / (f1 + f2),
+              "record_words": gen.kernel_gen.words,
+              **{k: row[k] for k in ("launches", "bound_ms", "plain_ms",
+                                     "library_ms")}})
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
 
 
 def parents_tight(sess, vstate, source: int) -> bool:
@@ -2342,6 +2773,9 @@ def main(argv=None) -> int:
     errs = phase_kernels(ksess, device)
     emit({"phase": "kernels_vs_plain", "graph": "scale_free",
           "n": args.kernel_n, "cells": 4, "bitwise": True, **errs})
+    gen_errs = phase_generic_kernels(ksess, device)
+    emit({"phase": "generic_kernels_vs_plain", "graph": "scale_free",
+          "n": args.kernel_n, "cells": 4, "bitwise": True, **gen_errs})
     del ksess
     k4_check = phase_k4_vs_plain(device)
     emit({"phase": "k4_vs_plain", **k4_check})
@@ -2351,17 +2785,24 @@ def main(argv=None) -> int:
     push_launches = phase_push(sess, results, walls, sources, data[3],
                                device)
     roots = lane_roots(data[0], data[3], sources, args.seed)
-    lane_launches = phase_lanes(sess, results, roots, data, device)
+    lane_launches, lanes16 = phase_lanes(sess, results, roots, data, device)
     replicas = phase_replicas(args, sess, results, walls, sources, roots,
                               data, device)
     if device.type == "cuda":
         torch.cuda.empty_cache()
     watchdog = phase_watchdog(sess, queries, sources, device)
+    gen_launches = phase_generic(args, sess, results, lanes16, roots,
+                                 sources, data, device)
+    del lanes16
     oracles = phase_oracles(args, device)
     rows = phase_timing(sess, launches, sources, device, args.reps)
     rows.append(phase_k2_lanes_timing(
         sess, roots, lane_launches["min/max+payload/laned"], device,
         args.reps))
+    rows += phase_generic_timing(
+        sess, rows, gen_launches, sources, roots, device, args.reps,
+        ("edge_relax_blocks", "edge_relax_scan",
+         "edge_relax_scan (laned, payload)"))
     k6_row = phase_k6(sess, sources, device, args.reps)
     commit_launches, frontier0 = phase_commits(args, sess, data, sources,
                                                roots, device)
@@ -2370,6 +2811,9 @@ def main(argv=None) -> int:
     k3_row, k3_detail = phase_k3_timing(sess, k3_launches, sources,
                                         frontier0, device, args.reps)
     rows.append(k3_row)
+    rows += phase_generic_timing(sess, rows, gen_launches, sources, roots,
+                                 device, args.reps,
+                                 ("edge_relax_push_blocks",))
     if args.profile and device.type == "cuda":
         for line in phase_profile(sess, sources, roots, data[3]):
             emit(line)
@@ -2385,7 +2829,7 @@ def main(argv=None) -> int:
     detail = {"nvidia_smi": smi, "kernels": rows, "k3": k3_detail,
               "serve": served, "lm_checks": lm, "k4_vs_plain": k4_check,
               "replicas": replicas, "oracles": oracles,
-              "watchdog": watchdog,
+              "watchdog": watchdog, "generic": gen_launches,
               "seconds": time.perf_counter() - t0}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

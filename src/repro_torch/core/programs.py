@@ -9,11 +9,16 @@ user-registrable spec (PyTorch port of ``repro.core.programs``).
   invocable by name through the session;
 * :func:`lower` — compiles a spec to the engine IR (:class:`VertexProgram`).
 
-The hand-written CUDA relaxation kernels cannot run an arbitrary Python
-``emit``: each builtin also declares a :class:`KernelEmit` descriptor that
-names which of the kernels' fixed emit forms it computes.  On CPU tensors
-the engine calls ``emit`` itself; on CUDA tensors a program without a
-descriptor is refused (kernels/edge_relax/kernel.py).
+On CPU tensors the engine calls ``emit`` itself.  On CUDA tensors the
+hand-written relaxation kernels compute it: :func:`lower` traces the
+program's ``emit``, ``payload`` and custom monoid ``op`` once
+(``kernels/edge_relax/emitgen.py``) into CUDA device functions that the
+kernels' generic instance runs.  The builtins also declare a
+:class:`KernelEmit` descriptor naming which of the kernels' fixed emit
+forms they compute, and keep those faster fixed instances; a program
+takes the generic instance when it has no descriptor or its monoid has a
+custom ``op`` or ``identity_of``.  A program whose functions leave the
+translator's op set is refused on CUDA with the recorded error.
 
 The seven builtins (SSSP / BFS / CC / PPR / PageRank / widest / reach) are
 written on the public spec.  Messages combine with an
@@ -113,6 +118,9 @@ class VertexProgram:
     name: str = ""
     fields: Any = None                 # ((name, Field), ...) schema
     kernel_emit: KernelEmit | None = None
+    # the generic kernels' translation of emit / payload / monoid op
+    # (emitgen.Translation; a refusal is recorded and raised on CUDA)
+    kernel_gen: Any = None
 
     def __post_init__(self):
         if not isinstance(self.monoid, Monoid):
@@ -182,12 +190,28 @@ def lower(spec: DiffusiveProgram, name: str = "") -> VertexProgram:
     dtype, splat ``on_dead`` over dead slots, and intersect the initial
     frontier with ``node_ok``.
 
-    Unlike the JAX package, lowering does not run the program verifier
-    (``repro.analysis.verify``): the analysis layer is ported in a later
-    slice.
+    Every spec is verified against the authoring contract on the way
+    through (fake-tensor traces of init/emit/receive/on_send/priority/
+    payload against the Field schema and a seeded monoid-law check — see
+    :mod:`repro_torch.analysis.verify`); a broken spec raises
+    :class:`~repro_torch.analysis.verify.ProgramVerificationError` here.
+    Set ``REPRO_VERIFY=0`` to skip.  The same trace of ``emit``,
+    ``payload`` and the monoid's custom ``op`` is translated for the
+    generic CUDA kernels (``kernel_gen``, see
+    ``kernels/edge_relax/emitgen.py``).
     """
+    # deferred: the analysis and kernel packages import core modules
+    from ..analysis import verify as _verify
+    from ..kernels.edge_relax import emitgen
+
     monoid = as_monoid(spec.monoid)
     fields = tuple(spec.state.items())
+    traces = emitgen.trace_program(fields, spec.msg_dtype, monoid,
+                                   spec.emit, spec.payload)
+    if _verify.verification_enabled():
+        _verify.verify_program(spec, name=name, traces=traces)
+    gen = emitgen.translate(name, fields, spec.msg_dtype, monoid, traces,
+                            spec.payload is not None)
 
     def init(view):
         shape = view.gid.shape
@@ -227,6 +251,7 @@ def lower(spec: DiffusiveProgram, name: str = "") -> VertexProgram:
         name=name,
         fields=fields,
         kernel_emit=ke,
+        kernel_gen=gen,
     )
 
 
@@ -338,8 +363,11 @@ def diffusive(name: str, *, value_key: str, repair: str = "restart",
 
     Decorate a factory ``(**params) -> DiffusiveProgram``; the returned
     handle is callable (binding kwargs for ``session.query``) and the
-    program becomes name-invocable through the session.  To run on CUDA
-    tensors the spec must declare a :class:`KernelEmit`.
+    program becomes name-invocable through the session.  It runs on CUDA
+    tensors as written: :func:`lower` traces its ``emit``, ``payload`` and
+    custom monoid ``op`` into the kernels' generic instance (op set and
+    record limit: ``kernels/edge_relax/emitgen.py``; a program outside
+    them runs on the CPU and is refused on CUDA with a named error).
     """
     def deco(fn: Callable) -> ProgramHandle:
         handle = ProgramHandle(name, fn, value_key, lane_param)

@@ -68,10 +68,10 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & _WORD) >> 24
 
 
-def triangle_count_bitset(src, dst, n: int, device=None) -> torch.Tensor:
+def triangle_count_bitset(src, dst, n: int, device="cuda") -> torch.Tensor:
     """Vectorized triangle count of a symmetric edge list; requires
     n <= ~16384 (bitset rows).  Returns a 0-d int64 tensor on ``device``
-    (default: ``src``'s device for a tensor, else the CPU).
+    (the card unless the caller asks for the CPU, as every entry point).
 
     Each 32-bit word lives in an int64 and is cut to 32 bits after the
     scatter-add, which reproduces the JAX package's uint32 words bit for
@@ -79,8 +79,6 @@ def triangle_count_bitset(src, dst, n: int, device=None) -> torch.Tensor:
     into the next bit (a carry out of bit 31 is lost).  The ``[E, words]``
     intersection is taken in edge chunks; the per-edge counts sum exactly.
     """
-    if device is None:
-        device = src.device if isinstance(src, torch.Tensor) else "cpu"
     src = torch.as_tensor(src, device=device).long()
     dst = torch.as_tensor(dst, device=device).long()
     lanes = -(-n // 32)

@@ -7,8 +7,11 @@ loaded with :mod:`ctypes` — no PyTorch headers, so a build takes seconds.
 Libraries are built at first use, all at once (one ``nvcc`` process per
 source, started together), into ``build/repro_torch/`` at the repository
 root, named by a hash of the sources and flags so an edited source
-rebuilds and an unchanged one is reused.  Importing this module runs
-nothing; building without ``nvcc`` raises.
+rebuilds and an unchanged one is reused.  A :class:`Library` may add
+``nvcc`` flags and generated headers (the edge_relax kernels' generic
+instance of one program: ``-DREPRO_GENERIC`` and the header emitgen.py
+wrote under ``build/repro_torch/gen/``); both go into the hash.
+Importing this module runs nothing; building without ``nvcc`` raises.
 """
 
 from __future__ import annotations
@@ -19,9 +22,10 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "build", "nvcc_path", "build_logs",
-           "library_paths", "bind", "stream", "raise_on"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "Library", "build", "nvcc_path",
+           "build_logs", "library_paths", "bind", "stream", "raise_on"]
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -32,6 +36,19 @@ NVCC_FLAGS = (
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+
+
+class Library(NamedTuple):
+    """One shared library: its ``.cu`` sources, extra ``nvcc`` flags, and
+    the generated headers those flags include (hashed by content)."""
+
+    sources: tuple
+    flags: tuple = ()
+    headers: tuple = ()
+
+
+def _lib(spec) -> Library:
+    return spec if isinstance(spec, Library) else Library(tuple(spec))
 
 
 def nvcc_path() -> str:
@@ -50,36 +67,40 @@ def nvcc_path() -> str:
         "first use and need the CUDA toolkit (set CUDA_HOME)")
 
 
-def _target(name: str, sources) -> Path:
+def _target(name: str, spec) -> Path:
+    lib = _lib(spec)
     h = hashlib.sha256()
-    for flag in NVCC_FLAGS:
+    for flag in (*NVCC_FLAGS, *lib.flags):
         h.update(flag.encode())
-    # the sources and every header beside them (quoted includes)
-    headers = sorted({hdr for src in sources
+    # the sources, every header beside them (quoted includes) and the
+    # generated headers
+    headers = sorted({hdr for src in lib.sources
                       for hdr in Path(src).parent.glob("*.cuh")})
-    for src in [*sources, *headers]:
+    for src in [*lib.sources, *headers, *lib.headers]:
         h.update(Path(src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(libs: dict) -> dict:
     """Build and load every library in ``libs`` (name -> list of ``.cu``
-    sources) that is not loaded yet; returns name -> ``ctypes.CDLL``.
+    sources, or a :class:`Library`) that is not loaded yet; returns name
+    -> ``ctypes.CDLL``.
 
     Missing libraries compile in parallel; a failed compile raises with
     the compiler's output.  ``ptxas -v`` resource lines are kept beside
     each library as ``<lib>.log`` (see :func:`build_logs`).
     """
     pending = {}
-    for name, sources in libs.items():
+    for name, spec in libs.items():
         if name in _LOADED:
             continue
-        so = _target(name, sources)
+        lib = _lib(spec)
+        so = _target(name, lib)
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, sources)]
+            cmd = [nvcc_path(), *NVCC_FLAGS, *lib.flags, "-o", str(tmp),
+                   *map(str, lib.sources)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             pending[name] = (proc, tmp, so)
@@ -107,15 +128,15 @@ def build_logs(libs: dict) -> dict:
     """The compiler's ``ptxas -v`` output of each built library in
     ``libs`` ("" where the library was reused from an earlier build)."""
     out = {}
-    for name, sources in libs.items():
-        log = _target(name, sources).with_suffix(".log")
+    for name, spec in libs.items():
+        log = _target(name, spec).with_suffix(".log")
         out[name] = log.read_text() if log.exists() else ""
     return out
 
 
 def library_paths(libs: dict) -> dict:
     """The shared library each of ``libs`` (name -> sources) builds to."""
-    return {name: _target(name, sources) for name, sources in libs.items()}
+    return {name: _target(name, spec) for name, spec in libs.items()}
 
 
 def bind(sources: dict, symbols: dict, fns: dict) -> None:

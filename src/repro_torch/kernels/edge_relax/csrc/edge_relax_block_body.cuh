@@ -22,6 +22,13 @@
 //     order-free, so the result is bitwise the plain version's), writing
 //     column `rank`; columns past the last run get identity/0/-1/-1.
 //
+// EMIT = kGeneric (a program's generated gen::emit): each sending edge
+// packs its source's record in registers (gen::pack over the state fields
+// in `gp`, the payload included) and emits from it with the edge's weight
+// and dst_gid; a valid edge that does not send carries the monoid's own
+// identity gen::ident(), as the plain version masks.  The runs still
+// combine with the class's native op, as the plain version's does.
+//
 // PUSH = false: block slot x of cell s is block x of the stream.
 // PUSH = true:  block slot x reads idx[s * gridDim.x + x] and sweeps block
 //               min(idx, nb - 1) — a fill slot (idx == nb) recomputes the
@@ -47,7 +54,8 @@ blocks_kernel(const T* __restrict__ field, const bool* __restrict__ senders,
               const int* __restrict__ idx, T* __restrict__ part,
               int* __restrict__ cnt, int* __restrict__ uniq,
               int* __restrict__ pay, int np, int nb, long long stride,
-              float emit_const) {
+              float emit_const, const GenPtrs gp,
+              const int* __restrict__ dst_gid) {
   using C = Combine<T, MAX ? kMax : kMin>;
   __shared__ int s_key[kBlockE];
   __shared__ int s_rank[kBlockE];
@@ -73,7 +81,16 @@ blocks_kernel(const T* __restrict__ field, const bool* __restrict__ senders,
   if (valid) {
     const long long v = vbase + src[e];
     send = senders[v];
-    if (send) {
+    if constexpr (EMIT == kGeneric) {
+      cand = gen::ident();
+      if (send) {
+        int rec[gen::kWords > 0 ? gen::kWords : 1];
+        gen::pack(gp, v, gid[v], rec);
+        cand = gen::emit(rec, kEmitReadsWeight<EMIT> ? weight[e] : 0.0f,
+                         gen::kReadsDstGid ? dst_gid[e] : 0);
+        if constexpr (PAY) p = rec[gen::kPayWord];
+      }
+    } else if (send) {
       cand = emit_message<T, EMIT>(field, nullptr, v, weight, e, emit_const);
       if constexpr (PAY) p = gid[v];
     }
@@ -153,6 +170,8 @@ struct BlockArgs {
   long long stride;
   float emit_const;
   cudaStream_t stream;
+  GenPtrs gp;             // generic instance: the fields gen::pack reads
+  const int* dst_gid;     // generic instance: [S, stride] rows, if read
 };
 
 template <typename T, bool MAX, int EMIT, bool PAY, bool PUSH>
@@ -161,7 +180,7 @@ cudaError_t launch(const BlockArgs& a) {
   blocks_kernel<T, MAX, EMIT, PAY, PUSH><<<grid, kBlockE, 0, a.stream>>>(
       static_cast<const T*>(a.field), a.senders, a.gid, a.key, a.src,
       a.weight, a.idx, static_cast<T*>(a.part), a.cnt, a.uniq, a.pay, a.np,
-      a.nb, a.stride, a.emit_const);
+      a.nb, a.stride, a.emit_const, a.gp, a.dst_gid);
   return cudaGetLastError();
 }
 

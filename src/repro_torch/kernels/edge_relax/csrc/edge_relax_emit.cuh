@@ -4,6 +4,15 @@
 // each other or from the builtins' `emit` (repro_torch/core/programs.py,
 // EMIT_FORMS).  This header defines nothing outside an anonymous
 // namespace.
+//
+// The generic instance (kGeneric, kGenComb): a library built with
+// -DREPRO_GENERIC -DREPRO_GEN_HEADER="<file>" includes the header that
+// kernels/edge_relax/emitgen.py generated for one program — namespace gen:
+// its message type, monoid class, record layout, identity, combine op,
+// pack() (a source vertex's record: the fields emit reads, src_gid if
+// read, the payload) and emit() (an edge's message from that record, its
+// weight and dst_gid).  Other builds see the stub below, which no
+// instance they compile reaches.
 
 #pragma once
 
@@ -26,10 +35,17 @@ enum EmitForm : int {
   kCopy = 2,
   kMinWeight = 3,
   kPushShare = 4,
+  kGeneric = 5,      // the generated gen::emit
 };
 
-// The scatter class of a program's monoid.
-enum CombineOp : int { kMin = 0, kMax = 1, kSum = 2 };
+// The scatter class of a program's monoid; kGenComb is the generated
+// combine (gen::op and gen::ident) of the class gen::kKind.
+enum CombineOp : int { kMin = 0, kMax = 1, kSum = 2, kGenComb = 3 };
+
+// The state fields gen::pack reads, in emitgen's pointer order.
+struct GenPtrs {
+  const void* f[8];
+};
 
 template <typename T, int OP>
 struct Combine;
@@ -65,12 +81,45 @@ struct Combine<int, kSum> {
   static __device__ __forceinline__ int op(int a, int b) { return a + b; }
 };
 
+}  // namespace
+
+#ifdef REPRO_GENERIC
+#include REPRO_GEN_HEADER
+#else
+#define REPRO_GEN_HAS_EMIT 0
+namespace {
+namespace gen {
+using Msg = float;
+constexpr int kKind = kMin;
+constexpr bool kNativeIdent = true;
+constexpr bool kPay = false;
+constexpr int kWords = 0;
+constexpr int kPayWord = -1;
+constexpr bool kReadsWeight = false;
+constexpr bool kReadsDstGid = false;
+__device__ __forceinline__ Msg ident() { return 0.0f; }
+__device__ __forceinline__ Msg op(Msg a, Msg) { return a; }
+__device__ __forceinline__ void pack(const GenPtrs&, long long, int, int*) {}
+__device__ __forceinline__ Msg emit(const int*, float, int) { return 0.0f; }
+}  // namespace gen
+}  // namespace
+#endif
+
+namespace {
+
+template <typename T>
+struct Combine<T, kGenComb> {
+  static __device__ __forceinline__ T ident() { return gen::ident(); }
+  static __device__ __forceinline__ T op(T a, T b) { return gen::op(a, b); }
+};
+
 // The argbest payload of combining (va, pa) on the left with (vb, pb): the
 // side whose value strictly improves wins; a tie keeps the max payload.
 template <typename T, int OP>
 __device__ __forceinline__ int pay_rule(T va, int pa, T vb, int pb) {
-  if (OP == kMin ? vb < va : vb > va) return pb;
-  if (OP == kMin ? va < vb : va > vb) return pa;
+  constexpr int K = OP == kGenComb ? gen::kKind : OP;
+  if (K == kMin ? vb < va : vb > va) return pb;
+  if (K == kMin ? va < vb : va > vb) return pa;
   return max(pa, pb);
 }
 
@@ -95,7 +144,8 @@ __device__ __forceinline__ T emit_value(T x, float w, float d, float c) {
 
 // Whether an emit form reads the edge weight.
 template <int EMIT>
-constexpr bool kEmitReadsWeight = EMIT == kAddWeight || EMIT == kMinWeight;
+constexpr bool kEmitReadsWeight = EMIT == kAddWeight || EMIT == kMinWeight ||
+                                  (EMIT == kGeneric && gen::kReadsWeight);
 
 // The message of an edge whose source vertex sits at `v` of the field
 // (and divisor) and whose weight sits at `e`.

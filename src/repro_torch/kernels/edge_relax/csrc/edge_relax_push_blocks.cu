@@ -25,6 +25,7 @@
 
 #include "edge_relax_block_body.cuh"
 
+#ifndef REPRO_GENERIC
 // Returns a cudaError_t (0 = launched).  key/src/weight are [S, stride]
 // rows of nb = width / 128 blocks; idx is [S, cap] int32 block ids in
 // [0, nb]; part/cnt/uniq/pay are [S, cap, 128].  The other arguments are
@@ -46,3 +47,28 @@ extern "C" int edge_relax_push_blocks_launch(
                     static_cast<cudaStream_t>(stream)};
   return dispatch<true>(msg_is_int, combine_max, emit_form, with_payload, a);
 }
+#elif REPRO_GEN_HAS_EMIT
+// The generic instance of one program (see edge_relax_emit.cuh): fields
+// holds the pointers of the state fields gen::pack reads; dst_gid is the
+// push stream's [S, stride] dst_gid rows (nullptr unless gen::emit reads
+// it).  The other arguments are those of the fixed entry point.
+extern "C" int edge_relax_push_blocks_gen_launch(
+    const void* const* fields, const bool* senders, const int* gid,
+    const int* key, const int* src, const float* weight, const int* dst_gid,
+    const int* idx, void* part, int* cnt, int* uniq, int* pay, int n_cells,
+    int np, long long width, long long stride, int cap, void* stream) {
+  if (width % kBlockE != 0 || width == 0 || n_cells <= 0 || stride < width ||
+      cap < 0 || gen::kKind == kSum || (gen::kPay && pay == nullptr) ||
+      (gen::kReadsDstGid && dst_gid == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (cap == 0) return 0;
+  BlockArgs a{nullptr, senders, gid, key, src, weight, idx, part,
+              cnt, uniq, pay, n_cells, np, (int)(width / kBlockE),
+              cap, stride, 0.0f, static_cast<cudaStream_t>(stream)};
+  for (int i = 0; i < 8; ++i) a.gp.f[i] = fields[i];
+  a.dst_gid = dst_gid;
+  return (int)launch<gen::Msg, gen::kKind == kMax, kGeneric, gen::kPay,
+                     true>(a);
+}
+#endif

@@ -84,6 +84,16 @@
 //     message, send and payload streams that the push sweep scattered back
 //     into the destination-sorted layout (ref.edge_relax_push_stream).
 //
+// The generic instance (MODE = kGeneric, OP = kGenComb; a library built
+// for one program, see edge_relax_emit.cuh): a record holds kG lanes' of
+// gen::pack's words (the fields emit reads, src_gid if read, the payload)
+// and the senders bits, kG = min(4, 7 / gen::kWords), 2 at most with the
+// payload, whose per-lane values are staged in shared memory beside the
+// messages; a tile stages dst_gid when gen::emit reads it.  The combine is
+// the program's monoid: its custom op (gen::op) and identity (gen::ident),
+// so a custom op folds in this same fixed order.  A program's library has
+// the emit mode; a monoid's (a header with no emit) the pre-emitted mode.
+//
 // Compile without fast math: push_share's division must be IEEE.
 
 #include <cuda_runtime.h>
@@ -104,8 +114,13 @@ constexpr int kRecord = 8;                  // ints in a packed record
 
 // lanes per packed record: kG fields and the senders bits (push_share:
 // kG fields, kG divisors and the bits)
+// (generic: kGenG)
+constexpr int kGenWords = gen::kWords > 0 ? gen::kWords : 1;
+constexpr int kGenG = (gen::kPay ? 2 : 4) < (kRecord - 1) / kGenWords
+                          ? (gen::kPay ? 2 : 4)
+                          : (kRecord - 1) / kGenWords;
 template <int MODE>
-constexpr int kG = MODE == kPushShare ? 3 : 4;
+constexpr int kG = MODE == kPushShare ? 3 : (MODE == kGeneric ? kGenG : 4);
 
 // shared-memory index of tile element i: one pad word per 32, so a warp
 // reading 8 consecutive elements per thread hits 32 distinct banks
@@ -150,6 +165,8 @@ struct ScanArgs {
   int ng;                                   // lane groups (emit mode)
   int n_pack;                               // packing CTAs (emit mode)
   float emit_const;
+  GenPtrs gp;                               // generic: gen::pack's fields
+  const int* dst_gid;                       // generic: [S, stride] rows
 };
 
 // one (value, count, payload, holds-a-run-start) partial
@@ -241,8 +258,14 @@ __device__ __forceinline__ void pack_vertices(const ScanArgs& a, int q) {
         const int l = G * g + i;
         if (l < a.lanes) {
           const long long at = (cell * a.lanes + l) * a.np + v;
-          rec[i] = to_bits(static_cast<const T*>(a.field)[at]);
-          if constexpr (MODE == kPushShare) rec[G + i] = to_bits(a.divisor[at]);
+          if constexpr (MODE == kGeneric) {
+            gen::pack(a.gp, at, a.gid[cell * a.np + v], rec + i * kGenWords);
+          } else {
+            rec[i] = to_bits(static_cast<const T*>(a.field)[at]);
+            if constexpr (MODE == kPushShare) {
+              rec[G + i] = to_bits(a.divisor[at]);
+            }
+          }
           rec[kRecord - 1] |= (a.senders[at] ? 1 : 0) << i;
         }
       }
@@ -267,20 +290,25 @@ __global__ void __launch_bounds__(kThreads, 4) scan_pass(ScanArgs a) {
   using C = Combine<T, OP>;
   using P = Part<T>;
   constexpr bool kEmit = MODE != kPre;
+  constexpr bool kGen = MODE == kGeneric;
   constexpr bool kW = kEmit && kEmitReadsWeight<MODE>;
+  constexpr bool kDG = kGen && gen::kReadsDstGid;
   constexpr int G = kEmit ? kG<MODE> : 1;
   // s_v: the messages (G lanes; emit mode) or a pre-emitted lane's values,
   // and the outputs' values on their way out; s_c / s_p: the tile's key
   // at first, then a lane's sends and payloads and its outputs' counts and
   // payloads; s_src / s_w / s_gsrc: the tile's sources, weights and the
-  // sources' gid, read by every lane; s_snd: a lane group's senders bits
+  // sources' gid, read by every lane; s_snd: a lane group's senders bits;
+  // generic: s_dg the tile's dst_gid, s_gp a lane group's payloads
   __shared__ int s_v[G][kPadded];
   __shared__ int s_c[kPadded];
   __shared__ int s_p[PAY ? kPadded : 1];
   __shared__ int s_src[kEmit ? kPadded : 1];
   __shared__ float s_w[kW ? kPadded : 1];
-  __shared__ int s_gsrc[kEmit && PAY ? kPadded : 1];
+  __shared__ int s_gsrc[kEmit && PAY && !kGen ? kPadded : 1];
   __shared__ int s_snd[kEmit ? kPadded : 1];
+  __shared__ int s_dg[kDG ? kPadded : 1];
+  __shared__ int s_gp[kGen && PAY ? G : 1][kGen && PAY ? kPadded : 1];
   __shared__ P s_warp[kWarps];
   __shared__ P s_carry;
   __shared__ int s_ticket;
@@ -306,7 +334,7 @@ __global__ void __launch_bounds__(kThreads, 4) scan_pass(ScanArgs a) {
   // ---- the tile of the shared stream, once for every lane: all loads in
   // flight together, then into shared memory
   {
-    int sk[kR], ky[kR], sr[kR], gs[kR];
+    int sk[kR], ky[kR], sr[kR], gs[kR], dg[kR];
     float wt[kR];
 #pragma unroll
     for (int k = 0; k < kR; ++k) {
@@ -318,6 +346,7 @@ __global__ void __launch_bounds__(kThreads, 4) scan_pass(ScanArgs a) {
           sr[k] = __ldcs(a.src + e0 + i);
         }
         if constexpr (kW) wt[k] = __ldcs(a.weight + e0 + i);
+        if constexpr (kDG) dg[k] = __ldcs(a.dst_gid + e0 + i);
       }
     }
 #pragma unroll
@@ -328,16 +357,17 @@ __global__ void __launch_bounds__(kThreads, 4) scan_pass(ScanArgs a) {
         s_v[0][at] = sk[k];
         if constexpr (kEmit) {
           gs[k] = -1;
-          if constexpr (PAY) {
+          if constexpr (PAY && !kGen) {
             if (ky[k] >= 0) gs[k] = a.gid[(long long)cell * a.np + sr[k]];
           }
           s_c[at] = ky[k];
           s_src[at] = sr[k];
         }
         if constexpr (kW) s_w[at] = wt[k];
+        if constexpr (kDG) s_dg[at] = dg[k];
       }
     }
-    if constexpr (kEmit && PAY) {
+    if constexpr (kEmit && PAY && !kGen) {
 #pragma unroll
       for (int k = 0; k < kR; ++k) {
         const int i = t + kThreads * k;
@@ -390,7 +420,15 @@ __global__ void __launch_bounds__(kThreads, 4) scan_pass(ScanArgs a) {
 #pragma unroll
           for (int i = 0; i < G; ++i) {
             T v = C::ident();
-            if ((bits >> i) & 1) {
+            if constexpr (kGen) {
+              if ((bits >> i) & 1) {
+                v = gen::emit(rec + i * kGenWords, w, kDG ? s_dg[at] : 0);
+              }
+              if constexpr (PAY) {
+                s_gp[i][at] =
+                    (bits >> i) & 1 ? rec[i * kGenWords + gen::kPayWord] : -1;
+              }
+            } else if ((bits >> i) & 1) {
               float d = 1.0f;
               if constexpr (MODE == kPushShare) d = from_bits<float>(rec[G + i]);
               v = emit_value<T, MODE>(from_bits<T>(rec[i]), w, d,
@@ -448,7 +486,9 @@ __global__ void __launch_bounds__(kThreads, 4) scan_pass(ScanArgs a) {
       x.c = (sbits >> j) & 1;
       x.p = -1;
       if constexpr (PAY) {
-        if constexpr (kEmit) {
+        if constexpr (kGen) {
+          x.p = s_gp[li][at];
+        } else if constexpr (kEmit) {
           x.p = x.c ? s_gsrc[at] : -1;
         } else {
           x.p = s_p[at];
@@ -614,6 +654,7 @@ int dispatch_op(int combine, int with_payload, const ScanArgs& a,
 
 }  // namespace
 
+#ifndef REPRO_GENERIC
 // Returns a cudaError_t (0 = launched).  The emit mode: field (f32, or i32
 // for the copy form) and divisor (f32, push_share only) are [S, L, np],
 // senders [S, L, np], gid [S, np]; key/skey/src/weight are [S, stride]
@@ -711,3 +752,78 @@ extern "C" int edge_relax_scan_pre_launch(
   }
   return dispatch_op<float, kPre>(combine, with_payload, a, n_cells, s);
 }
+#else
+#if REPRO_GEN_HAS_EMIT
+// The generic instance of one program's emit mode: fields holds the
+// pointers of the state fields gen::pack reads ([S, L, np] each); dst_gid
+// is [S, stride] rows like key (nullptr unless gen::emit reads it); pack is
+// [S, ceil(L / kGenG), np, 8] ints.  The other arguments are those of
+// edge_relax_scan_launch.
+extern "C" int edge_relax_scan_gen_launch(
+    const void* const* fields, const bool* senders, const int* gid,
+    const int* key, const int* skey, const int* src, const float* weight,
+    const int* dst_gid, int* pack, void* v_out, int* c_out, int* p_out,
+    void* agg_v, int* agg_c, int* agg_p, int* state, int n_cells, int lanes,
+    int np, long long stride, int es, void* stream) {
+  if ((gen::kPay && (gen::kKind == kSum || p_out == nullptr)) ||
+      (gen::kReadsDstGid && dst_gid == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  ScanArgs a{};
+  for (int i = 0; i < 8; ++i) a.gp.f[i] = fields[i];
+  a.senders = senders;
+  a.gid = gid;
+  a.key = key;
+  a.src = src;
+  a.weight = weight;
+  a.dst_gid = dst_gid;
+  a.pack = pack;
+  a.skey = skey;
+  a.v_out = v_out;
+  a.c_out = c_out;
+  a.p_out = p_out;
+  a.agg_v = agg_v;
+  a.agg_c = agg_c;
+  a.agg_p = agg_p;
+  a.flag = state;
+  a.lanes = lanes;
+  a.np = np;
+  a.stride = stride;
+  a.es = es;
+  return scan_launch<gen::Msg, kGenComb, kGeneric, gen::kPay>(
+      a, n_cells, static_cast<cudaStream_t>(stream));
+}
+#else
+// The pre-emitted mode under a monoid's generated combine (its custom op
+// and identity; emitgen.translate_monoid's header, which has no emit);
+// arguments as edge_relax_scan_pre_launch's.
+extern "C" int edge_relax_scan_pre_gen_launch(
+    const void* cand, const bool* send, const int* pay, const int* skey,
+    void* v_out, int* c_out, int* p_out, void* agg_v, int* agg_c, int* agg_p,
+    int* state, int n_cells, int lanes, long long stride,
+    long long msg_stride, int es, int with_payload, void* stream) {
+  ScanArgs a{};
+  a.cand = cand;
+  a.send = send;
+  a.pay_in = pay;
+  a.skey = skey;
+  a.v_out = v_out;
+  a.c_out = c_out;
+  a.p_out = p_out;
+  a.agg_v = agg_v;
+  a.agg_c = agg_c;
+  a.agg_p = agg_p;
+  a.flag = state;
+  a.lanes = lanes;
+  a.stride = stride;
+  a.msg_stride = msg_stride;
+  a.es = es;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (!with_payload) {
+    return scan_launch<gen::Msg, kGenComb, kPre, false>(a, n_cells, s);
+  }
+  if (gen::kKind == kSum) return (int)cudaErrorInvalidValue;
+  return scan_launch<gen::Msg, kGenComb, kPre, true>(a, n_cells, s);
+}
+#endif
+#endif

@@ -58,6 +58,16 @@
 // key and cell) over 3.35 TB/s.  What the design leaves beyond it: the
 // gathers at each edge's source (L2), the fills and, with the payload, the
 // 64-bit keys' round trip.
+//
+// EMIT = kGeneric (a program's generated gen::emit, edge_relax_emit.cuh):
+// the prologue packs each vertex as gen::pack's words (the fields emit
+// reads, src_gid if read, the payload) and the senders flag, in a record
+// of kGenRec = 2, 4 or 8 ints (one 8-, 16- or 32-byte gather); a tile
+// loads dst_gid like the weight when emit reads it.  A valid edge that
+// does not send carries the monoid's own identity, as the plain version
+// masks; where that identity is not the class's native one, its runs
+// (count 0) go through the atomics too and the epilogue decodes every
+// touched key.  The runs still combine with the class's native op.
 
 #include <cuda_runtime.h>
 
@@ -71,6 +81,12 @@ constexpr int kR = 8;                    // consecutive positions a thread
 constexpr int kThreads = 128;
 constexpr int kTile = kR * kThreads;     // 1024
 constexpr int kWarps = kThreads / 32;
+// ints in a generic instance's vertex record: gen::kWords and senders
+constexpr int kGenRec =
+    gen::kWords + 1 <= 2 ? 2 : (gen::kWords + 1 <= 4 ? 4 : 8);
+// a generic instance whose identity is not the class's native one
+template <int EMIT>
+constexpr bool kFlushEmpty = EMIT == kGeneric && !gen::kNativeIdent;
 
 // Order-preserving 32-bit images: a < b iff ord(a) < ord(b) as unsigned.
 __device__ __forceinline__ unsigned ord_bits(float x) {
@@ -174,11 +190,30 @@ struct TableArgs {
   long long width;
   long long stride;
   float emit_const;
+  GenPtrs gp;             // generic instance: the fields gen::pack reads
+  const int* dst_gid;     // generic instance: [S, stride] rows, if read
 };
+
+// A generic vertex record: kGenRec ints at record v.
+__device__ __forceinline__ void load_rec(const int* pack, long long v,
+                                         int* rec) {
+  if constexpr (kGenRec == 2) {
+    const int2 r = reinterpret_cast<const int2*>(pack)[v];
+    rec[0] = r.x; rec[1] = r.y;
+  } else {
+    const int4* p = reinterpret_cast<const int4*>(pack) + v * (kGenRec / 4);
+    const int4 lo = p[0];
+    rec[0] = lo.x; rec[1] = lo.y; rec[2] = lo.z; rec[3] = lo.w;
+    if constexpr (kGenRec == 8) {
+      const int4 hi = p[1];
+      rec[4] = hi.x; rec[5] = hi.y; rec[6] = hi.z; rec[7] = hi.w;
+    }
+  }
+}
 
 // The prologue: the identity fills of the tables (or their 64-bit keys)
 // and cnt, and the packed vertex records.
-template <typename T, bool MAX, bool PAY>
+template <typename T, bool MAX, int EMIT, bool PAY>
 __global__ void __launch_bounds__(256) prep(TableArgs a) {
   using B = Best<T, MAX, PAY>;
   const long long n_tab = (long long)a.n_cells * a.n_keys;
@@ -196,12 +231,27 @@ __global__ void __launch_bounds__(256) prep(TableArgs a) {
       }
     }
     if (i < n_vert) {
-      const int f = to_bits(static_cast<const T*>(a.field)[i]);
-      const int s = a.senders[i] ? 1 : 0;
-      if constexpr (PAY) {
-        reinterpret_cast<int4*>(a.pack)[i] = make_int4(f, a.gid[i], s, 0);
+      if constexpr (EMIT == kGeneric) {
+        int rec[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+        gen::pack(a.gp, i, a.gid[i], rec);
+        rec[gen::kWords] = a.senders[i] ? 1 : 0;
+        if constexpr (kGenRec == 2) {
+          reinterpret_cast<int2*>(a.pack)[i] = make_int2(rec[0], rec[1]);
+        } else {
+          int4* p = reinterpret_cast<int4*>(a.pack) + i * (kGenRec / 4);
+          p[0] = make_int4(rec[0], rec[1], rec[2], rec[3]);
+          if constexpr (kGenRec == 8) {
+            p[1] = make_int4(rec[4], rec[5], rec[6], rec[7]);
+          }
+        }
       } else {
-        reinterpret_cast<int2*>(a.pack)[i] = make_int2(f, s);
+        const int f = to_bits(static_cast<const T*>(a.field)[i]);
+        const int s = a.senders[i] ? 1 : 0;
+        if constexpr (PAY) {
+          reinterpret_cast<int4*>(a.pack)[i] = make_int4(f, a.gid[i], s, 0);
+        } else {
+          reinterpret_cast<int2*>(a.pack)[i] = make_int2(f, s);
+        }
       }
     }
   }
@@ -229,6 +279,7 @@ __global__ void __launch_bounds__(kThreads) tables_kernel(TableArgs a) {
   using B = Best<T, MAX, PAY>;
   using V = typename B::V;
   constexpr bool kW = kEmitReadsWeight<EMIT>;
+  constexpr bool kDG = EMIT == kGeneric && gen::kReadsDstGid;
   __shared__ int s_first[kThreads];   // each thread's first and last key
   __shared__ int s_last[kThreads];
   __shared__ V s_wv[kWarps];          // the warps' segmented aggregates
@@ -242,7 +293,7 @@ __global__ void __launch_bounds__(kThreads) tables_kernel(TableArgs a) {
   const long long vbase = (long long)cell * a.np;
   const long long tbase = (long long)cell * a.n_keys;
 
-  int k[kR], sv[kR];
+  int k[kR], sv[kR], dg[kR];
   float w[kR];
   if (e0 < a.width) {                 // width % 8 == 0: all 8 or none
     const long long at = (long long)cell * a.stride + e0;
@@ -260,6 +311,12 @@ __global__ void __launch_bounds__(kThreads) tables_kernel(TableArgs a) {
       w[0] = w0.x; w[1] = w0.y; w[2] = w0.z; w[3] = w0.w;
       w[4] = w1.x; w[5] = w1.y; w[6] = w1.z; w[7] = w1.w;
     }
+    if constexpr (kDG) {
+      const int4* dp = reinterpret_cast<const int4*>(a.dst_gid + at);
+      const int4 d0 = __ldcs(dp), d1 = __ldcs(dp + 1);
+      dg[0] = d0.x; dg[1] = d0.y; dg[2] = d0.z; dg[3] = d0.w;
+      dg[4] = d1.x; dg[5] = d1.y; dg[6] = d1.z; dg[7] = d1.w;
+    }
   } else {
 #pragma unroll
     for (int j = 0; j < kR; ++j) k[j] = -1;
@@ -272,7 +329,21 @@ __global__ void __launch_bounds__(kThreads) tables_kernel(TableArgs a) {
   for (int j = 0; j < kR; ++j) {
     if (k[j] < 0 || k[j] >= a.n_keys) k[j] = -1;
     x[j] = B::ident();
-    if (k[j] >= 0) {
+    if constexpr (EMIT == kGeneric) {
+      if (k[j] >= 0) {
+        int rec[8];
+        load_rec(a.pack, vbase + sv[j], rec);
+        if (rec[gen::kWords] != 0) {
+          int p = -1;
+          if constexpr (PAY) p = rec[gen::kPayWord];
+          x[j] = B::make(gen::emit(rec, kW ? w[j] : 0.0f, kDG ? dg[j] : 0),
+                         p);
+          sends |= 1 << j;
+        } else if constexpr (kFlushEmpty<EMIT>) {
+          x[j] = B::make(gen::ident(), -1);
+        }
+      }
+    } else if (k[j] >= 0) {
       T f;
       int p = 0;
       const bool s = gather<T, PAY>(a, vbase + sv[j], f, p);
@@ -286,9 +357,11 @@ __global__ void __launch_bounds__(kThreads) tables_kernel(TableArgs a) {
   }
 
   auto flush_run = [&](int kk, V v, int c) {
-    if (c > 0) {                      // a sending run has a valid key
+    // a sending run has a valid key; with a custom identity every valid
+    // run folds it in
+    if (c > 0 || (kFlushEmpty<EMIT> && kk >= 0)) {
       const long long i = tbase + kk;
-      atomicAdd(a.cnt + i, c);
+      if (c > 0) atomicAdd(a.cnt + i, c);
       if constexpr (PAY) {
         if constexpr (MAX) {
           atomicMax(a.best + i, v);
@@ -391,8 +464,9 @@ __global__ void __launch_bounds__(kThreads) tables_kernel(TableArgs a) {
 }
 
 // The epilogue of the payload instances: the 64-bit keys back into table
-// and pay.
-template <typename T, bool MAX>
+// and pay (FLUSH: a key that only runs of count 0 touched holds the custom
+// identity and payload -1).
+template <typename T, bool MAX, bool FLUSH>
 __global__ void __launch_bounds__(256) unpack(TableArgs a) {
   const long long n = (long long)a.n_cells * a.n_keys;
   const long long step = (long long)gridDim.x * blockDim.x;
@@ -400,8 +474,14 @@ __global__ void __launch_bounds__(256) unpack(TableArgs a) {
        i += step) {
     T v = Combine<T, MAX ? kMax : kMin>::ident();
     int p = -1;
-    if (a.cnt[i] > 0) {
-      const unsigned long long b = a.best[i];
+    bool touched = a.cnt[i] > 0;
+    unsigned long long b = 0;
+    if constexpr (FLUSH) {
+      b = a.best[i];
+      touched = touched || b != Best<T, MAX, true>::ident();
+    }
+    if (touched) {
+      if constexpr (!FLUSH) b = a.best[i];
       const unsigned lo = (unsigned)b;
       v = from_ord<T>((unsigned)(b >> 32));
       p = (int)((MAX ? lo : ~lo) ^ 0x80000000u);
@@ -422,8 +502,8 @@ template <typename T, bool MAX, int EMIT, bool PAY>
 cudaError_t launch(const TableArgs& a, cudaStream_t stream) {
   const long long n_tab = (long long)a.n_cells * a.n_keys;
   const long long n_vert = (long long)a.n_cells * a.np;
-  prep<T, MAX, PAY><<<flat_blocks(n_tab > n_vert ? n_tab : n_vert), 256, 0,
-                      stream>>>(a);
+  prep<T, MAX, EMIT, PAY><<<flat_blocks(n_tab > n_vert ? n_tab : n_vert),
+                            256, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (a.width > 0) {
@@ -434,7 +514,8 @@ cudaError_t launch(const TableArgs& a, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
   }
   if constexpr (PAY) {
-    unpack<T, MAX><<<flat_blocks(n_tab), 256, 0, stream>>>(a);
+    unpack<T, MAX, kFlushEmpty<EMIT>><<<flat_blocks(n_tab), 256, 0,
+                                        stream>>>(a);
     err = cudaGetLastError();
   }
   return err;
@@ -453,6 +534,7 @@ cudaError_t dispatch_comb(int combine_max, int with_payload,
 
 }  // namespace
 
+#ifndef REPRO_GENERIC
 // Returns a cudaError_t (0 = launched).  key/src/weight are [S, stride]
 // rows of which the first `width` positions are swept (width % 8 == 0;
 // the rows and pointers 16-byte aligned); field/senders/gid are [S, np];
@@ -498,3 +580,30 @@ extern "C" int edge_relax_tables_launch(
       return (int)cudaErrorInvalidValue;
   }
 }
+#elif REPRO_GEN_HAS_EMIT
+// The generic instance of one program (see edge_relax_emit.cuh): fields
+// holds the pointers of the state fields gen::pack reads; dst_gid is [S,
+// stride] rows like key (nullptr unless gen::emit reads it); pack is [S,
+// np] records of kGenRec ints.  The other arguments are those of the
+// fixed entry point.
+extern "C" int edge_relax_tables_gen_launch(
+    const void* const* fields, const bool* senders, const int* gid,
+    const int* key, const int* src, const float* weight, const int* dst_gid,
+    int* pack, void* table, int* cnt, unsigned long long* best, int* pay,
+    int n_cells, int np, long long n_keys, long long width, long long stride,
+    void* stream) {
+  if (n_cells <= 0 || n_cells > 65535 || np <= 0 || n_keys <= 0 ||
+      n_keys > INT_MAX || width < 0 || width % kR != 0 || stride < width ||
+      stride % 4 != 0 || pack == nullptr || gen::kKind == kSum ||
+      (gen::kPay && (best == nullptr || pay == nullptr)) ||
+      (gen::kReadsDstGid && dst_gid == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  TableArgs a{nullptr, senders, gid, key, src, weight, pack, table, cnt,
+              best, pay, n_cells, np, n_keys, width, stride, 0.0f};
+  for (int i = 0; i < 8; ++i) a.gp.f[i] = fields[i];
+  a.dst_gid = dst_gid;
+  return (int)launch<gen::Msg, gen::kKind == kMax, kGeneric, gen::kPay>(
+      a, static_cast<cudaStream_t>(stream));
+}
+#endif

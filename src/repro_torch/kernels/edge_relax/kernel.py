@@ -44,9 +44,19 @@ Dispatch follows the tensors' device: CPU tensors take the plain version in
 ``kernels/_build.py``) or raise — there is no fallback.  Each wrapper adds
 one to :data:`LAUNCHES` where it launches its kernel, and nowhere else.
 
-The kernels compute fixed emit forms (``csrc/edge_relax_emit.cuh``), so a
-program must declare a :class:`~repro_torch.core.programs.KernelEmit` to
-run on CUDA.  K2 also counts its launches per variant in
+Two instances of each kernel.  A builtin's
+:class:`~repro_torch.core.programs.KernelEmit` selects the fixed emit
+forms of ``csrc/edge_relax_emit.cuh``, compiled into the libraries above.
+Any other program — no descriptor, or a monoid with a custom ``op`` or
+``identity_of`` — takes the generic instance: the device functions that
+``emitgen.py`` generated from its own ``emit``, ``payload`` and op at
+``lower`` (``prog.kernel_gen``), compiled with the three sources into one
+set of libraries per distinct generated header (:func:`build_generic`),
+at its first launch.  A program the translator refused raises its
+recorded :class:`~.emitgen.GenericEmitError` there.  K2's pre-emitted
+mode takes a generated combine (:func:`~.emitgen.translate_monoid`) for a
+custom monoid.  :data:`LAUNCHES` counts each instance under its own key
+(``<kernel>/generic``); K2 also counts its launches per variant in
 :data:`SCAN_LAUNCHES`.
 """
 
@@ -54,15 +64,17 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from pathlib import Path
 
 import torch
 
 from .. import _build
-from . import ref
+from . import emitgen, ref
 
 __all__ = ["edge_relax_blocks", "edge_relax_scan", "edge_relax_scan_pre",
-           "edge_relax_push_blocks", "build", "LAUNCHES", "SCAN_LAUNCHES",
+           "edge_relax_push_blocks", "build", "build_generic", "LAUNCHES",
+           "SCAN_LAUNCHES",
            "reset_launches", "KERNEL_SOURCES", "BLOCK_E"]
 
 BLOCK_E = 128          # the stream's block width (K3: one thread per edge)
@@ -74,15 +86,17 @@ KERNEL_SOURCES = {
     "edge_relax_push_blocks": [_CSRC / "edge_relax_push_blocks.cu"],
 }
 
-# kernel launches per wrapper since the last reset_launches(); K2's
-# pre-emitted mode counts as a launch of edge_relax_scan
-LAUNCHES = {"edge_relax_blocks": 0, "edge_relax_scan": 0,
-            "edge_relax_push_blocks": 0}
+# kernel launches per wrapper and instance ("/generic": a program's
+# generated emit) since the last reset_launches(); K2's pre-emitted mode
+# counts as a launch of edge_relax_scan
+LAUNCHES = {f"{k}{g}": 0 for k in ("edge_relax_blocks", "edge_relax_scan",
+                                   "edge_relax_push_blocks")
+            for g in ("", "/generic")}
 # K2's launches (both input modes) split by variant: the monoid class, the
-# argbest payload, and a lane axis
-SCAN_LAUNCHES = {f"{k}{lane}": 0 for k in ("sum", "min/max",
-                                           "min/max+payload")
-                 for lane in ("", "/laned")}
+# argbest payload, a lane axis, and the instance
+SCAN_LAUNCHES = {f"{k}{lane}{g}": 0 for k in ("sum", "min/max",
+                                              "min/max+payload")
+                 for lane in ("", "/laned") for g in ("", "/generic")}
 
 # the EmitForm codes of csrc/edge_relax_emit.cuh
 _EMIT_CODE = {"add_weight": 0, "add_const": 1, "copy": 2, "min_weight": 3,
@@ -107,6 +121,21 @@ _SYMBOLS = {
             [_P] * 11 + [_I, _I, _LL, _LL, _I, _I, _I, _I, _I, _F, _P]},
 }
 _FNS: dict = {}
+# the generic instances: library -> {C entry point: argtypes}, and the
+# bound entry points per generated header (Translation.key)
+_GEN_SYMBOLS = {
+    "edge_relax_blocks": {
+        "edge_relax_tables_gen_launch": [_P] * 12 + [_I, _I, _LL, _LL, _LL,
+                                                     _P]},
+    "edge_relax_scan": {
+        "edge_relax_scan_gen_launch": [_P] * 16 + [_I, _I, _I, _LL, _I, _P],
+        "edge_relax_scan_pre_gen_launch":
+            [_P] * 11 + [_I, _I, _LL, _LL, _I, _I, _P]},
+    "edge_relax_push_blocks": {
+        "edge_relax_push_blocks_gen_launch": [_P] * 12 + [_I, _I, _LL, _LL,
+                                                          _I, _P]},
+}
+_GEN_FNS: dict = {}
 
 
 def reset_launches() -> None:
@@ -145,15 +174,84 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device,
                          f"{strides} (the key stream's row layout)")
 
 
-def _kernel_emit(prog):
-    ke = prog.kernel_emit
-    if ke is None:
-        raise ValueError(
-            f"program {prog.name or '<unnamed>'!r} declares no kernel_emit: "
-            f"its emit cannot run in the CUDA relaxation kernels, which "
-            f"compute the fixed forms of programs.EMIT_FORMS (generic emits "
-            f"on CUDA are a later item)")
-    return ke
+def _custom(monoid) -> bool:
+    return monoid.op is not None or monoid.identity_of is not None
+
+
+def _generic(prog):
+    """The program's translation when it takes the generic instance (no
+    KernelEmit, or a custom monoid op or identity), else None; raises the
+    recorded refusal."""
+    if prog.kernel_emit is not None and not _custom(prog.monoid):
+        return None
+    if prog.kernel_gen is None:
+        raise emitgen.GenericEmitError(
+            f"program {prog.name or '<unnamed>'!r} was not lowered by "
+            f"programs.lower: it has no generic kernel translation")
+    return prog.kernel_gen.require()
+
+
+def _header_path(tr) -> Path:
+    return _build.BUILD_DIR / "gen" / f"gen-{tr.key}.cuh"
+
+
+def _generic_libraries(tr) -> dict:
+    """The libraries of one translation's generic instance: name ->
+    :class:`~.._build.Library` (K1, K2 and K3 for a program; K2 alone for
+    a monoid's combine)."""
+    hdr = _header_path(tr)
+    flags = ("-DREPRO_GENERIC", f'-DREPRO_GEN_HEADER="{hdr}"')
+    names = KERNEL_SOURCES if tr.has_emit else ["edge_relax_scan"]
+    return {f"{n}-gen-{tr.key}": _build.Library(
+        tuple(KERNEL_SOURCES[n]), flags, (hdr,)) for n in names}
+
+
+def build_generic(*translations) -> None:
+    """Write the generated headers, then compile (all in parallel) and
+    bind the generic libraries of every translation not bound yet.
+    Called by a generic instance's first launch; a caller may build
+    several programs' instances at once before."""
+    todo = {}
+    for tr in translations:
+        tr.require()
+        if tr.key in _GEN_FNS:
+            continue
+        hdr = _header_path(tr)
+        if not hdr.exists():
+            hdr.parent.mkdir(parents=True, exist_ok=True)
+            tmp = hdr.with_suffix(f".{os.getpid()}.tmp")
+            tmp.write_text(tr.header)
+            os.replace(tmp, hdr)
+        todo[tr.key] = _generic_libraries(tr)
+    built = _build.build({n: lib for libs in todo.values()
+                          for n, lib in libs.items()})
+    for key, libs in todo.items():
+        fns = {}
+        for name in libs:
+            for sym, argtypes in _GEN_SYMBOLS[name.split("-gen-")[0]].items():
+                if not hasattr(built[name], sym):
+                    continue
+                fn = getattr(built[name], sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[sym] = fn
+        _GEN_FNS[key] = fns
+
+
+def _gen_fn(tr, sym: str):
+    if tr.key not in _GEN_FNS:
+        build_generic(tr)
+    return _GEN_FNS[tr.key][sym]
+
+
+def _gen_fields(tr, vstate, shape, device):
+    """The pointer array of the state fields gen::pack reads, each checked
+    against the schema's dtype and ``shape``."""
+    ptrs = []
+    for k, dt in tr.fields:
+        _check(f"vstate[{k!r}]", vstate[k], dt, shape, device)
+        ptrs.append(vstate[k].data_ptr())
+    return (ctypes.c_void_p * 8)(*ptrs)
 
 
 def edge_relax_blocks(prog, vstate, senders, gid, key, src, weight, dst_gid,
@@ -175,8 +273,11 @@ def edge_relax_blocks(prog, vstate, senders, gid, key, src, weight, dst_gid,
                                        weight, dst_gid, block_e),
             n_keys, prog.combine)
     a = _block_inputs("edge_relax_blocks", prog, vstate, senders, gid, key,
-                      src, weight, block_e)
-    for name, t in (("key", key), ("src", src), ("weight", weight)):
+                      src, weight, dst_gid, block_e)
+    streams = [("key", key), ("src", src), ("weight", weight)]
+    if a["gen"] is not None and a["gen"].reads_dst_gid:
+        streams.append(("dst_gid", dst_gid))
+    for name, t in streams:
         if t.data_ptr() % 16 or a["row"] % 4:
             raise ValueError(f"{name} rows must be 16-byte aligned for "
                              f"K1's vector loads")
@@ -189,42 +290,68 @@ def edge_relax_blocks(prog, vstate, senders, gid, key, src, weight, dst_gid,
     if a["payload"]:
         best = torch.empty(shape, dtype=torch.int64, device=dev)
         pay = torch.empty(shape, dtype=torch.int32, device=dev)
-    pack = torch.empty((a["s"], a["np"], 4 if a["payload"] else 2),
-                       dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _fn("edge_relax_tables_launch")(
-        a["field"].data_ptr(), senders.data_ptr(), gid.data_ptr(),
-        key.data_ptr(), src.data_ptr(), weight.data_ptr(), pack.data_ptr(),
-        table.data_ptr(), cnt.data_ptr(), ptr(best), ptr(pay), a["s"],
-        a["np"], n_keys, a["w"], a["row"], *a["flags"], _build.stream())
-    _build.raise_on("edge_relax_blocks", err)
-    LAUNCHES["edge_relax_blocks"] += 1
+    tr = a["gen"]
+    if tr is None:
+        pack = torch.empty((a["s"], a["np"], 4 if a["payload"] else 2),
+                           dtype=torch.int32, device=dev)
+        err = _fn("edge_relax_tables_launch")(
+            a["field"].data_ptr(), senders.data_ptr(), gid.data_ptr(),
+            key.data_ptr(), src.data_ptr(), weight.data_ptr(),
+            pack.data_ptr(), table.data_ptr(), cnt.data_ptr(), ptr(best),
+            ptr(pay), a["s"], a["np"], n_keys, a["w"], a["row"],
+            *a["flags"], _build.stream())
+        counter = "edge_relax_blocks"
+    else:
+        pack = torch.empty((a["s"], a["np"], tr.k1_record),
+                           dtype=torch.int32, device=dev)
+        err = _gen_fn(tr, "edge_relax_tables_gen_launch")(
+            a["fields"], senders.data_ptr(), gid.data_ptr(), key.data_ptr(),
+            src.data_ptr(), weight.data_ptr(), ptr(a["dst_gid"]),
+            pack.data_ptr(), table.data_ptr(), cnt.data_ptr(), ptr(best),
+            ptr(pay), a["s"], a["np"], n_keys, a["w"], a["row"],
+            _build.stream())
+        counter = "edge_relax_blocks/generic"
+    _build.raise_on(counter, err)
+    LAUNCHES[counter] += 1
     return table, cnt, pay
 
 
 def _block_inputs(name, prog, vstate, senders, gid, key, src, weight,
-                  block_e):
-    """Check the inputs K1 and K3 share; returns what the launch needs."""
-    ke = _kernel_emit(prog)
+                  dst_gid, block_e):
+    """Check the inputs K1 and K3 share; returns what the launch needs
+    (``gen``: the program's translation for the generic instance, else
+    None)."""
     if prog.combine not in ("min", "max"):
         raise ValueError(f"{name} serves min/max programs, not "
                          f"{prog.combine!r} ({prog.name!r})")
-    if ke.form not in _EMIT_CODE or ke.form == "push_share":
-        raise ValueError(f"{name} has no {ke.form!r} emit form")
     if block_e != BLOCK_E:
         raise ValueError(f"the CUDA kernel's block is {BLOCK_E}, "
                          f"got block_e={block_e}")
-    msg = prog.msg_dtype
-    if msg not in (torch.float32, torch.int32) or (
-            msg == torch.int32 and ke.form != "copy"):
-        raise TypeError(f"no {ke.form!r} kernel for {msg} messages")
     s_, w = key.shape
     np_ = gid.shape[-1]
     if w % BLOCK_E:
         raise ValueError(f"stream width {w} is not a multiple of {BLOCK_E}")
     dev = key.device
-    field = vstate[ke.field]
-    _check(f"vstate[{ke.field!r}]", field, msg, (s_, np_), dev)
+    msg = prog.msg_dtype
+    tr = _generic(prog)
+    out = {"s": s_, "np": np_, "w": w, "dev": dev, "msg": msg,
+           "payload": prog.with_payload, "gen": tr}
+    if tr is None:
+        ke = prog.kernel_emit
+        if ke.form not in _EMIT_CODE or ke.form == "push_share":
+            raise ValueError(f"{name} has no {ke.form!r} emit form")
+        if msg not in (torch.float32, torch.int32) or (
+                msg == torch.int32 and ke.form != "copy"):
+            raise TypeError(f"no {ke.form!r} kernel for {msg} messages")
+        field = vstate[ke.field]
+        _check(f"vstate[{ke.field!r}]", field, msg, (s_, np_), dev)
+        out["field"] = field
+        out["flags"] = (int(msg == torch.int32), int(prog.combine == "max"),
+                        _EMIT_CODE[ke.form], int(ke.payload),
+                        float(ke.const))
+    else:
+        out["fields"] = _gen_fields(tr, vstate, (s_, np_), dev)
     _check("senders", senders, torch.bool, (s_, np_), dev)
     _check("gid", gid, torch.int32, (s_, np_), dev)
     rows = key.stride()
@@ -233,10 +360,12 @@ def _block_inputs(name, prog, vstate, senders, gid, key, src, weight,
     _check("key", key, torch.int32, (s_, w), dev, rows)
     _check("src", src, torch.int32, (s_, w), dev, rows)
     _check("weight", weight, torch.float32, (s_, w), dev, rows)
-    flags = (int(msg == torch.int32), int(prog.combine == "max"),
-             _EMIT_CODE[ke.form], int(ke.payload), float(ke.const))
-    return {"field": field, "s": s_, "np": np_, "w": w, "row": rows[0],
-            "dev": dev, "msg": msg, "payload": ke.payload, "flags": flags}
+    out["dst_gid"] = None
+    if tr is not None and tr.reads_dst_gid:
+        _check("dst_gid", dst_gid, torch.int32, (s_, w), dev, rows)
+        out["dst_gid"] = dst_gid
+    out["row"] = rows[0]
+    return out
 
 
 def _block_outputs(a, slots: int):
@@ -267,30 +396,44 @@ def edge_relax_push_blocks(prog, vstate, senders, gid, key, src, weight,
                                               src, weight, dst_gid, idx,
                                               block_e)
     a = _block_inputs("edge_relax_push_blocks", prog, vstate, senders, gid,
-                      key, src, weight, block_e)
+                      key, src, weight, dst_gid, block_e)
     if a["w"] == 0:
         raise ValueError("the push stream is empty")
     cap = idx.shape[-1]
     _check("idx", idx, torch.int32, (a["s"], cap), a["dev"])
     part, cnt, uniq, pay = _block_outputs(a, cap)
-    err = _fn("edge_relax_push_blocks_launch")(
-        a["field"].data_ptr(), senders.data_ptr(), gid.data_ptr(),
-        key.data_ptr(), src.data_ptr(), weight.data_ptr(), idx.data_ptr(),
-        part.data_ptr(), cnt.data_ptr(), uniq.data_ptr(),
-        pay.data_ptr() if pay is not None else None,
-        a["s"], a["np"], a["w"], a["row"], cap, *a["flags"], _build.stream())
-    _build.raise_on("edge_relax_push_blocks", err)
-    LAUNCHES["edge_relax_push_blocks"] += 1
+    ptr = lambda t: None if t is None else t.data_ptr()
+    tr = a["gen"]
+    if tr is None:
+        err = _fn("edge_relax_push_blocks_launch")(
+            a["field"].data_ptr(), senders.data_ptr(), gid.data_ptr(),
+            key.data_ptr(), src.data_ptr(), weight.data_ptr(),
+            idx.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+            uniq.data_ptr(), ptr(pay), a["s"], a["np"], a["w"], a["row"],
+            cap, *a["flags"], _build.stream())
+        counter = "edge_relax_push_blocks"
+    else:
+        err = _gen_fn(tr, "edge_relax_push_blocks_gen_launch")(
+            a["fields"], senders.data_ptr(), gid.data_ptr(), key.data_ptr(),
+            src.data_ptr(), weight.data_ptr(), ptr(a["dst_gid"]),
+            idx.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+            uniq.data_ptr(), ptr(pay), a["s"], a["np"], a["w"], a["row"],
+            cap, _build.stream())
+        counter = "edge_relax_push_blocks/generic"
+    _build.raise_on(counter, err)
+    LAUNCHES[counter] += 1
     return part, cnt, uniq, pay
 
 
 _COMBINE_CODE = {"min": 0, "max": 1, "sum": 2}
 
 
-def _scan_variant(combine: str, payload: bool, laned: bool) -> str:
+def _scan_variant(combine: str, payload: bool, laned: bool,
+                  generic: bool = False) -> str:
     """The :data:`SCAN_LAUNCHES` key of one K2 launch."""
     kind = "sum" if combine == "sum" else "min/max"
-    return kind + ("+payload" if payload else "") + ("/laned" if laned else "")
+    return (kind + ("+payload" if payload else "") +
+            ("/laned" if laned else "") + ("/generic" if generic else ""))
 
 
 def _scan_outputs(msg, rows_shape, es, payload, dev):
@@ -309,12 +452,12 @@ def _scan_outputs(msg, rows_shape, es, payload, dev):
     return v, c, p, scratch, [base + k * step for k in range(4)]
 
 
-def _pack_records(form: str, cells: int, lanes: int, np_: int, dev):
+def _pack_records(g: int, cells: int, lanes: int, np_: int, dev):
     """The emit mode's scratch of packed vertex records: ``[S, ceil(L /
-    G), Np, 8]`` int32, one 32-byte record per (cell, lane group, vertex)
-    holding G lanes' emit fields (and divisors) and senders bits; G = 3
-    for ``push_share``, else 4."""
-    g = 3 if form == "push_share" else 4
+    g), Np, 8]`` int32, one 32-byte record per (cell, lane group, vertex)
+    holding g lanes' emit fields (and divisors) and senders bits; g = 3
+    for ``push_share``, the translation's ``k2_group`` for a generic
+    instance, else 4."""
     return torch.empty((cells, -(-lanes // g), np_, 8), dtype=torch.int32,
                        device=dev)
 
@@ -349,15 +492,19 @@ def edge_relax_scan(prog, vstate, senders, gid, key, src, weight, dst_gid,
     if not key.is_cuda:
         return ref.edge_relax_scan_ref(prog, vstate, senders, gid, key, src,
                                        weight, dst_gid, skey=skey)
-    ke = _kernel_emit(prog)
-    msg = prog.msg_dtype
-    _check_scan_instance(prog.combine, msg, ke.form)
+    tr = _generic(prog)
     s_, es = key.shape
     np_ = gid.shape[-1]
     laned = senders.ndim == 3
     lanes = senders.shape[1] if laned else 1
     rows_shape = (s_, lanes) if laned else (s_,)
     dev = key.device
+    if tr is not None:
+        return _scan_generic(tr, prog, vstate, senders, gid, key, src,
+                             weight, dst_gid, skey, rows_shape)
+    ke = prog.kernel_emit
+    msg = prog.msg_dtype
+    _check_scan_instance(prog.combine, msg, ke.form)
     field = vstate[ke.field]
     _check(f"vstate[{ke.field!r}]", field, msg, rows_shape + (np_,), dev)
     divisor = None
@@ -367,27 +514,67 @@ def edge_relax_scan(prog, vstate, senders, gid, key, src, weight, dst_gid,
                rows_shape + (np_,), dev)
     _check("senders", senders, torch.bool, rows_shape + (np_,), dev)
     _check("gid", gid, torch.int32, (s_, np_), dev)
+    row = _scan_streams(key, skey, src, weight, dst_gid, False)
+    v, c, p, _scratch, ptrs = _scan_outputs(msg, rows_shape, es,
+                                            prog.with_payload, dev)
+    pack = _pack_records(3 if ke.form == "push_share" else 4, s_, lanes,
+                         np_, dev)
+    err = _fn("edge_relax_scan_launch")(
+        field.data_ptr(), divisor.data_ptr() if divisor is not None else None,
+        senders.data_ptr(), gid.data_ptr(), key.data_ptr(), skey.data_ptr(),
+        src.data_ptr(), weight.data_ptr(), pack.data_ptr(), v.data_ptr(),
+        c.data_ptr(), p.data_ptr() if p is not None else None, *ptrs, s_,
+        lanes, np_, row, es, int(msg == torch.int32),
+        _COMBINE_CODE[prog.combine],
+        _EMIT_CODE[ke.form], int(prog.with_payload), float(ke.const),
+        _build.stream())
+    _build.raise_on("edge_relax_scan", err)
+    LAUNCHES["edge_relax_scan"] += 1
+    SCAN_LAUNCHES[_scan_variant(prog.combine, prog.with_payload, laned)] += 1
+    return v, c, p
+
+
+def _scan_streams(key, skey, src, weight, dst_gid, reads_dst_gid):
+    """Check K2's shared [S, E] streams (one row layout); returns the
+    row stride."""
+    s_, es = key.shape
+    dev = key.device
     rows = key.stride()
     if rows[-1] != 1:
         raise ValueError("key must have unit last-dim stride")
     for name, t in (("key", key), ("skey", skey), ("src", src)):
         _check(name, t, torch.int32, (s_, es), dev, rows)
     _check("weight", weight, torch.float32, (s_, es), dev, rows)
-    v, c, p, _scratch, ptrs = _scan_outputs(msg, rows_shape, es,
+    if reads_dst_gid:
+        _check("dst_gid", dst_gid, torch.int32, (s_, es), dev, rows)
+    return rows[0]
+
+
+def _scan_generic(tr, prog, vstate, senders, gid, key, src, weight, dst_gid,
+                  skey, rows_shape):
+    """K2's generic instance in the emit mode (see edge_relax_scan)."""
+    s_, es = key.shape
+    np_ = gid.shape[-1]
+    lanes = rows_shape[1] if len(rows_shape) == 2 else 1
+    dev = key.device
+    fields = _gen_fields(tr, vstate, rows_shape + (np_,), dev)
+    _check("senders", senders, torch.bool, rows_shape + (np_,), dev)
+    _check("gid", gid, torch.int32, (s_, np_), dev)
+    row = _scan_streams(key, skey, src, weight, dst_gid, tr.reads_dst_gid)
+    v, c, p, _scratch, ptrs = _scan_outputs(prog.msg_dtype, rows_shape, es,
                                             prog.with_payload, dev)
-    pack = _pack_records(ke.form, s_, lanes, np_, dev)
-    err = _fn("edge_relax_scan_launch")(
-        field.data_ptr(), divisor.data_ptr() if divisor is not None else None,
-        senders.data_ptr(), gid.data_ptr(), key.data_ptr(), skey.data_ptr(),
-        src.data_ptr(), weight.data_ptr(), pack.data_ptr(), v.data_ptr(),
-        c.data_ptr(), p.data_ptr() if p is not None else None, *ptrs, s_,
-        lanes, np_,
-        rows[0], es, int(msg == torch.int32), _COMBINE_CODE[prog.combine],
-        _EMIT_CODE[ke.form], int(prog.with_payload), float(ke.const),
+    pack = _pack_records(tr.k2_group, s_, lanes, np_, dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = _gen_fn(tr, "edge_relax_scan_gen_launch")(
+        fields, senders.data_ptr(), gid.data_ptr(), key.data_ptr(),
+        skey.data_ptr(), src.data_ptr(), weight.data_ptr(),
+        ptr(dst_gid) if tr.reads_dst_gid else None, pack.data_ptr(),
+        v.data_ptr(), c.data_ptr(), ptr(p), *ptrs, s_, lanes, np_, row, es,
         _build.stream())
-    _build.raise_on("edge_relax_scan", err)
-    LAUNCHES["edge_relax_scan"] += 1
-    SCAN_LAUNCHES[_scan_variant(prog.combine, prog.with_payload, laned)] += 1
+    _build.raise_on("edge_relax_scan (generic)", err)
+    LAUNCHES["edge_relax_scan/generic"] += 1
+    SCAN_LAUNCHES[_scan_variant(prog.combine, prog.with_payload,
+                                len(rows_shape) == 2, True)] += 1
     return v, c, p
 
 
@@ -404,6 +591,8 @@ def edge_relax_scan_pre(monoid, cand, send, skey, pay=None):
     """
     if not cand.is_cuda:
         return ref.stream_scan(monoid, cand, send, skey, pay)
+    tr = emitgen.translate_monoid(monoid, cand.dtype).require() \
+        if _custom(monoid) else None
     _check_scan_instance(monoid.kind, cand.dtype, None)
     if pay is not None and monoid.payload != "argbest":
         raise ValueError(f"a payload scan needs an argbest monoid, not "
@@ -427,14 +616,21 @@ def edge_relax_scan_pre(monoid, cand, send, skey, pay=None):
     _check("skey", skey, torch.int32, (s_, es), dev, krows)
     v, c, p, _scratch, ptrs = _scan_outputs(cand.dtype, rows_shape, es,
                                             pay is not None, dev)
-    err = _fn("edge_relax_scan_pre_launch")(
-        cand.data_ptr(), send.data_ptr(),
-        pay.data_ptr() if pay is not None else None, skey.data_ptr(),
-        v.data_ptr(), c.data_ptr(), p.data_ptr() if p is not None else None,
-        *ptrs, s_, lanes, krows[0], st[-2], es,
-        int(cand.dtype == torch.int32), _COMBINE_CODE[monoid.kind],
-        int(pay is not None), _build.stream())
+    ptr = lambda t: None if t is None else t.data_ptr()
+    if tr is None:
+        err = _fn("edge_relax_scan_pre_launch")(
+            cand.data_ptr(), send.data_ptr(), ptr(pay), skey.data_ptr(),
+            v.data_ptr(), c.data_ptr(), ptr(p), *ptrs, s_, lanes, krows[0],
+            st[-2], es, int(cand.dtype == torch.int32),
+            _COMBINE_CODE[monoid.kind], int(pay is not None),
+            _build.stream())
+    else:
+        err = _gen_fn(tr, "edge_relax_scan_pre_gen_launch")(
+            cand.data_ptr(), send.data_ptr(), ptr(pay), skey.data_ptr(),
+            v.data_ptr(), c.data_ptr(), ptr(p), *ptrs, s_, lanes, krows[0],
+            st[-2], es, int(pay is not None), _build.stream())
     _build.raise_on("edge_relax_scan (pre-emitted)", err)
-    LAUNCHES["edge_relax_scan"] += 1
-    SCAN_LAUNCHES[_scan_variant(monoid.kind, pay is not None, laned)] += 1
+    LAUNCHES["edge_relax_scan" + ("/generic" if tr else "")] += 1
+    SCAN_LAUNCHES[_scan_variant(monoid.kind, pay is not None, laned,
+                                tr is not None)] += 1
     return v, c, p

@@ -31,6 +31,7 @@ from repro_torch.core import diffuse as tdiffuse
 from repro_torch.core import dynamic as tdyn
 from repro_torch.core.api import build as tbuild
 from repro_torch.core.programs import PROGRAMS as TPROGRAMS
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

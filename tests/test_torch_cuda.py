@@ -13,7 +13,12 @@ cells), K4 and K5 within the tolerances stated at their tests — the
 session on the card (pull, push and auto sweeps, and a commit's repairs)
 against the session on the CPU, and the LM's prefill and decode on the
 card against the CPU, and the same for a hub-split session, the triangle
-count and the watchdog."""
+count and the watchdog; the generic instances (programs without a
+KernelEmit: the builtins stripped of theirs and user programs, a custom
+monoid op and identity) bitwise their plain versions, a division by a
+constant as torch's CUDA kernel does it, and the quickstart's reliability
+through the session (push and auto bitwise pull, lanes bitwise solo, a
+commit bitwise a fresh query)."""
 
 import numpy as np
 import pytest
@@ -666,3 +671,244 @@ def _numpy_tree(model):
             node = node.setdefault(part, {})
         node[parts[-1]] = leaf
     return out
+
+
+# ---- the generic instances: programs without a KernelEmit ---------------
+
+def _strip(name, kw):
+    """A builtin lowered without its KernelEmit: the generic instance."""
+    import dataclasses
+
+    from repro_torch.core import programs as P
+
+    handle = {"sssp": P.sssp, "bfs": P.bfs, "cc": P.cc, "ppr": P.ppr,
+              "pagerank": P.pagerank, "widest": P.widest,
+              "reach": P.reach}[name]
+    spec = dataclasses.replace(handle.fn(**kw), kernel_emit=None)
+    return P.lower(spec, name=f"{name}-generic")
+
+
+def _user_program(name):
+    """Programs written without a KernelEmit: the quickstart's
+    reliability, an emit reading dst_gid through where, a min-class int32
+    program with a custom identity, and an int32 sum with a custom op."""
+    from repro_torch.core import programs as P
+    from repro_torch.core.monoid import Monoid
+
+    f32, i32 = torch.float32, torch.int32
+    keep = lambda s, ib, h, p, ok: (s, h & ok)  # noqa: E731
+    if name == "reliability":
+        return P.lower(P.DiffusiveProgram(
+            monoid="max", msg_dtype=f32,
+            state={"rel": P.Field(f32, init=0.0, on_dead=0.0)},
+            emit=lambda s, w, sg, dg: s["rel"] * w, receive=keep), name)
+    if name == "dst_where":
+        return P.lower(P.DiffusiveProgram(
+            monoid="min", msg_dtype=f32,
+            state={"dist": P.Field(f32, init=0.0)},
+            emit=lambda s, w, sg, dg: torch.where(dg > sg, s["dist"] + w,
+                                                  s["dist"] * 2.0 + 1.0),
+            payload=lambda s, sg: sg, receive=keep), name)
+    if name == "ident_min":
+        m = Monoid("min1000", "min", identity_of=lambda dt: 1000)
+        return P.lower(P.DiffusiveProgram(
+            monoid=m, msg_dtype=i32, state={"hops": P.Field(i32, init=0)},
+            emit=lambda s, w, sg, dg: torch.clamp_max(s["hops"] + 1, 1000),
+            receive=keep), name)
+    assert name == "capsum"
+    return P.lower(P.DiffusiveProgram(
+        monoid=Monoid("capsum", "sum", op=_capped), msg_dtype=i32, state={"pending": P.Field(i32)},
+        emit=lambda s, w, sg, dg: s["pending"], receive=keep), name)
+
+
+def _capped(a, b):
+    return torch.clamp_max(a + b, 1000)
+
+
+GENERIC = ([("strip", n, kw) for n, kw in MINMAX + [("ppr", {"source": 1}),
+                                                    ("pagerank", {})]]
+           + [("user", n, {}) for n in ("reliability", "dst_where",
+                                        "ident_min", "capsum")])
+
+
+def _generic_prog(kind, name, kw):
+    return _strip(name, kw) if kind == "strip" else _user_program(name)
+
+
+def _generic_state(prog, shape, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = {}
+    for k, f in prog.fields:
+        if f.dtype == torch.float32:
+            v = torch.rand(shape, generator=g) * 40
+            v = torch.where(torch.rand(shape, generator=g) < 0.1,
+                            float("inf"), v)
+        else:
+            v = torch.randint(0, 1200, shape, generator=g)
+        out[k] = v.to(f.dtype).cuda()
+    if "residual" in out:
+        out["residual"] = out["residual"] * 1e-4
+    if "deg" in out:
+        out["deg"] = out["deg"].clamp(1, 8).floor()
+    return out, (torch.rand(shape, generator=g) < 0.5).cuda()
+
+
+@pytest.mark.parametrize("kind,name,kw", GENERIC,
+                         ids=[f"{k}-{n}-{len(kw)}" for k, n, kw in GENERIC])
+def test_generic_instances_match_plain_bitwise(gpu_session, kind, name, kw):
+    """K1 and K3 (min/max programs), K2 in both input modes, solo and with
+    4 lanes: the generic instance against the plain version on the same
+    CUDA inputs, bitwise, each launch counted under its /generic key."""
+    sess, _ = gpu_session
+    prog = _generic_prog(kind, name, kw)
+    assert kernel._generic(prog) is prog.kernel_gen
+    S, Np = sess.sg.node_ok.shape
+    n_keys = S * sess.sg.n_per_shard
+    sgd = _sg_as_dict(sess.sg, with_push=True)
+    es = sess.sg.sorted_width
+    kernel.reset_launches()
+    if prog.combine != "sum":
+        vstate, senders = _generic_state(prog, (S, Np), 3)
+        senders &= sess.sg.node_ok
+        args = (prog, vstate, senders, sgd["gid"], sgd["csr_key"],
+                sgd["csr_src"], sgd["csr_weight"], sgd["csr_dst_gid"])
+        for g, w in zip(kernel.edge_relax_blocks(*args, n_keys),
+                        _k1_plain(args, n_keys)):
+            assert (g is None) == (w is None)
+            assert w is None or torch.equal(g, w)
+        nb = sgd["push_src"].shape[-1] // kernel.BLOCK_E
+        idx, _ = ref.compact_push_blocks(senders, sgd["push_src"],
+                                         kernel.BLOCK_E, nb)
+        pargs = (prog, vstate, senders, sgd["gid"], sgd["push_key"],
+                 sgd["push_src"], sgd["push_weight"], sgd["push_dst_gid"],
+                 idx)
+        for g, w in zip(kernel.edge_relax_push_blocks(*pargs),
+                        ref.edge_relax_push_blocks_ref(
+                            *pargs, block_e=kernel.BLOCK_E)):
+            assert w is None or torch.equal(g, w)
+        assert kernel.LAUNCHES["edge_relax_blocks/generic"] == 1
+        assert kernel.LAUNCHES["edge_relax_push_blocks/generic"] == 1
+    for lanes in (None, 4):
+        p = prog if lanes is None else make_laned([prog] * lanes)
+        shape = (S, Np) if lanes is None else (S, lanes, Np)
+        vstate, senders = _generic_state(p, shape, 5)
+        args = (p, vstate, senders, sgd["gid"]) + tuple(
+            sgd[k][..., :es] for k in ("csr_key", "csr_src", "csr_weight",
+                                       "csr_dst_gid"))
+        skey = sgd["csr_skey"][..., :es]
+        got = kernel.edge_relax_scan(*args, skey=skey)
+        want = ref.edge_relax_scan_ref(*args, skey=skey)
+        cand, send, pay = ref.edge_messages(*args)
+        pre = kernel.edge_relax_scan_pre(p.monoid, cand, send, skey, pay)
+        pre_want = ref.stream_scan(p.monoid, cand, send, skey, pay)
+        torch.cuda.synchronize()
+        for a, b, c, d in zip(got, want, pre, pre_want):
+            assert (a is None) == (b is None)
+            if b is not None:
+                assert torch.equal(a, b) and torch.equal(c, d)
+    assert kernel.LAUNCHES["edge_relax_scan/generic"] >= 2
+    assert kernel.LAUNCHES["edge_relax_scan"] == (
+        0 if kernel._custom(prog.monoid) else 2)
+
+
+def test_k2_custom_op_folds_with_the_monoid_op(gpu_session):
+    """A sum-class monoid with a custom op (min(a + b, 1000)) on K2, both
+    input modes: bitwise its plain version, which folds with the op; the
+    class's native sum (what K2 computed before the generic combine)
+    differs on these inputs."""
+    sess, _ = gpu_session
+    prog = _user_program("capsum")
+    S, Np = sess.sg.node_ok.shape
+    vstate, senders = _generic_state(prog, (S, Np), 9)
+    sgd = _sg_as_dict(sess.sg)
+    es = sess.sg.sorted_width
+    args = (prog, vstate, senders, sgd["gid"]) + tuple(
+        sgd[k][..., :es] for k in ("csr_key", "csr_src", "csr_weight",
+                                   "csr_dst_gid"))
+    skey = sgd["csr_skey"][..., :es]
+    got = kernel.edge_relax_scan(*args, skey=skey)
+    want = ref.edge_relax_scan_ref(*args, skey=skey)
+    cand, send, _ = ref.edge_messages(*args)
+    pre = kernel.edge_relax_scan_pre(prog.monoid, cand, send, skey)
+    native = ref.stream_scan(PROGRAMS["pagerank"].factory().monoid,
+                             cand, send, skey)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(pre[0], want[0])
+    assert not torch.equal(native[0].to(torch.int32), want[0])
+
+
+def test_generic_division_by_a_constant_matches_torch_cuda(gpu_session):
+    """The generated text divides by a constant as torch's CUDA kernel
+    does (times the float32 reciprocal): K1 bitwise its plain version."""
+    from repro_torch.core import programs as P
+
+    sess, _ = gpu_session
+    prog = P.lower(P.DiffusiveProgram(
+        monoid="min", msg_dtype=torch.float32,
+        state={"x": P.Field(torch.float32)},
+        emit=lambda s, w, sg, dg: s["x"] / 3 + w / 7,
+        receive=lambda s, ib, h, p, ok: (s, h & ok)), "div_const")
+    S, Np = sess.sg.node_ok.shape
+    vstate, senders = _generic_state(prog, (S, Np), 13)
+    args = _args(sess, prog, vstate, 13)
+    n_keys = S * sess.sg.n_per_shard
+    got = kernel.edge_relax_blocks(*args, n_keys)
+    want = _k1_plain(args, n_keys)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_reliability_sweeps_lanes_and_commit_on_gpu(gpu_session):
+    """The quickstart's reliability (no KernelEmit) through the session on
+    the card: push and auto bitwise pull, bitwise the CPU session, lanes
+    bitwise solo, a commit's repair bitwise a fresh query; the generic
+    K1, K2 and K3 instances launched."""
+    from repro_torch.core import programs as P
+
+    _, (src, dst, w, n) = gpu_session
+
+    @P.diffusive("card_test_reliability", value_key="rel", monotone=True,
+                 lane_param="source")
+    def reliability(source: int):
+        def receive(vstate, inbox, has_msg, payload, node_ok):
+            better = has_msg & (inbox > vstate["rel"]) & node_ok
+            return {"rel": torch.where(better, inbox, vstate["rel"])}, better
+
+        return P.DiffusiveProgram(
+            monoid="max", msg_dtype=torch.float32,
+            state={"rel": P.Field(torch.float32, init=lambda v: torch.where(
+                v.gid == source, 1.0, 0.0), on_dead=0.0)},
+            init_active=lambda v: v.gid == source,
+            emit=lambda s, weight, src_gid, dst_gid: s["rel"] * weight,
+            receive=receive)
+
+    probs = np.clip(w / w.max(), 0.05, 1.0).astype(np.float32)
+    kw = dict(n_cells=4, edge_slack=0.2, node_slack=0.05)
+    gpu = DiffusionSession.from_edges(src, dst, n, probs, device="cuda", **kw)
+    cpu = DiffusionSession.from_edges(src, dst, n, probs, device="cpu", **kw)
+    kernel.reset_launches()
+    name = "card_test_reliability"
+    pull = gpu.query(name, source=1)
+    for sweep in ("push", "auto"):
+        r = gpu.query(name, source=1, sweep=sweep, refresh=True)
+        assert np.array_equal(r.values, pull.values), sweep
+        assert int(r.stats.actions) == int(pull.stats.actions), sweep
+    assert np.array_equal(cpu.query(name, source=1).values, pull.values)
+    roots = [1, 2, 7, 30]
+    for lane, r in zip(gpu.query(name, sources=roots, refresh=True), roots):
+        solo = gpu.query(name, source=r, refresh=True)
+        assert np.array_equal(lane.values, solo.values), r
+    for k in ("edge_relax_blocks/generic", "edge_relax_push_blocks/generic",
+              "edge_relax_scan/generic"):
+        assert kernel.LAUNCHES[k] > 0, k
+    assert kernel.LAUNCHES["edge_relax_blocks"] == 0
+    gpu.query(name, source=1)
+    rng = np.random.default_rng(3)
+    for u, v in rng.integers(0, n, (16, 2)):
+        gpu.add_edge(int(u), int(v), 0.9)
+    gpu.delete_edge(int(src[0]), int(dst[0]))
+    gpu.commit()
+    repaired = gpu.query(name, source=1)
+    fresh = gpu.query(name, source=1, refresh=True)
+    assert np.array_equal(repaired.values, fresh.values)

@@ -30,6 +30,7 @@ from repro_torch.core.relax import active_push_blocks, push_caps, select_bucket
 from repro_torch.kernels.edge_relax import kernel as tkernel
 from repro_torch.kernels.edge_relax import ops as tops
 from repro_torch.kernels.edge_relax import ref as tref
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -360,26 +361,47 @@ def test_phase2_tables_match_reference():
 
 
 def test_cuda_refuses_programs_without_kernel_emit():
-    @tprograms.diffusive("port_test_no_emit_form", value_key="lab")
-    def no_form():
+    """A program without a KernelEmit lowers to a generic descriptor (its
+    own emit traced for the kernels' generic instance); CUDA refuses only
+    a program whose emit leaves the translator's op set, with the
+    recorded error naming the program, the component and the op.  On the
+    CPU both run through their own emit."""
+    def spec(emit):
         return tprograms.DiffusiveProgram(
             monoid="min", msg_dtype=torch.int32,
             state={"lab": tprograms.Field(torch.int32, init=lambda v: v.gid)},
-            emit=lambda s, w, sg, dg: s["lab"] + 2,
-            receive=lambda s, ib, h, p, ok: (s, h & ok))
+            emit=emit, receive=lambda s, ib, h, p, ok: (s, h & ok))
+
+    @tprograms.diffusive("port_test_no_emit_form", value_key="lab")
+    def no_form():
+        return spec(lambda s, w, sg, dg: s["lab"] + 2)
+
+    @tprograms.diffusive("port_test_untranslatable", value_key="lab")
+    def untranslatable():
+        return spec(lambda s, w, sg, dg: s["lab"] + s["lab"].amax())
+
     prog = no_form.build()
-    with pytest.raises(ValueError, match="port_test_no_emit_form"):
-        tkernel._kernel_emit(prog)
-    # on the CPU the same program runs through its own emit
+    assert prog.kernel_emit is None
+    assert tkernel._generic(prog) is prog.kernel_gen
+    assert "gen::emit" not in prog.kernel_gen.header      # a definition
+    assert "Msg emit(const int* rec" in prog.kernel_gen.header
+    bad = untranslatable.build()
+    assert bad.kernel_gen.error is not None
+    with pytest.raises(ValueError, match=r"port_test_untranslatable.*emit.*"
+                                         r"aten\.amax"):
+        tkernel._generic(bad)
+    # on the CPU both programs run through their own emit
     _, tsg = _graph(dirty=False)
     tsgd = t_sg_as_dict(tsg)
-    vstate, active = prog.init(tsg)
-    out = tops.edge_relax(prog, vstate, active, tsgd["gid"],
-                          tsgd["csr_key"], tsgd["csr_src"],
-                          tsgd["csr_weight"], tsgd["csr_dst_gid"],
-                          n_keys=tsg.n_shards * tsg.n_per_shard,
-                          block_e=128)
-    assert out[0].shape == (tsg.n_shards, tsg.n_shards * tsg.n_per_shard)
+    for p in (prog, bad):
+        vstate, active = p.init(tsg)
+        out = tops.edge_relax(p, vstate, active, tsgd["gid"],
+                              tsgd["csr_key"], tsgd["csr_src"],
+                              tsgd["csr_weight"], tsgd["csr_dst_gid"],
+                              n_keys=tsg.n_shards * tsg.n_per_shard,
+                              block_e=128)
+        assert out[0].shape == (tsg.n_shards,
+                                tsg.n_shards * tsg.n_per_shard)
 
 
 def _push_inputs(jsg, tsg, name, kw, frac, seed=5):

@@ -22,6 +22,7 @@ from repro.core.generators import make_graph_family
 from repro_torch.core import DiffusionSession as TSession
 from repro_torch.core import event as tevent
 from repro_torch.core.programs import PROGRAMS as TPROGRAMS
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -15,6 +15,7 @@ import torch
 from repro.kernels.flash_attention import ops as jops
 from repro.kernels.flash_attention.ref import attention_ref as jattention_ref
 from repro_torch.kernels.flash_attention import kernel, ops, ref
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 TOL = 2e-5
 

@@ -14,6 +14,7 @@ from repro_torch.core import generators as tgen
 from repro_torch.core.api import build as tbuild
 from repro_torch.core.graph import ShardedGraph, build_csr, build_push_csr
 from repro_torch.core.partition import Partitioned
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -50,6 +50,7 @@ def test_the_port_has_modules():
     for mod in ("core/session.py", "core/diffuse.py", "core/relax.py",
                 "core/updates.py", "core/dynamic.py", "core/partition.py",
                 "core/rhizome.py", "core/event.py", "core/triangles.py",
+                "analysis/verify.py", "kernels/edge_relax/emitgen.py",
                 "kernels/edge_relax/kernel.py", "kernels/_build.py",
                 "kernels/flash_attention/kernel.py",
                 "kernels/segment_reduce/kernel.py",
@@ -73,12 +74,13 @@ def test_no_jax_or_reference_imports(path):
 def test_entry_points_default_to_the_card():
     import inspect
 
-    from repro_torch.core import api, graph, session
+    from repro_torch.core import api, graph, session, triangles
     from repro_torch.core.partition import Partitioned
 
     for fn in (graph.from_edges, api.build,
                session.DiffusionSession.from_edges,
-               graph.ShardedGraph.from_state, Partitioned.from_numpy):
+               graph.ShardedGraph.from_state, Partitioned.from_numpy,
+               triangles.triangle_count_bitset):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn.__qualname__
 

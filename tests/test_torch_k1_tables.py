@@ -30,6 +30,7 @@ from repro_torch.core.graph import ShardedGraph
 from repro_torch.kernels.edge_relax import kernel as tkernel
 from repro_torch.kernels.edge_relax import ref as tref
 from repro_torch.kernels.sssp_relax import ref as k6ref
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

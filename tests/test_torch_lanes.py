@@ -24,6 +24,7 @@ from repro_torch.core import DiffusionSession as TSession
 from repro_torch.core import api as tapi
 from repro_torch.core import programs as tprograms
 from repro_torch.core.diffuse import diffuse as tdiffuse
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

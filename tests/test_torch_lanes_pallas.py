@@ -12,6 +12,7 @@ from test_torch_lanes import (  # noqa: F401  (graph: the shared fixture)
     check_reference,
     graph,
 )
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("sweep", ["pull", "push"])

@@ -16,6 +16,7 @@ from repro_torch.core import msg as tmsg
 from repro_torch.core import monoid as tmonoid
 from repro_torch.core import programs as tprograms
 from repro_torch.core.partition import Partitioned
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -34,6 +34,7 @@ from repro_torch.core import rhizome as trhizome
 from repro_torch.core.diffuse import diffuse as tdiffuse
 from repro_torch.core.diffuse import logical_view as tlogical_view
 from repro_torch.core.programs import PROGRAMS as TPROGRAMS
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

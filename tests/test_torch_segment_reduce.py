@@ -20,6 +20,7 @@ from repro.kernels.segment_reduce.ops import (
 from repro.kernels.sssp_relax.ops import relax as jrelax
 from repro_torch.kernels.segment_reduce import kernel as k5, ops as sops, ref
 from repro_torch.kernels.sssp_relax import kernel as k6, ops as rops
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 TOL = 1e-4
 

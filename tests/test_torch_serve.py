@@ -17,6 +17,7 @@ from repro.models import transformer as jtf
 from repro_torch.configs import tinyllama_1_1b
 from repro_torch.launch import serve
 from repro_torch.models import transformer as tf
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

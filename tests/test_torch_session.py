@@ -18,6 +18,7 @@ from repro.core.generators import make_graph_family
 from repro_torch.core import DiffusionSession as TSession
 from repro_torch.core import api as tapi
 from repro_torch.core.programs import sssp as tsssp
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from test_torch_session import MATRIX, MATRIX_IDS, check_session_matrix
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -30,6 +30,7 @@ from repro_torch.core import diffuse as tdiffuse
 from repro_torch.core.graph import ShardedGraph
 from repro_torch.core.programs import PROGRAMS as TPROGRAMS
 from repro_torch.core.relax import push_caps, select_bucket
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

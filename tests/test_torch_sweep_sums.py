@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from test_torch_sweep import IDS, SUMS, check_reference, graphs
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -20,6 +20,7 @@ from repro.configs import qwen2_7b as jqwen, tinyllama_1_1b as jtiny
 from repro.models import transformer as jtf
 from repro_torch.configs import registry
 from repro_torch.models import transformer as tf
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 TOL = 1e-4
 ARCHS = [("tinyllama-1.1b", jtiny), ("qwen2-7b", jqwen)]

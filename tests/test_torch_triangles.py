@@ -24,6 +24,7 @@ from repro.core import triangles as jtri  # noqa: E402
 from repro.core.generators import make_graph_family  # noqa: E402
 from repro_torch.core import DiffusionSession as TSession  # noqa: E402
 from repro_torch.core import triangles as ttri  # noqa: E402
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -54,7 +55,7 @@ def test_bitset_matches_reference_and_exact(n, seed):
         return
     exact = ttri.triangle_count_exact(s2, d2, n)
     assert exact == jtri.triangle_count_exact(s2, d2, n)
-    got = ttri.triangle_count_bitset(s2, d2, n)
+    got = ttri.triangle_count_bitset(s2, d2, n, device="cpu")
     assert got.dtype == torch.int64 and got.device.type == "cpu"
     assert int(got) == exact == int(jtri.triangle_count_bitset(s2, d2, n))
 
@@ -66,11 +67,12 @@ def test_bitset_on_families_and_in_chunks(family, n, monkeypatch):
     src, dst, _, n = make_graph_family(family, n, seed=1)
     want = int(jtri.triangle_count_bitset(src, dst, n))
     assert want == ttri.triangle_count_exact(src, dst, n)
-    assert int(ttri.triangle_count_bitset(src, dst, n)) == want
+    assert int(ttri.triangle_count_bitset(src, dst, n, device="cpu")) == want
     # chunks of a few hundred edges sum to the same count
     monkeypatch.setattr(ttri, "_CHUNK_WORDS", 7 * (-(-n // 32)) * 37)
     assert int(ttri.triangle_count_bitset(torch.from_numpy(src),
-                                          torch.from_numpy(dst), n)) == want
+                                          torch.from_numpy(dst), n,
+                                          device="cpu")) == want
 
 
 def test_duplicate_pair_matches_reference():
@@ -87,7 +89,7 @@ def test_duplicate_pair_matches_reference():
     s2 = np.concatenate([src, src[extra]])
     d2 = np.concatenate([dst, dst[extra]])
     want = int(jtri.triangle_count_bitset(s2, d2, n))
-    got = int(ttri.triangle_count_bitset(s2, d2, n))
+    got = int(ttri.triangle_count_bitset(s2, d2, n, device="cpu"))
     assert got == want
     assert want != simple
 

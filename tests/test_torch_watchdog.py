@@ -29,6 +29,7 @@ from repro_torch.core import (
     ConvergenceWarning,
     ValidationError,
 )
+from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
