@@ -114,6 +114,25 @@ kernels line and the final result line):
 4b. K3 timed at the shape of the first repair sub-iteration and at a full
    frontier, beside the frontier selector (``active_push_blocks`` and the
    compaction) at the same shapes;
+3i. durability on phase 3's session with 3c's cache (the directories under
+   ``durable/`` in the output directory, removed at the end; the run fails
+   unless the disk has 4 x the snapshot's reckoned bytes free): a staged
+   batch of 3c's kind (256 edge adds, 256 deletes) compacted by the merge
+   (``_merge_compact``) bitwise the full sort (``with_csr()``, the path
+   commits take), both timed (3 repeats), and the same on graph500 graphs
+   of scales 6-18 (sorted widths on both sides of the reference's merge
+   switch at 4096; at scale 16 also a batch adding 5 % of the edges);
+   3c's per-commit apply/repair seconds; ``save()``, two journaled commits,
+   ``DiffusionSession.open`` on the card (launch counters zeroed just
+   before: the replay's K3 launches) bitwise the live session (every graph
+   array, partition, NameServer, cache keys, each entry's state and
+   stats), then sssp, bfs, cc and ppr recomputed there bitwise the live
+   answers (K1 and K2 launched); a third commit killed at
+   ``commit.applied`` and a ``save()`` killed at ``checkpoint.pre-rename``,
+   each reopened bitwise the uninterrupted session; ``DurableSessionLoop``
+   (``snapshot_every=2``, 6 one-batch steps, preempted at the 4th) stops
+   after 4 steps with a final snapshot that opens bitwise the live
+   session;
 4d. K5 (``segment_sum_sorted``) through its entry point ``segment_sum`` on
    one GNN aggregation layer (values [E, 128] over the edges of
    ``scale_free`` 262,144): launches counted, against its plain version
@@ -1401,6 +1420,7 @@ def phase_commits(args, sess, data, sources, roots, device) -> dict:
     kernel.reset_launches()
     k3_total = 0
     frontier0 = None
+    times = []
     for label, script in commit_batches(sess, src, dst, n, sources, rng):
         ops = script(sess)
         if "frontier" in ops:           # the first repair's sources
@@ -1445,6 +1465,8 @@ def phase_commits(args, sess, data, sources, roots, device) -> dict:
         check(len(info.repairs) == len(cached),
               f"commit {label} repaired {len(info.repairs)} entries, not "
               f"{len(cached)}")
+        times.append({"batch": label, "apply_s": info.apply_s,
+                      "repair_s": info.repair_s})
         emit({"phase": "commit", "batch": label, **ops,
               "apply_s": info.apply_s, "repair_s": info.repair_s,
               "k3_launches": k3,
@@ -1475,7 +1497,368 @@ def phase_commits(args, sess, data, sources, roots, device) -> dict:
     emit({"phase": "commit_checks", "ok": True, "k3_launches": k3_total,
           "sssp_max_rel_err": float(rel.max(initial=0.0)),
           "reached": int(fin.sum())})
-    return launches, frontier0
+    return launches, frontier0, times
+
+
+# --------------------------------------------------------------------------
+# durability: merge compaction, save / open / replay, kills, the serve loop
+# --------------------------------------------------------------------------
+
+VIEW_FIELDS = ("csr_perm", "csr_key", "csr_live", "csr_inv", "push_perm",
+               "push_src", "push_pos", "push_inv")
+
+
+def same_tensor(x, y) -> bool:
+    """Bitwise equality (NaN and -0.0 included) of two tensors, on x's
+    device."""
+    return (x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+        x.reshape(-1).contiguous().view(torch.uint8),
+        y.to(x.device).reshape(-1).contiguous().view(torch.uint8)))
+
+
+def same_session(a, b, tag: str) -> dict:
+    """Every ShardedGraph array, the partition, the NameServer and the
+    cache (the set of keys; each entry's state and stats) bitwise; b's
+    tensors on a's device."""
+    import dataclasses
+
+    check(b.device == a.device, f"{tag}: opened on {b.device}")
+    for f in dataclasses.fields(a.sg):
+        x, y = getattr(a.sg, f.name), getattr(b.sg, f.name)
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            check(x is not None and y is not None and y.device == x.device
+                  and same_tensor(x, y), f"{tag}: graph array {f.name}")
+        else:
+            check(x == y, f"{tag}: graph field {f.name}: {x} != {y}")
+    pa, pb = a.part, b.part
+    check(np.array_equal(pa.owner_np, pb.owner_np)
+          and np.array_equal(pa.local_np, pb.local_np)
+          and pa.n_real == pb.n_real
+          and (pa.replica is None) == (pb.replica is None),
+          f"{tag}: partition differs")
+    if pa.replica is not None:
+        check(all(np.array_equal(x, y) for x, y in zip(pa.replica,
+                                                       pb.replica)),
+              f"{tag}: replica maps differ")
+    na, nb = a.ns.state_dict(), b.ns.state_dict()
+    check(sorted(na) == sorted(nb) and all(np.array_equal(na[k], nb[k])
+                                           for k in na),
+          f"{tag}: NameServer state differs")
+    check(set(a._cache) == set(b._cache), f"{tag}: cache keys differ")
+    for key, ea in a._cache.items():
+        eb = b._cache[key]
+        check(sorted(ea.vstate) == sorted(eb.vstate)
+              and all(same_tensor(ea.vstate[f], eb.vstate[f])
+                      for f in ea.vstate), f"{tag}: cached state of {key}")
+        check(all(same_tensor(x, y) for x, y in zip(ea.stats, eb.stats)),
+              f"{tag}: cached stats of {key}")
+    return {"graph_arrays": len(a.sg.state_dict()), "ns_arrays": len(na),
+            "cache_entries": len(a._cache)}
+
+
+def snapshot_bytes(sess) -> int:
+    """The bytes a snapshot of ``sess`` holds, reckoned from the state
+    dicts: the graph, the partition maps, the NameServer and every cached
+    state and stats leaf."""
+    def nb(a):
+        if isinstance(a, torch.Tensor):
+            return a.numel() * a.element_size()
+        return np.asarray(a).nbytes
+    total = sum(nb(a) for a in sess.sg.state_dict().values())
+    total += sum(nb(a) for a in sess.ns.state_dict().values())
+    total += sess.part.owner_np.nbytes + sess.part.local_np.nbytes
+    for e in sess._cache.values():
+        total += sum(nb(v) for v in (e.vstate or {}).values())
+        total += sum(nb(v) for v in (e.stats or ()))
+    return total
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def edge_batch(src, dst, n, rng) -> list:
+    """One batch of phase 3c's kind: 256 edge adds (weights in [1, 8)) and
+    256 deletes of input edges, as ops to stage on any session."""
+    u, v = rng.integers(0, n, 256), rng.integers(0, n, 256)
+    w = (1 + 7 * rng.random(256)).astype(np.float32)
+    dels = rng.choice(src.shape[0], 256, replace=False)
+    return ([("add", int(a), int(b), float(x)) for a, b, x in zip(u, v, w)]
+            + [("del", int(src[i]), int(dst[i])) for i in dels])
+
+
+def stage(s, ops) -> None:
+    for op in ops:
+        if op[0] == "add":
+            s.add_edge(*op[1:])
+        else:
+            s.delete_edge(*op[1:])
+
+
+# graph500 scales of the merge / full-sort sweep: per-cell sorted widths
+# from about 500 to 2 M positions (phase 3's graph adds 8 M)
+MERGE_SWEEP_SCALES = (6, 8, 10, 12, 14, 16, 18)
+
+
+def merge_vs_sort(dirty, clock, reps: int, tag: str) -> dict:
+    """``_merge_compact`` against ``with_csr()`` (the full sort) on a dirty
+    graph: all eight view arrays bitwise, then both timed in device ms."""
+    check(bool(dirty.delta_count.any()) and bool(dirty.tomb_count.any()),
+          f"{tag}: graph not dirty")
+    used = int(dirty.delta_count.max())   # read once, outside the timing
+    merged, full = dirty._merge_compact(used), dirty.with_csr()
+    for f in VIEW_FIELDS:
+        check(same_tensor(getattr(merged, f), getattr(full, f)),
+              f"{tag}: merged {f} differs from the full sort")
+    check(full.with_csr() is full, f"{tag}: compacted views not clean")
+    return {"sorted_width": dirty.sorted_width,
+            "delta_width": dirty.delta_width, "cells": dirty.n_shards,
+            "staged": dirty.delta_count.tolist(),
+            "tombstones": dirty.tomb_count.tolist(), "bitwise": True,
+            "merge_ms": clock.ms(lambda: dirty._merge_compact(used), reps,
+                                 warmup=1),
+            "full_sort_ms": clock.ms(lambda: dirty.with_csr(), reps,
+                                     warmup=1)}
+
+
+def merge_sweep(device, seed: int, scales=MERGE_SWEEP_SCALES,
+                reps: int = 5) -> list:
+    """The merge compaction against the full sort on graph500 graphs of 4
+    cells: at each scale one staged batch of 3c's kind (256 edge adds and
+    256 deletes, 1 % of the edges each on smaller graphs), and at scale 16
+    also a batch whose adds are 5 % of the edges."""
+    from repro_torch.core import UpdateBatch
+    from repro_torch.core.api import build
+    from repro_torch.core.dynamic import NameServer
+    from repro_torch.core.generators import make_graph_family
+
+    clock = Clock(device)
+    rng = np.random.default_rng(seed + 5)
+    rows = []
+    for scale in scales:
+        src, dst, w, n = make_graph_family("graph500", 1 << scale, seed=0)
+        e = int(src.shape[0])
+        cases = [("3c", min(256, e // 100), min(256, e // 100))]
+        if scale == 16:
+            cases.append(("adds_5pct", e // 20, 256))
+        for case, n_add, n_del in cases:
+            part = build(src, dst, n, w, n_cells=4,
+                         edge_slack=max(0.01, 4096 / e, 3 * n_add / e),
+                         node_slack=max(1e-4, 64 / n), device=device)
+            b = UpdateBatch(NameServer(part))
+            u, v = rng.integers(0, n, n_add), rng.integers(0, n, n_add)
+            for a, c in zip(u.tolist(), v.tolist()):
+                b.add_edge(a, c, 1.0)
+            for i in rng.choice(e, n_del, replace=False).tolist():
+                b.delete_edge(int(src[i]), int(dst[i]))
+            dirty, _ = b.apply(part.sg)
+            row = {"scale": scale, "case": case,
+                   **merge_vs_sort(dirty, clock, reps,
+                                   f"merge sweep: scale {scale} {case}")}
+            rows.append(row)
+            emit({"phase": "merge_sweep", **row})
+            del part, b, dirty
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_durability(args, sess, data, sources, commit_times, device):
+    """Phase 3i: the merge compaction, save / open / replay, a killed
+    commit, a killed save and the preempted serve loop on phase 3's
+    session (3c's cache), every recovered session bitwise the live one.
+    The snapshots go under OUT_DIR/durable, removed at the end."""
+    import shutil
+    from unittest import mock
+
+    from repro_torch.core import DiffusionSession, UpdateBatch, chaos
+    from repro_torch.kernels.edge_relax import kernel
+    from repro_torch.launch.serve import DurableSessionLoop
+    from repro_torch.runtime.fault_tolerance import PreemptionGuard
+
+    t_phase = time.perf_counter()
+    src, dst, w, n = data
+    s0 = sources[0]
+    rng = np.random.default_rng(args.seed + 3)
+    base = OUT_DIR / "durable"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    dir_a, dir_b = base / "a", base / "b"
+    nbytes = snapshot_bytes(sess)
+    free = shutil.disk_usage(base).free
+    emit({"phase": "durable_setup", "snapshot_bytes": nbytes,
+          "free_disk_bytes": free, "cache": [list(map(str, k))
+                                             for k in sess._cache]})
+    check(free >= 4 * nbytes,
+          f"phase 3i needs 4 x {nbytes} B of free disk under {base} (up "
+          f"to three retained snapshots and one being written); "
+          f"{free} B free")
+    rep = {"phase": "durability", "snapshot_bytes": nbytes,
+           "commits_3c": commit_times}
+    opened = []
+    try:
+        # (a) the merge against the full sort: phase 3's graph after one
+        # staged batch, then the sweep's smaller graphs
+        b = UpdateBatch(sess.ns)
+        stage(b, edge_batch(src, dst, n, rng))
+        dirty, _ = b.apply(sess.sg)
+        clock = Clock(device)
+        rep["merge"] = merge_vs_sort(dirty, clock, 3, "3i")
+        if args.profile and device.type == "cuda":
+            used = int(dirty.delta_count.max())
+            for name, run in (
+                    ("merge", lambda: dirty._merge_compact(used)),
+                    ("full_sort", lambda: dirty.with_csr())):
+                line = trace(name, run)
+                rep["merge"][f"{name}_profile"] = {
+                    k: line[k] for k in ("wall_ms", "device_busy_ms",
+                                         "kernel_launches", "top")}
+        del b, dirty
+        rep["merge_sweep"] = merge_sweep(
+            device, args.seed,
+            MERGE_SWEEP_SCALES if args.scale >= 20 else (6, args.scale))
+
+        # (b) save, two journaled commits, open on the card
+        batches = [edge_batch(src, dst, n, rng) for _ in range(3)]
+        sync(device)
+        t = time.perf_counter()
+        step0 = sess.save(str(dir_a))
+        rep["save_s"] = time.perf_counter() - t
+        rep["snapshot_disk_bytes"] = dir_bytes(dir_a / f"step_{step0}")
+        rep["journaled_commits"] = []
+        for ops in batches[:2]:
+            stage(sess, ops)
+            info = sess.commit()
+            rep["journaled_commits"].append(
+                {"apply_s": info.apply_s, "repair_s": info.repair_s,
+                 "repairs": {f"{k[0]}{dict(k[2]).get('source', '')}": v[0]
+                             for k, v in info.repairs.items()}})
+        shutil.copytree(dir_a, dir_b)     # the two journals stay apart
+        replay_s = []
+        real = DiffusionSession._replay_journal
+
+        def timed_replay(self, from_seq):
+            sync(device)
+            t = time.perf_counter()
+            out = real(self, from_seq)
+            sync(device)
+            replay_s.append(time.perf_counter() - t)
+            return out
+
+        sync(device)
+        kernel.reset_launches()
+        t = time.perf_counter()
+        with mock.patch.object(DiffusionSession, "_replay_journal",
+                               timed_replay):
+            rec = DiffusionSession.open(str(dir_b), device=device.type)
+        sync(device)
+        rep["open_s"] = time.perf_counter() - t
+        rep["replay_s"] = replay_s[0]
+        launches = {k: kernel.LAUNCHES[k] for k in (
+            "edge_relax_blocks", "edge_relax_scan", "edge_relax_push_blocks")}
+        rep["replay_launches"] = launches
+        if device.type == "cuda":
+            check(launches["edge_relax_push_blocks"] > 0,
+                  "3i: replay launched no K3")
+        opened.append(rec)
+        check(len(rec._journal) == 2, "3i: the journal lost a commit")
+        rep["open_equal"] = same_session(sess, rec, "3i open")
+        queries = [("sssp", {"source": s0}), ("bfs", {"source": s0}),
+                   ("cc", {}), ("ppr", {"source": s0})]
+        kernel.reset_launches()
+        for name, kw in queries:
+            got = rec.query(name, refresh=True, **kw)
+            want = sess.query(name, **kw)
+            check(same_bits(got.values, want.values),
+                  f"3i: {name} on the opened session differs")
+        rep["query_launches"] = {k: kernel.LAUNCHES[k] for k in launches}
+        if device.type == "cuda":
+            check(rep["query_launches"]["edge_relax_blocks"] > 0
+                  and rep["query_launches"]["edge_relax_scan"] > 0,
+                  "3i: the queries after open launched no K1 or K2")
+
+        # (c) a commit killed after its apply, then a killed save
+        stage(rec, batches[2])
+        monkey = chaos.ChaosMonkey(kill_at=("commit.applied", 0))
+        try:
+            with chaos.harness(monkey):
+                rec.commit()
+        except chaos.ChaosKill:
+            pass
+        check(monkey.fired == ("commit.applied", 0), "3i: no kill")
+        rec.close()
+        opened.remove(rec)
+        del rec
+        stage(sess, batches[2])
+        sess.commit()                     # the uninterrupted run
+        t = time.perf_counter()
+        rec = DiffusionSession.open(str(dir_b), device=device.type)
+        sync(device)
+        rep["open_after_kill_s"] = time.perf_counter() - t
+        opened.append(rec)
+        check(len(rec._journal) == 3, "3i: the killed commit is not durable")
+        same_session(sess, rec, "3i after the killed commit")
+        monkey = chaos.ChaosMonkey(kill_at=("checkpoint.pre-rename", 0))
+        try:
+            with chaos.harness(monkey):
+                rec.save()
+        except chaos.ChaosKill:
+            pass
+        check(monkey.fired == ("checkpoint.pre-rename", 0),
+              "3i: the save was not killed")
+        rec.close()
+        opened.remove(rec)
+        del rec
+        rec = DiffusionSession.open(str(dir_b), device=device.type)
+        opened.append(rec)
+        check(rec._ckpt.all_steps() == [step0],
+              "3i: the killed save published a snapshot")
+        same_session(sess, rec, "3i after the killed save")
+        rec.close()
+        opened.remove(rec)
+        del rec
+        shutil.rmtree(dir_b)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # (d) the serve loop, preempted at its 4th step
+        guard = PreemptionGuard()
+        loop_ops = [edge_batch(src, dst, n, rng) for _ in range(6)]
+
+        def loop_batches():
+            for i, ops in enumerate(loop_ops):
+                if i == 3:
+                    guard.trigger()
+                yield lambda s, ops=ops: stage(s, ops)
+
+        t = time.perf_counter()
+        loop = DurableSessionLoop(sess, str(dir_a), snapshot_every=2)
+        steps = loop.run(loop_batches(), guard=guard)
+        sync(device)
+        rep["loop_s"] = time.perf_counter() - t
+        final = sess._journal.next_seq
+        check(steps == 4 and loop.preempted
+              and sess._ckpt.latest_step() == final,
+              f"3i: the loop ran {steps} steps, preempted "
+              f"{loop.preempted}, last snapshot "
+              f"{sess._ckpt.latest_step()} (journal at {final})")
+        rep["loop"] = {"steps": steps, "preempted": loop.preempted,
+                       "snapshots": sess._ckpt.all_steps()}
+        t = time.perf_counter()
+        rec = DiffusionSession.open(str(dir_a), device=device.type)
+        sync(device)
+        rep["open_after_loop_s"] = time.perf_counter() - t
+        opened.append(rec)
+        same_session(sess, rec, "3i after the serve loop")
+    finally:
+        for r in opened:
+            r.close()
+        sess.close()
+        shutil.rmtree(base, ignore_errors=True)
+    rep["seconds"] = time.perf_counter() - t_phase
+    rep["ok"] = True
+    emit(rep)
+    return rep
 
 
 def parents_tight_logical(sess, vstate, source: int) -> bool:
@@ -2804,8 +3187,8 @@ def main(argv=None) -> int:
         ("edge_relax_blocks", "edge_relax_scan",
          "edge_relax_scan (laned, payload)"))
     k6_row = phase_k6(sess, sources, device, args.reps)
-    commit_launches, frontier0 = phase_commits(args, sess, data, sources,
-                                               roots, device)
+    commit_launches, frontier0, commit_times = phase_commits(
+        args, sess, data, sources, roots, device)
     k3_launches = (push_launches["edge_relax_push_blocks"]
                    + commit_launches["edge_relax_push_blocks"])
     k3_row, k3_detail = phase_k3_timing(sess, k3_launches, sources,
@@ -2814,6 +3197,8 @@ def main(argv=None) -> int:
     rows += phase_generic_timing(sess, rows, gen_launches, sources, roots,
                                  device, args.reps,
                                  ("edge_relax_push_blocks",))
+    durability = phase_durability(args, sess, data, sources, commit_times,
+                                  device)
     if args.profile and device.type == "cuda":
         for line in phase_profile(sess, sources, roots, data[3]):
             emit(line)
@@ -2830,6 +3215,7 @@ def main(argv=None) -> int:
               "serve": served, "lm_checks": lm, "k4_vs_plain": k4_check,
               "replicas": replicas, "oracles": oracles,
               "watchdog": watchdog, "generic": gen_launches,
+              "durability": durability,
               "seconds": time.perf_counter() - t0}
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))

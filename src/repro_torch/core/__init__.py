@@ -1,7 +1,8 @@
 # The diffusive-computation engine on PyTorch: the session (queries, graph
 # mutation and incremental repair at commit, the convergence watchdog), the
 # logical sharded engine (pull, push and auto sweeps, hub replicas), the
-# programs, the event-engine host oracle and triangle counting, with the
+# programs, the event-engine host oracle and triangle counting, durability
+# (save/open, the write-ahead journal, the chaos harness), with the
 # relaxation step on hand-written CUDA kernels (kernels/edge_relax).
 from .api import (
     Result,
@@ -42,6 +43,7 @@ from .session import (
     ConvergenceError,
     ConvergenceWarning,
     DiffusionSession,
+    JournalReplayError,
     ProgramSpec,
     ValidationError,
     register_program,
@@ -71,4 +73,5 @@ __all__ = [
     "triangle_count_exact", "triangle_count_bitset", "wedge_count",
     "cca_cost_model", "CcaCost", "PAPER_TABLE_III",
     "ConvergenceError", "ConvergenceWarning", "ValidationError",
+    "JournalReplayError",
 ]

@@ -11,8 +11,13 @@ source-sorted push twin) are maintained incrementally between rebuilds:
 deletes tombstone stream positions and adds stage into a delta segment
 (:meth:`ShardedGraph.with_edge_tombstones`, ``with_slot_tombstones``,
 ``with_staged_edges``), each an O(batch) scatter.  Compaction
-(:meth:`ShardedGraph.with_csr`) is the full stable sort; the JAX
-package's merge compaction is not ported.
+(:meth:`ShardedGraph.with_csr`) is the full stable sort.
+:meth:`ShardedGraph._merge_compact`, the JAX package's compaction at wide
+streams (a compact of the live sorted prefix, a sort of the delta segment
+alone and a ``searchsorted`` merge), gives the same bits; on the GPU it
+is slower than the sort wherever compaction takes milliseconds
+(``chip_smoke.py`` phase 3i), so it is the check of the views' order
+invariant, not a compaction path.
 """
 
 from __future__ import annotations
@@ -107,6 +112,104 @@ def _scatter_drop(a: torch.Tensor, rows, cols, vals) -> torch.Tensor:
     out[:, :w] = a
     out[rows.long(), cols.long()] = vals
     return out[:, :w].contiguous()
+
+
+def _cumsum_rows(x: torch.Tensor, block: int = 1024) -> torch.Tensor:
+    """Inclusive int32 cumsum along the last dim of ``[R, E]``, in two
+    levels: within blocks of ``block``, then over the block totals.  The
+    same integers as ``torch.cumsum``, whose scan of a few very long rows
+    runs at a few GB/s on the GPU."""
+    r, e = x.shape
+    nb = -(-e // block)
+    x = torch.nn.functional.pad(x.to(torch.int32), (0, nb * block - e))
+    inner = x.view(r, nb, block).cumsum(-1, dtype=torch.int32)
+    tot = inner[..., -1]
+    off = tot.cumsum(-1, dtype=torch.int32) - tot
+    return (inner + off[..., None]).view(r, nb * block)[:, :e]
+
+
+def _merge_compact_views(csr_key, csr_perm, csr_live, push_src, push_perm,
+                         edge_ok, sw: int, dwid: int, ep: int, used: int):
+    """Body of :meth:`ShardedGraph._merge_compact`: both views' merged
+    (key, perm, slot -> position inverse), then the push view's dense
+    positions.
+
+    Every scatter writes each target at most once and sends nothing to a
+    shared discard column (same-address stores serialize on the GPU): a
+    view's sorted prefix splits stably into its live entries, which move
+    to their merged positions, and the rest, which land past the live
+    region and are overwritten.  Only the staged entries carry the int64
+    composite ``key * (ep + 1) + slot`` (empty ones ``1 << 60``, above
+    every live composite), searched into the prefix's compacted
+    composites.  ``used`` bounds the staged columns that can hold an
+    entry (the largest per-cell ``delta_count``): staging fills each
+    cell's delta segment from its start."""
+    s_ = edge_ok.shape[0]
+    w = sw + dwid
+    dev = edge_ok.device
+    i32, i64 = torch.int32, torch.int64
+    base, big = ep + 1, 1 << 60
+    idx_a = torch.arange(sw, dtype=i32, device=dev)
+    idx_w = torch.arange(w, dtype=i32, device=dev)
+    slots = torch.arange(ep, dtype=i32, device=dev).expand(s_, ep)
+    dead = ~edge_ok
+    dead_rank = _cumsum_rows(dead)            # inclusive
+    n_dead = dead_rank[:, -1:]
+
+    def compact_merge(key, perm, live):
+        ka, pa = key[:, :sw], perm[:, :sw]
+        la = live[:, :sw] & (ka >= 0)
+        cl = _cumsum_rows(la)                 # live entries up to i
+        n_a = cl[:, -1:]
+        rank = cl - 1
+        rest = idx_a - cl                     # rank among the others
+        n_b, shift = 0, 0
+        if used:
+            kb, pb = key[:, sw:sw + used], perm[:, sw:sw + used]
+            lb = live[:, sw:sw + used] & (kb >= 0)
+            comp_b = torch.sort(torch.where(lb, kb.to(i64) * base + pb,
+                                            big), dim=1).values
+            n_b = lb.sum(1, keepdim=True, dtype=i32)
+            # the prefix's live composites compacted (already in (key,
+            # slot) order), the others after them as the sentinel
+            comp_a = torch.empty((s_, sw), dtype=i64, device=dev)
+            comp_a.scatter_(1, torch.where(la, rank, n_a + rest).long(),
+                            torch.where(la, ka.to(i64) * base + pa, big))
+            # ins[j]: the live prefix entries below staged entry j (n_a
+            # for an empty one, which then passes every prefix entry)
+            ins = torch.searchsorted(comp_a, comp_b)
+            del comp_a
+            # a live prefix entry of rank r lands after the staged entries
+            # with ins <= r; staged entry j lands at ins[j] + j
+            shift = torch.searchsorted(ins.to(i32), rank, right=True,
+                                       out_int32=True)
+        n_live = n_a + n_b
+        dest = torch.where(la, rank + shift, n_live + rest).long()
+        # perm has ep spare columns: the dead-tail scatter's discard
+        new_key = torch.empty((s_, w), dtype=i32, device=dev)
+        new_perm = torch.empty((s_, w + ep), dtype=i32, device=dev)
+        new_key.scatter_(1, dest, ka)
+        new_perm.scatter_(1, dest, pa)
+        if used:
+            at = ins + torch.arange(used, device=dev)
+            new_key.scatter_(1, at, (comp_b // base).to(i32))
+            new_perm.scatter_(1, at, (comp_b % base).to(i32))
+        # dead slots tail the live region in ascending slot order: the
+        # stable sort's tie-break on the shared sentinel key
+        new_perm.scatter_(1, torch.where(dead, n_live + dead_rank - 1,
+                                         w + slots).long(), slots)
+        new_key = torch.where(idx_w < n_live, new_key, -1)
+        new_perm = torch.where(idx_w < n_live + n_dead, new_perm[:, :w], 0)
+        # positions [0, ep) hold each slot exactly once
+        inv = torch.zeros((s_, ep), dtype=i32, device=dev)
+        inv.scatter_(1, new_perm[:, :ep].long(), slots)
+        return new_key, new_perm, inv
+
+    key, perm, inv = compact_merge(csr_key, csr_perm, csr_live)
+    psrc, pperm, pinv = compact_merge(push_src, push_perm, push_src >= 0)
+    ppos = torch.where(psrc >= 0,
+                       inv.gather(1, pperm.clamp(0, ep - 1).long()), -1)
+    return key, perm, inv, psrc, pperm, pinv, ppos
 
 
 def _count_per_cell(counts: torch.Tensor, shard, ok) -> torch.Tensor:
@@ -316,6 +419,33 @@ class ShardedGraph:
             push_inv=pinv, delta_count=zero, tomb_count=zero,
             csr_block=block, delta_blocks=delta_blocks,
         )
+
+    def _merge_compact(self, used: int | None = None) -> "ShardedGraph":
+        """Compact both views by merging instead of re-sorting.
+
+        The sorted region's live entries are already in ascending ``(key,
+        slot)`` order, the order the stable sort of the full key stream
+        gives (its tie-break is slot order, and slots are unique per
+        cell).  So folding the tombstones out is a cumsum/scatter compact,
+        only the delta segment is sorted, and the two ascending streams
+        meet through one row-wise ``searchsorted`` of the staged entries
+        into the prefix.  Dead slots fill the tail in ascending slot order:
+        the full rebuild, bit for bit, on views whose sorted prefix keeps
+        its live entries in that order: the invariant the incremental
+        patches must keep.  ``used`` is the largest per-cell
+        ``delta_count`` (read from the device when not given)."""
+        if used is None:
+            used = int(self.delta_count.max())
+        key, perm, inv, psrc, pperm, pinv, ppos = _merge_compact_views(
+            self.csr_key, self.csr_perm, self.csr_live, self.push_src,
+            self.push_perm, self.edge_ok, self.sorted_width,
+            self.delta_width, self.edges_per_shard, used)
+        zero = torch.zeros((self.n_shards,), dtype=torch.int32,
+                           device=self.device)
+        return dataclasses.replace(
+            self, csr_perm=perm, csr_key=key, csr_live=key >= 0,
+            csr_inv=inv, push_perm=pperm, push_src=psrc, push_pos=ppos,
+            push_inv=pinv, delta_count=zero, tomb_count=zero)
 
     def invalidate_csr(self) -> "ShardedGraph":
         """Drop both blocked-CSR views (the next diffusion rebuilds them)."""

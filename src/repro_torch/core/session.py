@@ -51,14 +51,29 @@ says what follows — ``"raise"`` (:class:`ConvergenceError`), ``"warn"``
 value of a live vertex against its program's Field schema and raises
 :class:`ValidationError` on NaN or a value outside the field's domain.
 
-Not ported yet, each raising :class:`NotImplementedError` that names its
-slice: ``save``/``open`` and the write-ahead journal, and the ``spmd``
-engine.
+**Durability**: ``save(directory)`` snapshots the whole session (graph
+arrays with both views and their delta/tombstone state, the partition and
+replica maps, the NameServer with its free-list order, every cached fixed
+point and the settings) through :class:`~repro_torch.checkpoint.manager.
+CheckpointManager`, and arms a write-ahead journal (journal.py): from then
+on ``commit()`` appends the batch's logical ops before it mutates anything.
+``DiffusionSession.open(directory)`` loads the newest whole snapshot onto
+``device`` (the GPU by default) and redoes the journal's tail through the
+same apply and repair path, so the recovered session is bitwise the one
+that never crashed (for commits that ran with the session's
+``max_local_iters``: the journal does not record a per-commit one).  The
+snapshot format is the JAX package's, so ``open`` also reads a directory
+that package wrote.
+
+Not ported yet, raising :class:`NotImplementedError` that names its slice:
+the ``spmd`` engine.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 import warnings
 from typing import Any, NamedTuple
@@ -66,10 +81,18 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from .diffuse import diffuse, diffuse_from, exact_streams_for, logical_view
+from . import chaos
+from .diffuse import (
+    DiffuseStats,
+    diffuse,
+    diffuse_from,
+    exact_streams_for,
+    logical_view,
+)
 from .dynamic import NameServer, _invalidate_subtrees
-from .graph import from_edges
-from .partition import Partitioned, partition
+from .graph import ShardedGraph, from_edges
+from .journal import OpRecord, UpdateJournal
+from .partition import Partitioned, ReplicaInfo, partition
 from .programs import (
     PROGRAMS,
     BoundQuery,
@@ -85,10 +108,21 @@ from .updates import AppliedUpdates, UpdateBatch
 
 __all__ = ["DiffusionSession", "Result", "CommitInfo", "ProgramSpec",
            "register_program", "PROGRAMS", "ENGINES", "ON_BUDGET",
-           "ConvergenceError", "ConvergenceWarning", "ValidationError"]
+           "ConvergenceError", "ConvergenceWarning", "ValidationError",
+           "JournalReplayError"]
 
 ENGINES = ("sharded", "event", "spmd")
 ON_BUDGET = ("raise", "warn", "partial")
+
+SNAPSHOT_FORMAT = 1
+_JOURNAL_FILE = "journal.bin"
+
+
+def _json_np(o):
+    """json.dumps fallback: numpy scalars in cached query kwargs."""
+    if isinstance(o, np.generic):
+        return o.item()
+    raise TypeError(f"not JSON-serializable: {type(o).__name__}")
 
 
 def _later(what: str, slice_name: str):
@@ -109,6 +143,11 @@ class ConvergenceWarning(UserWarning):
 class ValidationError(RuntimeError):
     """A query result violated its program's Field schema (``validate=``):
     NaN in a float field, or a value outside the field's domain."""
+
+
+class JournalReplayError(RuntimeError):
+    """Journal replay diverged from the snapshot (e.g. a replayed vertex
+    allocation produced a different id) — the store is inconsistent."""
 
 
 class Result(NamedTuple):
@@ -162,7 +201,8 @@ class _Entry:
                                  #   (queries use the session's, repairs
                                  #   default to the push sweep)
     delta: float | None = None   # delta-stepping gate, kept across repairs
-    kwargs: dict = dataclasses.field(default_factory=dict)  # run_fn's
+    kwargs: dict = dataclasses.field(default_factory=dict)  # the query's
+                                 #   own (a snapshot rebuilds the program)
     raw: Any = None              # run_fn queries (triangles): the cached
                                  #   Result itself, recounted at commit
 
@@ -187,7 +227,8 @@ class DiffusionSession:
                  engine: str = "sharded", sweep: str = "pull",
                  max_local_iters: int = 64, max_rounds: int = 10_000,
                  max_cache_entries: int | None = None,
-                 on_budget: str = "warn", validate: bool = False):
+                 on_budget: str = "warn", validate: bool = False,
+                 journal_fsync: str = "always", snapshot_keep: int = 3):
         self._check_engine(engine)
         _check_sweep(sweep)
         if max_cache_entries is not None and max_cache_entries < 1:
@@ -211,6 +252,12 @@ class DiffusionSession:
         self.validate = validate
         self._cache: dict[tuple, _Entry] = {}
         self._pending: UpdateBatch | None = None
+        # durability: armed by save()/open()
+        self._dur_dir: str | None = None
+        self._ckpt = None                       # CheckpointManager
+        self._journal: UpdateJournal | None = None
+        self._journal_fsync = journal_fsync
+        self._snapshot_keep = snapshot_keep
 
     @staticmethod
     def _check_engine(engine: str):
@@ -437,7 +484,8 @@ class DiffusionSession:
         program = adhoc if adhoc is not None else spec.factory(**kwargs)
         vstate, stats = self._run_diffusion(program, sweep, delta)
         entry = _Entry(spec, program, value_key or spec.value_key, vstate,
-                       stats, sweep=explicit_sweep, delta=delta)
+                       stats, sweep=explicit_sweep, delta=delta,
+                       kwargs=dict(kwargs))
         self._cache_put(key, entry)
         self._enforce_budget(stats, f"query {name!r}")
         res = self._result(entry)
@@ -490,10 +538,10 @@ class DiffusionSession:
         self._enforce_budget(stats, f"query {name!r} ({len(progs)} lanes)")
         vk = value_key or spec.value_key
         results = []
-        for i, (prog, key) in enumerate(zip(progs, keys)):
+        for i, (prog, key, kw) in enumerate(zip(progs, keys, per_lane)):
             lane_state = {k: v[:, i].contiguous() for k, v in vstate.items()}
             entry = _Entry(spec, prog, vk, lane_state, stats,
-                           sweep=explicit_sweep, delta=delta)
+                           sweep=explicit_sweep, delta=delta, kwargs=kw)
             self._cache_put(key, entry)
             res = self._result(entry)
             self._maybe_validate(entry, res, validate,
@@ -528,7 +576,7 @@ class DiffusionSession:
         key = self._key(name, engine, kwargs, sweep or self.sweep)
         self._cache_put(key, _Entry(spec, spec.factory(**kwargs),
                                     spec.value_key, vstate, stats,
-                                    sweep=sweep))
+                                    sweep=sweep, kwargs=dict(kwargs)))
         return key
 
     def vertex_state(self, name: str, engine: str | None = None,
@@ -620,22 +668,44 @@ class DiffusionSession:
 
     def commit(self, max_local_iters: int | None = None) -> CommitInfo:
         """Apply the pending batch and repair every cached fixed point by
-        frontier re-diffusion (the write-ahead journal of the JAX package
-        belongs to the durability slice)."""
-        return self._commit(max_local_iters)
+        frontier re-diffusion.
+
+        When a journal is armed (after :meth:`save`/:meth:`open`) the batch
+        is journaled **before** it mutates any state (write-ahead logging):
+        a crash after the append redoes the record at :meth:`open`, and an
+        apply that fails (e.g. a full compute cell) rolls the record back,
+        so the journal never claims an op the store rejected.  The record
+        holds the ops, not ``max_local_iters``: :meth:`open` repairs with
+        the session's own, so a commit given another value recovers to the
+        same graph but possibly other repair stats and sum values."""
+        return self._commit(max_local_iters, journal=True)
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _commit(self, max_local_iters: int | None = None) -> CommitInfo:
+    def _commit(self, max_local_iters: int | None = None,
+                journal: bool = True) -> CommitInfo:
         mli = max_local_iters or self.max_local_iters
         t0 = time.perf_counter()
         if self._pending is None or len(self._pending) == 0:
             applied = AppliedUpdates((), (), (), (), ())
         else:
-            self.part.sg, applied = self._pending.apply(self.part.sg)
+            seq = None
+            if journal and self._journal is not None:
+                # the op lists before apply clears them
+                seq = self._journal.append(OpRecord.from_batch(self._pending))
+                chaos.point("commit.journal-appended")
+            try:
+                self.part.sg, applied = self._pending.apply(self.part.sg)
+            except Exception:
+                # the store rejected the batch: un-journal it (ChaosKill is
+                # a BaseException and escapes this on purpose)
+                if seq is not None:
+                    self._journal.rollback(seq)
+                raise
             self._pending = None
+            chaos.point("commit.applied")
         self._sync()
         t1 = time.perf_counter()
         repairs = {}
@@ -646,6 +716,8 @@ class DiffusionSession:
             repairs[key] = self._repair_entry(entry, applied, mli)
         self._sync()
         t2 = time.perf_counter()
+        if applied.n_ops:
+            chaos.point("commit.repaired")
         for key, (strategy, stats) in repairs.items():
             if stats is not None:
                 self._enforce_budget(stats, f"commit repair ({strategy}) "
@@ -858,12 +930,289 @@ class DiffusionSession:
                     f"{hi} on live vertices (max {a.max()})")
 
     # ------------------------------------------------------------------
-    # later slices
+    # durability: snapshot + write-ahead journal
     # ------------------------------------------------------------------
 
-    def save(self, directory: str | None = None):
-        _later("save()", "durability")
+    def _attach(self, directory: str) -> None:
+        # lazy import: checkpoint.manager imports core.chaos, which runs
+        # core/__init__ (and so this module)
+        from ..checkpoint.manager import CheckpointManager
+
+        directory = os.path.abspath(directory)
+        if self._dur_dir is not None:
+            if directory != self._dur_dir:
+                raise ValueError(
+                    f"session is already durable at {self._dur_dir}; "
+                    f"cannot re-home it to {directory}")
+            return
+        os.makedirs(directory, exist_ok=True)
+        self._dur_dir = directory
+        self._ckpt = CheckpointManager(directory, keep=self._snapshot_keep)
+        self._journal = UpdateJournal(
+            os.path.join(directory, _JOURNAL_FILE),
+            fsync=self._journal_fsync)
+
+    def save(self, directory: str | None = None) -> int:
+        """Snapshot the full session and arm the write-ahead journal.
+
+        The first call names the durability directory; later calls may
+        omit it.  The snapshot holds everything :meth:`open` needs to
+        resume bitwise: the graph arrays (both views, delta/tombstone
+        state, replica maps), the partition, the NameServer (free-list
+        order included), every cached fixed point a registered program can
+        rebuild (vstate + stats; a run_fn query's Result), and the
+        session's settings.  Writes are atomic (a tmp dir renamed into
+        place, digests in a manifest, the last ``snapshot_keep`` kept), so
+        a death mid-save leaves the previous snapshot whole.  The journal
+        head is then garbage-collected up to the oldest retained snapshot.
+        Returns the snapshot step (the journal seq it is consistent with).
+
+        Uncommitted pending ops are not captured: commit() first."""
+        if directory is None:
+            directory = self._dur_dir
+        if directory is None:
+            raise ValueError(
+                "save() needs a directory the first time "
+                "(session.save('/path/to/dir'))")
+        if self._pending is not None and len(self._pending):
+            warnings.warn(
+                "save() with uncommitted pending updates: the snapshot "
+                "captures committed state only — commit() first to make "
+                "the pending batch durable")
+        self._attach(directory)
+        step = self._journal.next_seq
+        tree, meta = self._snapshot_tree()
+        meta["format"] = SNAPSHOT_FORMAT
+        meta_bytes = json.dumps(meta, default=_json_np).encode()
+        tree["session_meta"] = np.frombuffer(meta_bytes, np.uint8).copy()
+        self._ckpt.save(step, tree, wait=True)
+        steps = self._ckpt.all_steps()
+        if steps:
+            self._journal.truncate(min(steps))
+        return step
+
+    def _snapshot_tree(self) -> tuple[dict, dict]:
+        """-> (flat leaf dict, JSON-ready metadata) of one snapshot, with
+        the JAX package's leaf names and keys (no ``backend``: the port
+        has one)."""
+        sg = self.sg
+        tree: dict[str, Any] = {f"graph/{k}": v
+                                for k, v in sg.state_dict().items()}
+        tree["part/owner"] = self.part.owner_np
+        tree["part/local"] = self.part.local_np
+        rep = self.part.replica
+        if rep is not None:
+            for f in ReplicaInfo._fields:
+                tree[f"replica/{f}"] = getattr(rep, f)
+        if self._ns is not None:
+            for k, v in self._ns.state_dict().items():
+                tree[f"ns/{k}"] = v
+        meta = {
+            "engine": self.engine,
+            "sweep": self.sweep,
+            "max_local_iters": self.max_local_iters,
+            "max_rounds": self.max_rounds,
+            "max_cache_entries": self.max_cache_entries,
+            "on_budget": self.on_budget,
+            "validate": self.validate,
+            "snapshot_keep": self._snapshot_keep,
+            "graph_meta": sg.meta_dict(),
+            "n_real": int(self.part.n_real),
+            "has_ns": self._ns is not None,
+            "has_replica": rep is not None,
+            "cache": [],
+        }
+        for i, (key, entry) in enumerate(self._cache.items()):
+            name = entry.spec.name
+            if name.startswith("adhoc:") or name not in PROGRAMS:
+                warnings.warn(
+                    f"snapshot skips cache entry {name!r}: ad-hoc "
+                    f"programs are not reconstructible by name (the "
+                    f"query recomputes after open())")
+                continue
+            em: dict[str, Any] = {
+                "name": name,
+                "value_key": entry.value_key,
+                "kwargs": entry.kwargs,
+                "engine": key[1],
+                "delta": entry.delta,
+                "sweep": entry.sweep,
+                # the key resolved a defaulted sweep to the session's:
+                # open() rebuilds the identical key from it
+                "key_sweep": entry.sweep or self.sweep,
+            }
+            if entry.spec.run_fn is not None:
+                em["kind"] = "run_fn"
+                em["extra_scalars"] = {}
+                em["extra_arrays"] = []
+                tree[f"cache/{i}/raw"] = np.asarray(entry.raw.values)
+                for k, v in entry.raw.extra.items():
+                    if isinstance(v, np.ndarray):
+                        em["extra_arrays"].append(k)
+                        tree[f"cache/{i}/extra/{k}"] = v
+                    else:
+                        em["extra_scalars"][k] = v
+            else:
+                em["kind"] = "diffuse"
+                em["vstate_fields"] = list(entry.vstate.keys())
+                for f, leaf in entry.vstate.items():
+                    tree[f"cache/{i}/vstate/{f}"] = leaf
+                if isinstance(entry.stats, DiffuseStats):
+                    em["stats"] = "diffuse"
+                    for f in DiffuseStats._fields:
+                        tree[f"cache/{i}/stats/{f}"] = getattr(
+                            entry.stats, f)
+                else:
+                    em["stats"] = None
+            meta["cache"].append(em)
+        return tree, meta
 
     @classmethod
-    def open(cls, directory: str, **kwargs):
-        _later("DiffusionSession.open()", "durability")
+    def open(cls, directory: str, journal_fsync: str = "always",
+             step: int | None = None, device="cuda") -> "DiffusionSession":
+        """Recover a session onto ``device`` (the GPU unless the caller
+        asks for the CPU): the newest whole snapshot, then the journal's
+        tail redone.
+
+        A damaged latest snapshot (torn manifest, missing leaf, digest
+        mismatch) falls back to the previous retained one; the journal's
+        opening scan truncates a torn tail; then every journaled commit
+        with ``seq >=`` the snapshot's step is redone through the same
+        apply and repair path the live commits took.  The recovered session
+        is bitwise the one that never crashed: graph arrays, cache keys and
+        query results alike, where every journaled commit used the
+        session's ``max_local_iters`` (the journal does not record another;
+        the replay repairs with the session's).  A directory the JAX
+        package wrote opens too (its ``backend`` is ignored, its int32
+        stats widen to int64)."""
+        from ..checkpoint.manager import CheckpointManager
+
+        directory = os.path.abspath(directory)
+        ckpt = CheckpointManager(directory)
+        arrays, loaded_step = ckpt.restore_flat(step=step)
+        meta = json.loads(arrays.pop("session_meta").tobytes())
+        if meta.get("format") != SNAPSHOT_FORMAT:
+            raise IOError(
+                f"snapshot format {meta.get('format')!r} is not "
+                f"{SNAPSHOT_FORMAT} (newer writer?)")
+        graph_arrays = {k.split("/", 1)[1]: v for k, v in arrays.items()
+                        if k.startswith("graph/")}
+        sg = ShardedGraph.from_state(graph_arrays, meta["graph_meta"],
+                                     device=device)
+        replica = None
+        if meta["has_replica"]:
+            replica = ReplicaInfo(*(np.asarray(arrays[f"replica/{f}"])
+                                    for f in ReplicaInfo._fields))
+        part = Partitioned(sg, arrays["part/owner"], arrays["part/local"],
+                           n_real=meta["n_real"], replica=replica)
+        ns = None
+        if meta["has_ns"]:
+            ns_arrays = {k.split("/", 1)[1]: v for k, v in arrays.items()
+                         if k.startswith("ns/")}
+            ns = NameServer.from_state(ns_arrays, sg.n_shards,
+                                       replica=replica)
+        sess = cls(part, ns=ns, engine=meta["engine"], sweep=meta["sweep"],
+                   max_local_iters=meta["max_local_iters"],
+                   max_rounds=meta["max_rounds"],
+                   max_cache_entries=meta["max_cache_entries"],
+                   on_budget=meta["on_budget"], validate=meta["validate"],
+                   journal_fsync=journal_fsync,
+                   snapshot_keep=meta.get("snapshot_keep", 3))
+        ckpt.keep = sess._snapshot_keep
+        sess._restore_cache(meta["cache"], arrays)
+        sess._dur_dir = directory
+        sess._ckpt = ckpt
+        sess._journal = UpdateJournal(
+            os.path.join(directory, _JOURNAL_FILE), fsync=journal_fsync)
+        sess._replay_journal(loaded_step)
+        return sess
+
+    def _restore_cache(self, cache_meta: list, arrays: dict) -> None:
+        dev = self.device
+        up = lambda a: torch.from_numpy(a).to(dev)
+
+        def stat(a):
+            # the JAX package's counters are int32; the port's int64
+            t = up(a)
+            return t if t.dtype == torch.bool else t.to(torch.int64)
+
+        for i, em in enumerate(cache_meta):
+            name = em["name"]
+            if name not in PROGRAMS:
+                warnings.warn(
+                    f"snapshot cache entry {name!r} is no longer in the "
+                    f"program registry; skipping (it recomputes on query)")
+                continue
+            spec = PROGRAMS[name]
+            kwargs = dict(em["kwargs"])
+            engine = em["engine"]
+            self._check_engine(engine)
+            if em["kind"] == "run_fn":
+                extra = dict(em["extra_scalars"])
+                for k in em["extra_arrays"]:
+                    extra[k] = np.asarray(arrays[f"cache/{i}/extra/{k}"])
+                res = Result(values=np.asarray(arrays[f"cache/{i}/raw"]),
+                             stats=None, extra=extra)
+                self._cache_put(self._key(name, engine, kwargs),
+                                _Entry(spec, None, em["value_key"], None,
+                                       None, kwargs=kwargs, raw=res))
+                continue
+            vstate = {f: up(arrays[f"cache/{i}/vstate/{f}"])
+                      for f in em["vstate_fields"]}
+            stats = None
+            if em["stats"] == "diffuse":
+                stats = DiffuseStats(*(stat(arrays[f"cache/{i}/stats/{f}"])
+                                       for f in DiffuseStats._fields))
+            key = self._key(name, engine, kwargs, em["key_sweep"],
+                            em["delta"])
+            self._cache_put(key, _Entry(
+                spec, spec.factory(**kwargs), em["value_key"], vstate, stats,
+                sweep=em["sweep"], delta=em["delta"], kwargs=kwargs))
+
+    def _replay_journal(self, from_seq: int) -> int:
+        """Redo journaled commits on top of the snapshot (WAL recovery).
+
+        Each record rebuilds an UpdateBatch and runs the normal commit path
+        (journaling off), so NameServer allocation, replica routing, the
+        compaction policy and the cache repairs all re-run as they did
+        live.  Vertex adds allocate gids eagerly at ``add_vertex`` time,
+        before the commit that journals them, so a snapshot may already
+        hold a journaled allocation: those are verified and reused; newer
+        ones are re-allocated and must come out identical (gids are
+        monotonic, never reused)."""
+        replayed = 0
+        for _seq, rec in self._journal.replay(from_seq):
+            batch = UpdateBatch(self.ns)
+            for gid, s, l in rec.vadds.tolist():
+                if gid < self.ns._next:
+                    if self.ns.resolve(gid) != (s, l):
+                        raise JournalReplayError(
+                            f"replayed vertex add gid={gid} resolves to "
+                            f"{self.ns.resolve(gid)}, journal says "
+                            f"({s}, {l})")
+                else:
+                    got = self.ns.allocate(int(s))
+                    if got != (gid, s, l):
+                        raise JournalReplayError(
+                            f"replayed allocation produced {got}, "
+                            f"journal says ({gid}, {s}, {l})")
+                batch._vadds.append((int(gid), int(s), int(l)))
+            for g in rec.vdels.tolist():
+                batch.delete_vertex(g)
+            for (u, v), w in zip(rec.eadds.tolist(), rec.ea_w.tolist()):
+                batch.add_edge(u, v, w)
+            for u, v in rec.edels.tolist():
+                batch.delete_edge(u, v)
+            for g in rec.touch.tolist():
+                batch.touch_vertex(g)
+            self._pending = batch
+            self._commit(journal=False)
+            replayed += 1
+        return replayed
+
+    def close(self) -> None:
+        """Flush + close the journal (snapshots need no close); later
+        commits are not journaled."""
+        if self._journal is not None:
+            self._journal.close()
+            self._journal = None

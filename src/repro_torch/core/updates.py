@@ -39,7 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .graph import TOMBSTONE_COMPACT_FRACTION, _scatter_drop
+from .graph import TOMBSTONE_COMPACT_FRACTION, _cumsum_rows, _scatter_drop
 
 __all__ = ["UpdateBatch", "AppliedUpdates", "apply_updates"]
 
@@ -66,20 +66,6 @@ class AppliedUpdates(NamedTuple):
         return (len(self.vertex_adds) + len(self.vertex_deletes)
                 + len(self.edge_adds) + len(self.edge_deletes)
                 + len(self.touched))
-
-
-def _cumsum_rows(x: torch.Tensor, block: int = 1024) -> torch.Tensor:
-    """Inclusive int32 cumsum along the last dim of ``[R, E]``, in two
-    levels: within blocks of ``block``, then over the block totals.  The
-    same integers as ``torch.cumsum``, whose scan of a few very long rows
-    runs at a few GB/s on the GPU."""
-    r, e = x.shape
-    nb = -(-e // block)
-    x = torch.nn.functional.pad(x.to(torch.int32), (0, nb * block - e))
-    inner = x.view(r, nb, block).cumsum(-1, dtype=torch.int32)
-    tot = inner[..., -1]
-    off = tot.cumsum(-1, dtype=torch.int32) - tot
-    return (inner + off[..., None]).view(r, nb * block)[:, :e]
 
 
 def _match_deletes(sg, su, lu, vg, occ):

@@ -7,9 +7,13 @@ admits a request into a free KV-cache slot (batch 1, on the K4 attention
 kernel); a decode step advances every active slot by one greedy token;
 a finished sequence frees its slot.  Like the reference, ``step`` runs
 every slot at one shared ``cache_len = max(lens[active]) - 1``, which is
-right only when the active prompts have equal lengths.  The graph-store
-loop ``DurableSessionLoop`` waits for the port's durability (ROADMAP
-queue 1).
+right only when the active prompts have equal lengths.
+
+:class:`DurableSessionLoop` is the graph-store analogue: a streaming-update
+loop over a :class:`~repro_torch.core.session.DiffusionSession` with
+write-ahead journaled commits, periodic snapshots, and
+:class:`~repro_torch.runtime.fault_tolerance.PreemptionGuard`-driven
+checkpoint-and-exit; the restart path is ``DiffusionSession.open(dir)``.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ import numpy as np
 import torch
 
 from ..configs import registry
+from ..core import chaos
 from ..models import transformer
+from ..runtime.fault_tolerance import PreemptionGuard
 
 
 class DecodeServer:
@@ -80,6 +86,61 @@ class DecodeServer:
         out = self.tokens[slot, : self.lens[slot]].copy()
         self.lens[slot] = 0
         return out
+
+
+class DurableSessionLoop:
+    """Preemption-safe streaming-update loop over a DiffusionSession.
+
+    Each step stages one batch of graph updates, commits it (the commit
+    journals before it mutates), and snapshots every ``snapshot_every``
+    steps.  A SIGTERM/SIGINT observed by the guard stops the loop at the
+    next step boundary with a final snapshot, so a preemption loses
+    nothing: the journal holds every committed step since the last
+    snapshot, and ``DiffusionSession.open(directory)`` replays it.
+
+        loop = DurableSessionLoop(sess, "/data/store")
+        loop.run(batches)           # installs/uninstalls its own guard
+
+    ``batches`` is an iterable of callables, each staging one batch of
+    ops on the session (``lambda s: s.add_edge(u, v, w)``).
+    """
+
+    def __init__(self, session, directory: str, snapshot_every: int = 16):
+        self.session = session
+        self.directory = directory
+        self.snapshot_every = int(snapshot_every)
+        self.steps = 0
+        self.preempted = False
+        session.save(directory)      # arm the journal + initial snapshot
+
+    def step(self, stage) -> None:
+        """Stage + commit one update batch (journaled), maybe snapshot."""
+        stage(self.session)
+        self.session.commit()
+        self.steps += 1
+        chaos.point("serve.step")
+        if self.snapshot_every and self.steps % self.snapshot_every == 0:
+            self.session.save()
+
+    def run(self, batches, guard: PreemptionGuard | None = None) -> int:
+        """Consume ``batches`` until exhausted or preempted; returns the
+        number of steps completed.  A caller-provided guard is polled
+        but not installed/uninstalled (the caller owns its lifetime)."""
+        own = guard is None
+        if own:
+            guard = PreemptionGuard()
+            guard.install()
+        try:
+            for stage in batches:
+                self.step(stage)
+                if guard.should_stop:
+                    self.preempted = True
+                    self.session.save()      # checkpoint-and-exit
+                    break
+            return self.steps
+        finally:
+            if own:
+                guard.uninstall()
 
 
 def parser() -> argparse.ArgumentParser:

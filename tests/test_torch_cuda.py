@@ -18,7 +18,12 @@ KernelEmit: the builtins stripped of theirs and user programs, a custom
 monoid op and identity) bitwise their plain versions, a division by a
 constant as torch's CUDA kernel does it, and the quickstart's reliability
 through the session (push and auto bitwise pull, lanes bitwise solo, a
-commit bitwise a fresh query)."""
+commit bitwise a fresh query).  Durability on the card: ``open(device=
+"cuda")`` puts every tensor there, save + commits + open on the card is
+bitwise the live session, the merge compaction is bitwise the full sort,
+and a CPU and a CUDA session with one history write snapshots with equal
+digests (graph, partition, NameServer, min/max entries; ppr within its
+eps)."""
 
 import numpy as np
 import pytest
@@ -912,3 +917,152 @@ def test_reliability_sweeps_lanes_and_commit_on_gpu(gpu_session):
     repaired = gpu.query(name, source=1)
     fresh = gpu.query(name, source=1, refresh=True)
     assert np.array_equal(repaired.values, fresh.values)
+
+
+# ---------------------------------------------------------------------------
+# durability and the merge compaction on the card
+# ---------------------------------------------------------------------------
+
+
+def _durable_history(sess, src, dst, n):
+    """Queries, then one commit of deletes, adds and a new vertex."""
+    for name, q in (("sssp", {"source": 1}), ("bfs", {"source": 1}),
+                    ("cc", {}), ("ppr", {"source": 1})):
+        sess.query(name, **q)
+    rng = np.random.default_rng(5)
+    for i in rng.choice(len(src), 20, replace=False):
+        sess.delete_edge(int(src[i]), int(dst[i]))
+    for a, b in rng.integers(0, n, (20, 2)):
+        sess.add_edge(int(a), int(b), 2.5)
+    g = sess.add_vertex()
+    sess.add_edge(g, 3, 1.0)
+    sess.add_edge(4, g, 1.0)
+    sess.commit()
+
+
+def _sessions_equal(a, b):
+    sa, sb = a.sg.state_dict(), b.sg.state_dict()
+    assert sorted(sa) == sorted(sb)
+    for k in sa:
+        assert torch.equal(sa[k].cpu(), sb[k].cpu()), k
+    na, nb = a.ns.state_dict(), b.ns.state_dict()
+    assert sorted(na) == sorted(nb)
+    for k in na:
+        assert np.array_equal(na[k], nb[k]), k
+    assert list(a._cache) == list(b._cache)
+    for key, ea in a._cache.items():
+        eb = b._cache[key]
+        for f in ea.vstate:
+            assert torch.equal(ea.vstate[f].cpu(), eb.vstate[f].cpu()), key
+        for x, y in zip(ea.stats, eb.stats):
+            assert torch.equal(x.cpu(), y.cpu()), key
+
+
+def test_open_on_the_card_places_every_tensor_there(gpu_session, tmp_path):
+    _, (src, dst, w, n) = gpu_session
+    cpu = DiffusionSession.from_edges(src, dst, n, w, n_cells=4,
+                                      edge_slack=0.2, node_slack=0.05,
+                                      device="cpu")
+    _durable_history(cpu, src, dst, n)
+    cpu.save(str(tmp_path))
+    got = DiffusionSession.open(str(tmp_path))
+    assert got.device.type == "cuda"
+    for k, t in got.sg.state_dict().items():
+        assert t.is_cuda, k
+    assert got.part.owner.is_cuda and got.part.local.is_cuda
+    for key, entry in got._cache.items():
+        for f, t in entry.vstate.items():
+            assert t.is_cuda, (key, f)
+        for t in entry.stats:
+            assert t.is_cuda, key
+    _sessions_equal(cpu, got)
+
+
+def test_save_and_open_on_the_card_bitwise(gpu_session, tmp_path):
+    """Save on the card, two journaled commits, open on the card: the
+    replayed session (K3 launched by its repairs) is the live one."""
+    _, (src, dst, w, n) = gpu_session
+    live = DiffusionSession.from_edges(src, dst, n, w, n_cells=4,
+                                       edge_slack=0.2, node_slack=0.05,
+                                       device="cuda")
+    _durable_history(live, src, dst, n)
+    live.save(str(tmp_path))
+    rng = np.random.default_rng(8)
+    for _ in range(2):
+        for i in rng.choice(len(src), 10, replace=False):
+            live.delete_edge(int(src[i]), int(dst[i]))
+        for a, b in rng.integers(0, n, (10, 2)):
+            live.add_edge(int(a), int(b), 1.5)
+        live.commit()
+    kernel.reset_launches()
+    got = DiffusionSession.open(str(tmp_path), device="cuda")
+    assert kernel.LAUNCHES["edge_relax_push_blocks"] > 0
+    _sessions_equal(live, got)
+    for name, q in (("sssp", {"source": 1}), ("cc", {}),
+                    ("ppr", {"source": 1})):
+        a = live.query(name, refresh=True, **q)
+        b = got.query(name, refresh=True, **q)
+        assert np.array_equal(a.values, b.values), name
+
+
+def test_merge_compaction_on_the_card_is_the_full_sort(cuda):
+    from repro_torch.core.api import build
+    from repro_torch.core.dynamic import NameServer, edge_add, edge_delete
+
+    src, dst, w, n = make_graph_family("scale_free", 2500, seed=17)
+    dirty = {}
+    for dev in ("cpu", "cuda"):
+        part = build(src, dst, n, w, n_cells=2, edge_slack=0.3, device=dev)
+        sg, ns = part.sg, NameServer(part)
+        rng = np.random.default_rng(0)
+        for i in rng.choice(src.shape[0] // 2, 40, replace=False):
+            sg = edge_delete(sg, ns, int(src[i]), int(dst[i]))
+        for _ in range(30):
+            u, v = int(rng.integers(0, n)), int(rng.integers(0, n))
+            if u != v:
+                sg = edge_add(sg, ns, u, v, 0.5)
+        dirty[dev] = sg
+    sg = dirty["cuda"]
+    assert sg.sorted_width >= 4096 and int(sg.tomb_count.sum()) > 0
+    merged = sg._merge_compact()
+    full = sg.with_csr()
+    on_cpu = dirty["cpu"]._merge_compact()
+    for f in ("csr_perm", "csr_key", "csr_live", "csr_inv", "push_perm",
+              "push_src", "push_pos", "push_inv"):
+        a = getattr(merged, f)
+        assert a.is_cuda and torch.equal(a, getattr(full, f)), f
+        assert torch.equal(a.cpu(), getattr(on_cpu, f)), f
+    assert merged.with_csr() is merged
+
+
+def test_cpu_and_card_snapshots_have_equal_digests(gpu_session, tmp_path):
+    import json
+
+    _, (src, dst, w, n) = gpu_session
+    dirs = {}
+    for dev in ("cpu", "cuda"):
+        sess = DiffusionSession.from_edges(src, dst, n, w, n_cells=4,
+                                           edge_slack=0.2, node_slack=0.05,
+                                           device=dev)
+        _durable_history(sess, src, dst, n)
+        dirs[dev] = str(tmp_path / dev)
+        step = sess.save(dirs[dev])
+    man = {}
+    for dev, d in dirs.items():
+        with open(f"{d}/step_{step}/manifest.json") as f:
+            man[dev] = json.load(f)["leaves"]
+    assert sorted(man["cpu"]) == sorted(man["cuda"])
+    meta = json.loads(np.load(f"{dirs['cpu']}/step_{step}/session_meta.npy")
+                      .tobytes())
+    kinds = {str(i): em["name"] for i, em in enumerate(meta["cache"])}
+    assert sorted(kinds.values()) == ["bfs", "cc", "ppr", "sssp"]
+    for leaf, m in man["cpu"].items():
+        top = leaf.split("/")[0]
+        if top == "cache" and kinds[leaf.split("/")[1]] == "ppr":
+            if "/vstate/" in leaf:
+                a, b = (np.load(f"{d}/step_{step}/{man[dev][leaf]['file']}")
+                        for dev, d in dirs.items())
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+            continue
+        if top in ("graph", "part", "ns", "cache"):
+            assert m["digest"] == man["cuda"][leaf]["digest"], leaf

@@ -56,7 +56,8 @@ def test_the_port_has_modules():
                 "kernels/segment_reduce/kernel.py",
                 "kernels/sssp_relax/kernel.py", "models/common.py",
                 "models/transformer.py", "configs/registry.py",
-                "launch/serve.py"):
+                "launch/serve.py", "core/chaos.py", "core/journal.py",
+                "checkpoint/manager.py", "runtime/fault_tolerance.py"):
         assert mod in names
 
 
@@ -74,11 +75,13 @@ def test_no_jax_or_reference_imports(path):
 def test_entry_points_default_to_the_card():
     import inspect
 
+    from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.core import api, graph, session, triangles
     from repro_torch.core.partition import Partitioned
 
     for fn in (graph.from_edges, api.build,
                session.DiffusionSession.from_edges,
+               session.DiffusionSession.open, CheckpointManager.restore,
                graph.ShardedGraph.from_state, Partitioned.from_numpy,
                triangles.triangle_count_bitset):
         default = inspect.signature(fn).parameters["device"].default
