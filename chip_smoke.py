@@ -69,6 +69,33 @@ kernels line and the final result line):
    ``ConvergenceError`` under ``on_budget="raise"``, warns under
    ``"warn"``, is silent under ``"partial"``; ``validate=True`` passes on
    phase 3's cached results;
+3j. the SPMD engine (``engine="spmd"``, one compute cell per rank):
+   a world of one on NCCL (``launch.mesh.cells_group(1)``) on a one-cell
+   session of phase 3's edges (one cell of about 32 M slots): sssp with
+   parents, bfs, cc and widest with parents on pull and push bitwise
+   ``engine="sharded"`` on the same session (values, state, every
+   DiffuseStats counter), ppr and pagerank within ``n * eps`` L1, 4 sssp
+   lanes bitwise their solo queries, and a commit (3c's first kind) with
+   spmd sssp, cc and ppr cached: ppr restarts on spmd, the warm repairs
+   run on the logical engine, each bitwise a fresh spmd diffusion; the
+   counters zeroed just before and read just after (K1, K2 sum and
+   laned, K3 launched); then K1, K2 (4 lanes) and K3 at the per-rank
+   shapes on phase 3's 4-cell session, each cell's slice ``[c:c+1]``
+   bitwise rows ``[c]`` of the logical tables; then four ``gloo`` ranks
+   on the one card (``torch.multiprocessing``, graph500 at
+   ``--spmd-scale`` 16 over 4 cells, the edges handed over as a ``.npy``
+   under the output directory): sssp and cc on pull and auto bitwise the
+   parent's logical engine (values, state, the counters both count
+   alike).  gloo stages CUDA tensors through the host, so the ranks'
+   walls are no exchange speed;
+3k. the analysis layer on phase 3's session: a warm sssp pull query
+   under ``sanitize(transfers="log")`` (the card's synchronizing calls
+   counted, within rounds + local_iters + 1 + ``SSSP_QUERY_SYNCS``; no
+   kernel cache rebuilt), a warm 4-lane query with other roots (no
+   rebuild), a cold generic program inside ``sanitize()`` (raises
+   ``RetraceError``: its libraries build), ``.item()`` under
+   ``"disallow"`` (raises), and ``python -m repro_torch.analysis.lint
+   src/repro_torch/core src/repro_torch/kernels`` (exits 0);
 3h. the generic instances on the main path: sssp (with parents), cc and
    ppr stripped of their KernelEmit through pull, push and auto, bitwise
    phase 3's builtin answers (values, state, rounds, local iterations,
@@ -297,20 +324,31 @@ def compare_k1(sess, prog, vstate, senders):
     return hold_k1(args, sess.sg.n_shards * sess.sg.n_per_shard, prog.name)
 
 
-def compare_k2(sess, prog, vstate, senders):
-    """K2 against its plain version (bitwise) and against itself."""
+def hold_k2(args, skey, tag: str) -> float:
+    """K2 on ``args`` against its plain version (bitwise, every output)
+    and against a second launch."""
     from repro_torch.kernels.edge_relax import kernel, ref
 
+    runs = [kernel.edge_relax_scan(*args, skey=skey) for _ in range(2)]
+    want = ref.edge_relax_scan_ref(*args, skey=skey)
+    sync(args[2].device)
+    for g1, g2, w, what in zip(*runs, want, ("value", "count", "payload")):
+        check((g1 is None) == (w is None), f"K2 {tag}: {what} output")
+        if w is None:
+            continue
+        check(torch.equal(g1, g2), f"K2 {tag}: {what} scan is not "
+                                   f"deterministic run to run")
+        check(torch.equal(g1, w), f"K2 {tag}: {what} scan differs from the "
+                                  f"plain version")
+    fin = torch.isfinite(want[0].float())
+    return float((runs[0][0].float() - want[0].float())[fin].abs().max()) \
+        if bool(fin.any()) else 0.0
+
+
+def compare_k2(sess, prog, vstate, senders):
+    """K2 against its plain version (bitwise) and against itself."""
     skey, args = stream_inputs(sess, prog, vstate, senders)
-    v1, c1, _ = kernel.edge_relax_scan(*args, skey=skey)
-    v2, c2, _ = kernel.edge_relax_scan(*args, skey=skey)
-    vr, cr, _ = ref.edge_relax_scan_ref(*args, skey=skey)
-    sync(senders.device)
-    check(torch.equal(v1, v2) and torch.equal(c1, c2),
-          "K2 is not deterministic run to run")
-    check(torch.equal(v1, vr), "K2 value scan differs from the plain version")
-    check(torch.equal(c1, cr), "K2 count scan differs from the plain version")
-    return float((v1 - vr).abs().max())
+    return hold_k2(args, skey, prog.name)
 
 
 def push_inputs(sess, prog, vstate, senders, cap=None):
@@ -337,36 +375,46 @@ def push_inputs(sess, prog, vstate, senders, cap=None):
     return sgd, idx, valid, args
 
 
-def compare_k3(sess, prog, vstate, senders, cap=None):
-    """K3 against its plain version on the same inputs: bitwise on the raw
-    outputs (fill slots included) and after phase 2."""
+def hold_k3(args, valid, n_keys: int, tag: str,
+            block_e: int | None = None) -> dict:
+    """K3 on ``args`` (its compaction ``idx`` last, ``valid`` its live
+    slots) against its plain version: bitwise on the raw outputs (fill
+    slots included) and after phase 2."""
     from repro_torch.kernels.edge_relax import kernel, ops, ref
 
-    _, idx, valid, args = push_inputs(sess, prog, vstate, senders, cap)
-    got = kernel.edge_relax_push_blocks(*args)
-    want = ref.edge_relax_push_blocks_ref(*args, block_e=kernel.BLOCK_E)
-    sync(senders.device)
+    block_e = block_e or kernel.BLOCK_E
+    got = kernel.edge_relax_push_blocks(*args, block_e)
+    want = ref.edge_relax_push_blocks_ref(*args, block_e=block_e)
+    sync(args[2].device)
     err = 0.0
     for g, w, what in zip(got, want, ("part", "cnt", "uniq", "pay")):
         if w is None:
-            check(g is None, f"K3 {prog.name}: unexpected {what}")
+            check(g is None, f"K3 {tag}: unexpected {what}")
             continue
-        check(torch.equal(g, w), f"K3 {prog.name}: raw {what} differs from "
+        check(torch.equal(g, w), f"K3 {tag}: raw {what} differs from "
                                  f"the plain version")
         fin = torch.isfinite(w.float())
         if fin.any():
             err = max(err, float((g.float() - w.float())[fin].abs().max()))
-    n_keys = sess.sg.n_shards * sess.sg.n_per_shard
+    combine = args[0].combine
     tg = ref.combine_blocks(*ops._mask_fill_blocks(*got, valid), n_keys,
-                            prog.combine)
+                            combine)
     tw = ref.combine_blocks(*ops._mask_fill_blocks(*want, valid), n_keys,
-                            prog.combine)
-    sync(senders.device)
+                            combine)
+    sync(args[2].device)
     for g, w in zip(tg, tw):
         check((g is None and w is None) or torch.equal(g, w),
-              f"K3 {prog.name}: phase-2 tables differ from the plain version")
-    return {"cap": int(idx.shape[-1]), "fill_slots": int((~valid).sum()),
+              f"K3 {tag}: phase-2 tables differ from the plain version")
+    return {"cap": int(args[-1].shape[-1]), "fill_slots": int((~valid).sum()),
             "max_abs_err": err}
+
+
+def compare_k3(sess, prog, vstate, senders, cap=None):
+    """K3 against its plain version on the same inputs: bitwise on the raw
+    outputs (fill slots included) and after phase 2."""
+    _, idx, valid, args = push_inputs(sess, prog, vstate, senders, cap)
+    return hold_k3(args, valid, sess.sg.n_shards * sess.sg.n_per_shard,
+                   prog.name)
 
 
 def compare_k2_pre(sess, prog, vstate, senders):
@@ -2227,6 +2275,494 @@ def phase_watchdog(sess, queries, sources, device) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the SPMD engine (phase 3j) and the analysis layer (phase 3k)
+# --------------------------------------------------------------------------
+
+STAT_FIELDS = ("rounds", "local_iters", "actions", "remote_actions",
+               "operons_sent", "operons_delivered", "max_frontier",
+               "push_iters", "frontier_log", "dir_log", "converged")
+# the counters spmd and sharded count alike at any cell count (local and
+# push iterations are the slowest rank's on spmd, max_frontier the
+# largest cell peak)
+SPMD_SAME_STATS = ("rounds", "actions", "remote_actions", "operons_sent",
+                   "operons_delivered", "frontier_log", "converged")
+# the host reads of a warm sssp query on phase 3's session besides one
+# poll a round and a sub-iteration (and the last round's check): the
+# staged-edge counters, the watchdog's converged flag, and the results'
+# copies (dist, parent and the two live-id arrays)
+SSSP_QUERY_SYNCS = 6
+
+
+def stats_row(st) -> dict:
+    row = {f: int(getattr(st, f)) for f in (
+        "rounds", "local_iters", "actions", "remote_actions", "operons_sent",
+        "max_frontier", "push_iters")}
+    row["converged"] = bool(st.converged)
+    return row
+
+
+def result_diff(a, b, stats=STAT_FIELDS) -> list:
+    """The fields where two Results differ: values, state fields, the
+    named DiffuseStats counters."""
+    bad = [k for k in ("values", *sorted(b.extra))
+           if not same_bits(np.asarray(a.values if k == "values"
+                                       else a.extra[k]),
+                            np.asarray(b.values if k == "values"
+                                       else b.extra[k]))]
+    return bad + [f for f in stats if not torch.equal(
+        getattr(a.stats, f).cpu(), getattr(b.stats, f).cpu())]
+
+
+def spmd_rank(rank: int, ranks: int, out_dir: str, n: int, root: int,
+              device: str) -> None:
+    """One of phase 3j's ranks (``torch.multiprocessing`` spawns it): a
+    ``gloo`` rank on the one card, the session built from the parent's
+    edges, sssp and cc on pull and auto through ``engine="spmd"``; rank 0
+    writes the results and its launch counts."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import DiffusionSession
+    from repro_torch.kernels.edge_relax import kernel
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    out = Path(out_dir)
+    dist.init_process_group("gloo", init_method=f"file://{out / 'store'}",
+                            rank=rank, world_size=ranks,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        e = np.load(out / "edges.npy")
+        sess = DiffusionSession.from_edges(
+            e[0], e[1], n, e[2].view(np.float32), n_cells=ranks,
+            device=device)
+        kernel.reset_launches()
+        arrays, walls = {}, {}
+        for name, kw in (("sssp", {"source": root}), ("cc", {})):
+            for sweep in ("pull", "auto"):
+                sync(torch.device(device))
+                t = time.perf_counter()
+                r = sess.query(name, engine="spmd", sweep=sweep, **kw)
+                sync(torch.device(device))
+                walls[f"{name}-{sweep}"] = time.perf_counter() - t
+                arrays[f"{name}-{sweep}-values"] = r.values
+                for k, v in r.extra.items():
+                    arrays[f"{name}-{sweep}-extra-{k}"] = v
+                for f in STAT_FIELDS:
+                    arrays[f"{name}-{sweep}-{f}"] = getattr(
+                        r.stats, f).cpu().numpy()
+        if rank == 0:
+            np.savez(out / "ranks.npz", **arrays)
+            (out / "ranks.json").write_text(json.dumps(
+                {"walls": walls, "launches": dict(kernel.LAUNCHES),
+                 "backend": dist.get_backend()}))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_spmd(args, sess, data, sources, roots, device) -> dict:
+    """Phase 3j: the SPMD engine.  (a) A world of one on the graph500
+    session's edges at full width: every min/max builtin on pull and push,
+    ppr and pagerank, 4 sssp lanes and a commit through ``engine="spmd"``,
+    each held against ``engine="sharded"`` on the same session; (b) K1,
+    K2 (laned) and K3 at the per-rank shapes on phase 3's 4-cell session,
+    each cell's slice bitwise the logical tables' rows; (c) four ``gloo``
+    ranks on the one card against the parent's logical engine."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.core import DiffusionSession
+    from repro_torch.core.diffuse import sweep_streams
+    from repro_torch.core.generators import make_graph_family
+    from repro_torch.core.programs import PROGRAMS, make_laned
+    from repro_torch.core.relax import (
+        active_push_blocks,
+        make_relax,
+        push_caps,
+        select_bucket,
+    )
+    from repro_torch.kernels.edge_relax import kernel, ref
+    from repro_torch.launch.mesh import cells_group
+
+    t_phase = time.perf_counter()
+    src, dst, w, n = data
+    s0 = sources[0]
+
+    def timed(fn):
+        sync(device)
+        t = time.perf_counter()
+        out = fn()
+        sync(device)
+        return out, time.perf_counter() - t
+
+    # (a) a world of one at full width
+    (one, group), build_s = timed(lambda: (DiffusionSession.from_edges(
+        src, dst, n, w, n_cells=1, edge_slack=max(0.01, 4096 / src.shape[0]),
+        node_slack=max(1e-4, 64 / n), device=device),
+        cells_group(1, device)))
+    emit({"phase": "spmd_setup", "cells": 1, "ranks": 1,
+          "backend": dist.get_backend(group),
+          "n_per_shard": one.sg.n_per_shard,
+          "edges_per_shard": one.sg.edges_per_shard,
+          "build_s": build_s})
+    launches = {k: 0 for k in kernel.LAUNCHES}
+    scans = {k: 0 for k in kernel.SCAN_LAUNCHES}
+
+    def on_spmd(fn):
+        """Run ``fn`` (an spmd query) timed; its launches are the path's."""
+        before = dict(kernel.LAUNCHES), dict(kernel.SCAN_LAUNCHES)
+        out, dt = timed(fn)
+        for k in launches:
+            launches[k] += kernel.LAUNCHES[k] - before[0][k]
+        for k in scans:
+            scans[k] += kernel.SCAN_LAUNCHES[k] - before[1][k]
+        return out, dt
+
+    kernel.reset_launches()
+    rows = []
+    for name, kw in (("sssp", {"source": s0}), ("bfs", {"source": s0}),
+                     ("cc", {}), ("widest", {"source": s0,
+                                             "track_parents": True})):
+        for sweep in ("pull", "push"):
+            a, ta = on_spmd(lambda: one.query(
+                name, engine="spmd", sweep=sweep, refresh=True, **kw))
+            b, tb = timed(lambda: one.query(
+                name, engine="sharded", sweep=sweep, refresh=True, **kw))
+            bad = result_diff(a, b)
+            check(not bad, f"3j: spmd {name} {sweep} differs from sharded "
+                           f"in {bad}")
+            rows.append({"query": name, "sweep": sweep, "spmd_s": ta,
+                         "sharded_s": tb, "spmd": stats_row(a.stats),
+                         "sharded": stats_row(b.stats)})
+    for name, kw, eps in (("ppr", {"source": s0}, 1e-4),
+                          ("pagerank", {"eps": 1e-7}, 1e-7)):
+        a, ta = on_spmd(lambda: one.query(name, engine="spmd", refresh=True,
+                                          **kw))
+        b, tb = timed(lambda: one.query(name, engine="sharded",
+                                        refresh=True, **kw))
+        l1 = float(np.abs(a.values[:n] - b.values[:n]).astype(
+            np.float64).sum())
+        check(l1 <= n * eps, f"3j: spmd {name} L1 {l1} > n * eps")
+        rows.append({"query": name, "sweep": "pull", "spmd_s": ta,
+                     "sharded_s": tb, "l1": l1, "limit": n * eps,
+                     "bitwise": not result_diff(a, b),
+                     "spmd": stats_row(a.stats),
+                     "sharded": stats_row(b.stats)})
+    lane_roots = roots[:4]
+    batch, tl = on_spmd(lambda: one.query(
+        "sssp", engine="spmd", sources=lane_roots, refresh=True))
+    for r, res in zip(lane_roots, batch):
+        solo = one.query("sssp", engine="sharded", source=r, refresh=True)
+        bad = result_diff(res, solo, ())
+        check(not bad, f"3j: spmd lane {r} differs from its solo sharded "
+                       f"query in {bad}")
+    rows.append({"query": "sssp", "lanes": len(lane_roots), "spmd_s": tl,
+                 "spmd": stats_row(batch[0].stats)})
+    for r in rows:
+        emit({"phase": "spmd_query", **r})
+
+    # K1, K2 and K3 at the world of one's full width, against their plain
+    # versions (these launches are the comparison's, not the path's)
+    sssp1 = PROGRAMS["sssp"].factory(source=s0)
+    vs1 = one.vertex_state("sssp", engine="spmd", source=s0)
+    ppr1 = PROGRAMS["ppr"].factory(source=s0)
+    pvs1 = one.vertex_state("ppr", engine="spmd", source=s0)
+    full_width = {
+        "k1": compare_k1(one, sssp1, vs1, random_senders(one, args.seed + 34)),
+        "k2": compare_k2(one, ppr1, pvs1, random_senders(one, args.seed + 35)),
+        "k3": compare_k3(one, sssp1, vs1, random_senders(
+            one, args.seed + 36, 0.01))}
+    emit({"phase": "spmd_full_width", "n_keys": one.sg.n_per_shard,
+          "plain": "bitwise", **full_width})
+
+    # a commit with spmd entries cached: restart repairs rerun on spmd,
+    # warm ones on the logical engine
+    part = one.part
+    del one
+    dur = DiffusionSession(part, engine="spmd")
+    cached = [("sssp", {"source": s0}), ("cc", {}), ("ppr", {"source": s0})]
+    for name, kw in cached:
+        on_spmd(lambda: dur.query(name, **kw))
+    stage(dur, edge_batch(src, dst, n, np.random.default_rng(args.seed + 20)))
+    info, commit_s = on_spmd(dur.commit)
+    strategies = {key[0]: s for key, (s, _) in info.repairs.items()}
+    check(strategies.get("ppr") == "restart" and
+          strategies.get("sssp") not in (None, "restart", "noop"),
+          f"3j: commit repairs {strategies}")
+    for name, kw in cached:
+        got = dur.query(name, **kw)
+        fresh = DiffusionSession(part, engine="spmd").query(name, **kw)
+        bad = result_diff(got, fresh, ("converged",))
+        check(not bad, f"3j: repaired spmd {name} differs from a fresh "
+                       f"spmd diffusion in {bad}")
+        if name != "ppr":
+            logical = DiffusionSession(part).query(name, **kw)
+            check(same_bits(got.values, logical.values),
+                  f"3j: repaired spmd {name} differs from sharded")
+    commit = {"phase": "spmd_commit", "ops": len(info.applied.edge_adds)
+              + len(info.applied.edge_deletes), "repairs": strategies,
+              "apply_s": info.apply_s, "repair_s": info.repair_s,
+              "wall_s": commit_s}
+    emit(commit)
+    del dur, part
+    dist.destroy_process_group()
+    path_launches = {"launches": {k: v for k, v in launches.items() if v},
+                     "scan_launches": {k: v for k, v in scans.items() if v}}
+    if device.type == "cuda":
+        for k in ("edge_relax_blocks", "edge_relax_scan",
+                  "edge_relax_push_blocks"):
+            check(launches[k] > 0, f"3j: the spmd path launched no {k}")
+        for k in ("sum", "min/max+payload/laned"):
+            check(scans[k] > 0, f"3j: the spmd path launched no K2 {k}")
+    emit({"phase": "spmd_launches", **path_launches})
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) K1, K2 (laned) and K3 at the per-rank shapes, no collective
+    sg = sess.sg
+    S, Np, block = sg.n_shards, sg.n_per_shard, sg.csr_block
+    sssp = PROGRAMS["sssp"].factory(source=s0)
+    vstate = sess.vertex_state("sssp", source=s0)
+    per_rank = {}
+
+    def plain_at(tag, prog, vs, senders, sgd, delta_e, bucket):
+        """The kernel under ``tag`` on one rank's inputs against its plain
+        version on the same inputs, bitwise (``hold_k1``/``hold_k2``/
+        ``hold_k3``)."""
+        n_keys = S * Np
+        if tag == "K1":
+            return hold_k1((prog, vs, senders, sgd["gid"], sgd["csr_key"],
+                            sgd["csr_src"], sgd["csr_weight"],
+                            sgd["csr_dst_gid"]), n_keys, f"3j per-rank {tag}")
+        if tag == "K3":
+            idx, valid = ref.compact_push_blocks(
+                senders, sgd["push_src"], block,
+                push_caps(sgd["push_src"].shape[-1] // block)[bucket])
+            return hold_k3((prog, vs, senders, sgd["gid"], sgd["push_key"],
+                            sgd["push_src"], sgd["push_weight"],
+                            sgd["push_dst_gid"], idx), valid, n_keys,
+                           f"3j per-rank {tag}", block)
+        es = sgd["csr_key"].shape[-1] - delta_e
+        cut = lambda k: sgd[k][..., :es]
+        return hold_k2((prog, vs, senders, sgd["gid"], cut("csr_key"),
+                        cut("csr_src"), cut("csr_weight"),
+                        cut("csr_dst_gid")), cut("csr_skey"),
+                       f"3j per-rank {tag}")
+
+    def hold(tag, prog, vs, senders, sweep, bucket_of=None):
+        """Each cell's per-rank relax (the kernel under ``tag`` at one
+        source row against S * Np keys) bitwise the logical tables' row
+        ``[c]``, and that kernel on the rank's inputs bitwise its plain
+        version."""
+        sgd, delta_e = sweep_streams(sg, with_push=sweep != "pull")
+        relax = make_relax(prog, S, Np, block, delta_e=delta_e, sweep=sweep)
+        row_of = lambda d, c: {k: v if k == "replica_members"
+                               else v[c:c + 1] for k, v in d.items()}
+        whole = relax(vs, senders, sgd,
+                      bucket_of(senders, sgd) if bucket_of else None)
+        buckets, errs = [], []
+        for c in range(S):
+            mine, vs_c = row_of(sgd, c), row_of(vs, c)
+            b = bucket_of(senders[c:c + 1], mine) if bucket_of else None
+            buckets.append(b)
+            part_ = relax(vs_c, senders[c:c + 1], mine, b)
+            for x, y, what in zip(part_, whole, ("table", "cnt", "pay")):
+                if y is None:
+                    continue
+                check(torch.equal(x, y[c:c + 1]),
+                      f"3j: {tag} cell {c}: the per-rank {what} differs "
+                      f"from the logical row")
+            errs.append(plain_at(tag.split()[0], prog, vs_c,
+                                 senders[c:c + 1], mine, delta_e, b))
+        per_rank[tag] = {"shape": list(part_[0].shape), "buckets": buckets,
+                         "delta_e": delta_e, "plain": "bitwise",
+                         "vs_plain": errs}
+
+    nb = sweep_streams(sg, with_push=True)[0]["push_src"].shape[-1] // block
+
+    def push_bucket(senders, sgd):
+        got = int(active_push_blocks(senders, sgd["push_src"], block).max())
+        return select_bucket(got, nb, "push")
+
+    before = dict(kernel.LAUNCHES), dict(kernel.SCAN_LAUNCHES)
+    hold("K1", sssp, vstate, random_senders(sess, args.seed + 31), "pull")
+    laned = make_laned([PROGRAMS["sssp"].factory(source=r)
+                        for r in lane_roots])
+    lvs, lsend = random_lane_state(laned, (S, len(lane_roots), Np),
+                                   args.seed + 32, device)
+    hold("K2 laned", laned, lvs, lsend & sg.node_ok[:, None], "pull")
+    hold("K3", sssp, vstate, random_senders(sess, args.seed + 33, 0.01),
+         "push", push_bucket)
+    per_rank["caps"] = len(push_caps(nb))
+    per_rank["launches"] = {
+        k: kernel.LAUNCHES[k] - before[0][k] for k in
+        ("edge_relax_blocks", "edge_relax_scan", "edge_relax_push_blocks")}
+    if device.type == "cuda":
+        for k, v in per_rank["launches"].items():
+            check(v > 0, f"3j: the per-rank comparison launched no {k}")
+    emit({"phase": "spmd_per_rank", **per_rank})
+
+    # (c) four gloo ranks on the one card
+    out_dir = OUT_DIR / "spmd_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    s16, d16, w16, n16 = make_graph_family(
+        "graph500", 1 << args.spmd_scale, seed=0)
+    np.save(out_dir / "edges.npy", np.stack([s16, d16, w16.view(np.int32)]))
+    deg = np.bincount(s16, minlength=n16)
+    root = int(np.random.default_rng(args.seed).choice(np.nonzero(deg)[0]))
+    ref = DiffusionSession.from_edges(s16, d16, n16, w16, n_cells=4,
+                                      device=device)
+    t = time.perf_counter()
+    torch.multiprocessing.spawn(spmd_rank, args=(4, str(out_dir), n16, root,
+                                                 device.type),
+                                nprocs=4, join=True)
+    spawn_s = time.perf_counter() - t
+    got = dict(np.load(out_dir / "ranks.npz"))
+    meta = json.loads((out_dir / "ranks.json").read_text())
+    ranks_rows = []
+    for name, kw in (("sssp", {"source": root}), ("cc", {})):
+        for sweep in ("pull", "auto"):
+            want, ts = timed(lambda: ref.query(name, sweep=sweep, **kw))
+            key = f"{name}-{sweep}"
+            check(same_bits(got[f"{key}-values"], want.values),
+                  f"3j: 4 ranks {key} values differ from sharded")
+            for k, v in want.extra.items():
+                check(same_bits(got[f"{key}-extra-{k}"], v),
+                      f"3j: 4 ranks {key} {k} differs from sharded")
+            for f in SPMD_SAME_STATS:
+                check(np.array_equal(got[f"{key}-{f}"],
+                                     getattr(want.stats, f).cpu().numpy()),
+                      f"3j: 4 ranks {key} {f} differs from sharded")
+            ranks_rows.append({"query": key, "spmd_s": meta["walls"][key],
+                               "sharded_s": ts,
+                               "spmd_local_iters": int(
+                                   got[f"{key}-local_iters"]),
+                               "sharded_local_iters": int(
+                                   want.stats.local_iters)})
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ranks = {"phase": "spmd_ranks", "ranks": 4, "backend": meta["backend"],
+             "scale": args.spmd_scale, "n": n16, "edges": int(s16.shape[0]),
+             "spawn_s": spawn_s, "rank0_launches": {
+                 k: v for k, v in meta["launches"].items() if v},
+             "queries": ranks_rows,
+             "note": "gloo stages CUDA tensors through the host: these "
+                     "walls are no exchange speed"}
+    emit(ranks)
+    report = {"phase": "spmd_checks", "ok": True, **path_launches,
+              "seconds": time.perf_counter() - t_phase}
+    emit(report)
+    return {"queries": rows, "commit": commit, "per_rank": per_rank,
+            "ranks": ranks, **report}
+
+
+def register_probe() -> str:
+    """A user program no earlier phase built: sssp with the message
+    ``dist + 0.5 w + 1``, on the generic instance."""
+    from repro_torch.core import programs as P
+
+    if "sanitize_probe" not in P.PROGRAMS:
+        @P.diffusive("sanitize_probe", value_key="dist", monotone=True,
+                     lane_param="source")
+        def probe(source: int) -> P.DiffusiveProgram:
+            def receive(vstate, inbox, has_msg, payload, node_ok):
+                better = has_msg & (inbox < vstate["dist"]) & node_ok
+                return ({"dist": torch.where(better, inbox, vstate["dist"])},
+                        better)
+
+            return P.DiffusiveProgram(
+                monoid="min", msg_dtype=torch.float32,
+                state={"dist": P.Field(torch.float32,
+                                       init=lambda v: torch.where(
+                                           v.gid == source, 0.0,
+                                           float("inf")),
+                                       on_dead=float("inf"))},
+                init_active=lambda v: v.gid == source,
+                emit=lambda s, weight, src_gid, dst_gid:
+                    s["dist"] + 0.5 * weight + 1.0,
+                receive=receive)
+    return "sanitize_probe"
+
+
+def phase_sanitize(args, sess, roots, device) -> dict:
+    """Phase 3k: the sanitizer and the lint pass on phase 3's session: a
+    warm sssp pull query under ``sanitize(transfers="log")`` (syncs within
+    the budget, no rebuild), a warm 4-lane query with other roots (no
+    rebuild), a cold generic program (``RetraceError``), an ``.item()``
+    under ``"disallow"`` (raises), and the lint CLI on the port's tree."""
+    import collections
+    import os
+
+    from repro_torch.analysis import RetraceError, sanitize
+    from repro_torch.core import DiffusionSession
+    from repro_torch.core.generators import make_graph_family
+
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    s = roots[5]
+    with sanitize(transfers="log") as rep:
+        res = sess.query("sssp", source=s, refresh=True)
+    st = res.stats
+    budget = int(st.rounds) + int(st.local_iters) + 1 + SSSP_QUERY_SYNCS
+    check(rep.guarded == cuda, f"3k: the sync mode guarded={rep.guarded}")
+    check(rep.syncs() <= budget,
+          f"3k: a warm sssp query made {rep.syncs()} syncs, budget "
+          f"{budget}: {collections.Counter(rep.sync_sites())}")
+    warm = {"source": s, "syncs": rep.syncs(), "budget": budget,
+            "rounds": int(st.rounds), "local_iters": int(st.local_iters),
+            "rebuilds": rep.total_retraces(),
+            "sites": dict(collections.Counter(
+                site.replace(str(ROOT) + "/", "")
+                for site in rep.sync_sites()))}
+    with sanitize(transfers=None) as rep:
+        sess.query("sssp", sources=roots[8:12], refresh=True)
+    lanes = {"roots": roots[8:12], "rebuilds": rep.total_retraces()}
+
+    g_src, g_dst, g_w, g_n = make_graph_family("scale_free", 4096, seed=1)
+    small = DiffusionSession.from_edges(g_src, g_dst, g_n, g_w, n_cells=4,
+                                        device=device)
+    name = register_probe()
+    t = time.perf_counter()
+    cold = "returned"
+    try:
+        with sanitize(transfers=None):
+            small.query(name, source=0)
+    except RetraceError as e:
+        cold = str(e)
+    cold_s = time.perf_counter() - t
+    check(cold != "returned" or not cuda,
+          "3k: a cold generic program inside sanitize() did not raise")
+    x = torch.arange(4, device=device)
+    disallow = "returned"
+    try:
+        with sanitize(transfers="disallow", retraces=False):
+            x.sum().item()
+    except RuntimeError as e:
+        disallow = str(e)
+    check("synchronizing" in disallow or not cuda,
+          f"3k: .item() under 'disallow': {disallow[:200]}")
+    t = time.perf_counter()
+    lint = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.lint",
+         "src/repro_torch/core", "src/repro_torch/kernels"],
+        capture_output=True, text=True, cwd=ROOT, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    check(lint.returncode == 0, f"3k: lint exit {lint.returncode}: "
+                                f"{lint.stdout[-2000:]}{lint.stderr[-500:]}")
+    report = {"phase": "sanitize", "ok": True, "warm_query": warm,
+              "warm_lanes": lanes, "cold_generic": cold[:300],
+              "cold_generic_s": cold_s, "disallow": disallow[:200],
+              "lint_exit": lint.returncode,
+              "lint_s": time.perf_counter() - t,
+              "seconds": time.perf_counter() - t_phase}
+    emit(report)
+    return report
+
+
+# --------------------------------------------------------------------------
 # timing at the main path's shapes
 # --------------------------------------------------------------------------
 
@@ -3087,6 +3623,8 @@ def main(argv=None) -> int:
                          "(14: n = 16384, the bitset's ceiling)")
     ap.add_argument("--event-n", type=int, default=512,
                     help="scale_free vertices of phase 3f's event oracle")
+    ap.add_argument("--spmd-scale", type=int, default=16,
+                    help="Graph500 scale of phase 3j's four gloo ranks")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
@@ -3108,6 +3646,7 @@ def main(argv=None) -> int:
         args.replica_threshold = min(args.replica_threshold, 64)
         args.tri_scale = min(args.tri_scale, 10)
         args.event_n = min(args.event_n, 128)
+        args.spmd_scale = min(args.spmd_scale, 8)
     elif not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
               file=sys.stderr)
@@ -3174,6 +3713,8 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.empty_cache()
     watchdog = phase_watchdog(sess, queries, sources, device)
+    spmd = phase_spmd(args, sess, data, sources, roots, device)
+    sanitized = phase_sanitize(args, sess, roots, device)
     gen_launches = phase_generic(args, sess, results, lanes16, roots,
                                  sources, data, device)
     del lanes16
@@ -3215,6 +3756,7 @@ def main(argv=None) -> int:
               "serve": served, "lm_checks": lm, "k4_vs_plain": k4_check,
               "replicas": replicas, "oracles": oracles,
               "watchdog": watchdog, "generic": gen_launches,
+              "spmd": spmd, "sanitize": sanitized,
               "durability": durability,
               "seconds": time.perf_counter() - t0}
     OUT_DIR.mkdir(exist_ok=True)

@@ -1,6 +1,7 @@
 # The diffusive-computation engine on PyTorch: the session (queries, graph
 # mutation and incremental repair at commit, the convergence watchdog), the
-# logical sharded engine (pull, push and auto sweeps, hub replicas), the
+# logical sharded engine (pull, push and auto sweeps, hub replicas) and the
+# SPMD engine on torch.distributed (one cell per rank), the
 # programs, the event-engine host oracle and triangle counting, durability
 # (save/open, the write-ahead journal, the chaos harness), with the
 # relaxation step on hand-written CUDA kernels (kernels/edge_relax).
@@ -17,7 +18,7 @@ from .api import (
     sssp,
     widest_path,
 )
-from .diffuse import DiffuseStats, diffuse, diffuse_from
+from .diffuse import DiffuseStats, diffuse, diffuse_from, make_spmd_diffuse
 from .dynamic import NameServer
 from .event import EventStats, event_diffuse, event_sssp
 from .graph import Graph, ShardedGraph, from_edges
@@ -61,7 +62,7 @@ from .updates import AppliedUpdates, UpdateBatch
 __all__ = [
     "Result", "bfs", "build", "connected_components", "personalized_pagerank",
     "run", "sssp", "pagerank", "widest_path", "reachable",
-    "DiffuseStats", "diffuse", "diffuse_from",
+    "DiffuseStats", "diffuse", "diffuse_from", "make_spmd_diffuse",
     "Graph", "ShardedGraph", "from_edges", "Partitioned", "partition",
     "Monoid", "MONOIDS", "register_monoid",
     "VertexProgram", "DiffusiveProgram", "Field", "KernelEmit", "BoundQuery",

@@ -106,12 +106,14 @@ def _scatter_drop(a: torch.Tensor, rows, cols, vals) -> torch.Tensor:
     """``a[rows, cols] = vals`` into a copy of the ``[S, W]`` tensor
     ``a``, where a column index ``W`` drops its entry (JAX's
     ``mode="drop"``): the write goes to a spare column that is cut off,
-    never onto a real position."""
+    never onto a real position.  The copy has ``a``'s row stride ``W``
+    (``.contiguous()`` would keep ``W + 1`` for one row, which counts as
+    contiguous), as the kernels' stream checks require."""
     s_, w = a.shape
     out = torch.empty((s_, w + 1), dtype=a.dtype, device=a.device)
     out[:, :w] = a
     out[rows.long(), cols.long()] = vals
-    return out[:, :w].contiguous()
+    return out[:, :w].clone(memory_format=torch.contiguous_format)
 
 
 def _cumsum_rows(x: torch.Tensor, block: int = 1024) -> torch.Tensor:

@@ -217,14 +217,14 @@ def lower(spec: DiffusiveProgram, name: str = "") -> VertexProgram:
         shape = view.gid.shape
         device = view.gid.device
         vstate = {}
-        for fname, f in fields:
+        for fname, f in fields:  # analysis: allow(host-loop): static over the declared field schema, not cells
             v = f.init(view) if callable(f.init) else f.init
             v = torch.as_tensor(v, device=device)
             v = v.to(f.dtype).expand(shape).contiguous()
             if f.on_dead is not None:
                 v = torch.where(view.node_ok, v,
-                                torch.as_tensor(f.on_dead, dtype=f.dtype,
-                                                device=device))
+                                torch.full((), f.on_dead, dtype=f.dtype,
+                                           device=device))
             vstate[fname] = v
         mask = (spec.init_active(view) if spec.init_active is not None
                 else torch.ones(shape, dtype=torch.bool, device=device))

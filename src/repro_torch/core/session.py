@@ -65,8 +65,14 @@ that never crashed (for commits that ran with the session's
 snapshot format is the JAX package's, so ``open`` also reads a directory
 that package wrote.
 
-Not ported yet, raising :class:`NotImplementedError` that names its slice:
-the ``spmd`` engine.
+**The SPMD engine** (``engine="spmd"``, diffuse.py): one compute cell per
+rank of a :mod:`torch.distributed` world (``launch/mesh.py``'s
+``cells_group``).  A one-cell session starts a world of one by itself; a
+session of S cells needs S ranks that each build the same session and
+call ``query`` together.  Every rank holds the whole session and runs its
+own cell.  Queries, lanes and restart repairs run on it; warm repairs of
+its entries resume on the logical engine (``diffuse_from``), as the JAX
+package's do; the ``delta=`` gate is refused.
 """
 
 from __future__ import annotations
@@ -88,6 +94,8 @@ from .diffuse import (
     diffuse_from,
     exact_streams_for,
     logical_view,
+    make_spmd_diffuse,
+    sweep_streams,
 )
 from .dynamic import NameServer, _invalidate_subtrees
 from .graph import ShardedGraph, from_edges
@@ -123,12 +131,6 @@ def _json_np(o):
     if isinstance(o, np.generic):
         return o.item()
     raise TypeError(f"not JSON-serializable: {type(o).__name__}")
-
-
-def _later(what: str, slice_name: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet: it arrives with the "
-        f"{slice_name} slice")
 
 
 class ConvergenceError(RuntimeError):
@@ -205,6 +207,7 @@ class _Entry:
                                  #   own (a snapshot rebuilds the program)
     raw: Any = None              # run_fn queries (triangles): the cached
                                  #   Result itself, recounted at commit
+    engine: str = "sharded"      # restart repairs rerun on it
 
 
 class CommitInfo(NamedTuple):
@@ -264,8 +267,6 @@ class DiffusionSession:
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, "
                              f"got {engine!r}")
-        if engine == "spmd":
-            _later("engine='spmd'", "SPMD")
 
     # ------------------------------------------------------------------
     # construction
@@ -482,10 +483,10 @@ class DiffusionSession:
         if engine == "event":
             return self._query_event(spec, name, adhoc, value_key, kwargs)
         program = adhoc if adhoc is not None else spec.factory(**kwargs)
-        vstate, stats = self._run_diffusion(program, sweep, delta)
+        vstate, stats = self._run_diffusion(program, engine, sweep, delta)
         entry = _Entry(spec, program, value_key or spec.value_key, vstate,
                        stats, sweep=explicit_sweep, delta=delta,
-                       kwargs=dict(kwargs))
+                       kwargs=dict(kwargs), engine=engine)
         self._cache_put(key, entry)
         self._enforce_budget(stats, f"query {name!r}")
         res = self._result(entry)
@@ -534,14 +535,16 @@ class DiffusionSession:
                                value_key=value_key, **kw)
                     for kw in per_lane]
         progs = tuple(spec.factory(**kw) for kw in per_lane)
-        vstate, stats = self._run_diffusion(make_laned(progs), sweep, delta)
+        vstate, stats = self._run_diffusion(make_laned(progs), engine, sweep,
+                                            delta)
         self._enforce_budget(stats, f"query {name!r} ({len(progs)} lanes)")
         vk = value_key or spec.value_key
         results = []
         for i, (prog, key, kw) in enumerate(zip(progs, keys, per_lane)):
             lane_state = {k: v[:, i].contiguous() for k, v in vstate.items()}
             entry = _Entry(spec, prog, vk, lane_state, stats,
-                           sweep=explicit_sweep, delta=delta, kwargs=kw)
+                           sweep=explicit_sweep, delta=delta, kwargs=kw,
+                           engine=engine)
             self._cache_put(key, entry)
             res = self._result(entry)
             self._maybe_validate(entry, res, validate,
@@ -554,11 +557,29 @@ class DiffusionSession:
         compaction so later queries and repairs reuse it."""
         self.part.sg = exact_streams_for(self.sg, program)
 
-    def _run_diffusion(self, program: VertexProgram, sweep: str = "pull",
-                       delta: float | None = None):
+    def _run_diffusion(self, program: VertexProgram, engine: str = "sharded",
+                       sweep: str = "pull", delta: float | None = None):
         self._compact_for(program)
+        if engine == "spmd":
+            return self._run_spmd(program, sweep)
         return diffuse(self.sg, program, max_local_iters=self.max_local_iters,
                        max_rounds=self.max_rounds, delta=delta, sweep=sweep)
+
+    def _run_spmd(self, program: VertexProgram, sweep: str = "pull"):
+        """One SPMD diffusion of the (compacted) graph, every rank of the
+        cells' group calling.  Unlike the JAX package, which keys a cache
+        of compiled functions, nothing is kept between calls: building
+        the engine function traces and compiles nothing, and the group is
+        looked up anew, so a group started after an earlier one was
+        destroyed is the one used."""
+        from ..launch.mesh import cells_group
+
+        sgd, delta_e = sweep_streams(self.sg, with_push=sweep != "pull")
+        run = make_spmd_diffuse(
+            cells_group(self.n_cells, self.device), program, self.sg,
+            max_local_iters=self.max_local_iters,
+            max_rounds=self.max_rounds, sweep=sweep)
+        return run(sgd, delta_e)
 
     def _result(self, entry: _Entry) -> Result:
         values = self.to_global(entry.vstate[entry.value_key])
@@ -576,7 +597,8 @@ class DiffusionSession:
         key = self._key(name, engine, kwargs, sweep or self.sweep)
         self._cache_put(key, _Entry(spec, spec.factory(**kwargs),
                                     spec.value_key, vstate, stats,
-                                    sweep=sweep, kwargs=dict(kwargs)))
+                                    sweep=sweep, kwargs=dict(kwargs),
+                                    engine=engine))
         return key
 
     def vertex_state(self, name: str, engine: str | None = None,
@@ -740,17 +762,25 @@ class DiffusionSession:
 
         if strategy == "restart":
             self._compact_for(entry.prog)
-            vstate, stats = diffuse(self.sg, entry.prog, max_local_iters=mli,
-                                    max_rounds=self.max_rounds,
-                                    delta=entry.delta,
-                                    sweep=entry.sweep or self.sweep)
+            if entry.engine == "spmd":
+                # with the session's max_local_iters, as the JAX
+                # package's spmd restart
+                vstate, stats = self._run_spmd(entry.prog,
+                                               entry.sweep or self.sweep)
+            else:
+                vstate, stats = diffuse(self.sg, entry.prog,
+                                        max_local_iters=mli,
+                                        max_rounds=self.max_rounds,
+                                        delta=entry.delta,
+                                        sweep=entry.sweep or self.sweep)
             entry.vstate, entry.stats = vstate, stats
             return ("restart", stats)
 
         vstate, active = self._warm_state(entry, applied, strategy)
         # warm repairs resume from a tiny frontier, so they default to the
         # frontier-compacted push sweep (an explicit query sweep wins), and
-        # run under the entry's own gate
+        # run under the entry's own gate; an spmd entry's too, on the
+        # logical engine
         vstate, stats = diffuse_from(self.sg, entry.prog, vstate, active,
                                      max_local_iters=mli,
                                      max_rounds=self.max_rounds,
@@ -871,7 +901,7 @@ class DiffusionSession:
         conv = getattr(stats, "converged", None)
         if conv is None or self.on_budget == "partial":
             return
-        if bool(conv):
+        if bool(conv):  # analysis: allow(host-sync): the watchdog's one read per query
             return
         msg = (f"{context} exhausted max_rounds={self.max_rounds} before "
                f"quiescence — the fixed point is PARTIAL "
@@ -1167,7 +1197,8 @@ class DiffusionSession:
                             em["delta"])
             self._cache_put(key, _Entry(
                 spec, spec.factory(**kwargs), em["value_key"], vstate, stats,
-                sweep=em["sweep"], delta=em["delta"], kwargs=kwargs))
+                sweep=em["sweep"], delta=em["delta"], kwargs=kwargs,
+                engine=engine))
 
     def _replay_journal(self, from_seq: int) -> int:
         """Redo journaled commits on top of the snapshot (WAL recovery).

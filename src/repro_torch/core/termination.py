@@ -37,7 +37,7 @@ class DijkstraScholten:
         self.env_deficit = 0
         self.acks = 0                    # ack message count
 
-    def on_send(self, sender: int):
+    def on_send(self, sender: int):  # analysis: allow(mutation): host-side Dijkstra-Scholten accountant, not an action body
         if sender == self.ENV:
             self.env_deficit += 1
         else:

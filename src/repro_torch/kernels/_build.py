@@ -67,7 +67,7 @@ def nvcc_path() -> str:
         "first use and need the CUDA toolkit (set CUDA_HOME)")
 
 
-def _target(name: str, spec) -> Path:
+def _target(name: str, spec) -> Path:  # analysis: allow(host-loop): hashes a library's sources, at its first launch
     lib = _lib(spec)
     h = hashlib.sha256()
     for flag in (*NVCC_FLAGS, *lib.flags):
@@ -81,7 +81,7 @@ def _target(name: str, spec) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(libs: dict) -> dict:
+def build(libs: dict) -> dict:  # analysis: allow(host-loop): builds libraries once per process, at the first launch
     """Build and load every library in ``libs`` (name -> list of ``.cu``
     sources, or a :class:`Library`) that is not loaded yet; returns name
     -> ``ctypes.CDLL``.
@@ -139,7 +139,7 @@ def library_paths(libs: dict) -> dict:
     return {name: _target(name, spec) for name, spec in libs.items()}
 
 
-def bind(sources: dict, symbols: dict, fns: dict) -> None:
+def bind(sources: dict, symbols: dict, fns: dict) -> None:  # analysis: allow(host-loop): binds entry points once per process
     """Build (in parallel) every library of ``sources`` (name -> ``.cu``
     list) whose entry points are not bound yet, and bind them into
     ``fns``: ``symbols`` maps a library to ``{C entry point: argtypes}``;

@@ -244,7 +244,7 @@ def _classify(op: str) -> str:
     return f"aten.{op}"
 
 
-def _scalar(value, dtype):
+def _scalar(value, dtype):  # analysis: allow(host-sync): host scalars of a translation, made once per program
     """A Python scalar as the value of ``dtype`` (floats rounded to
     float32 as torch rounds a scalar in a float32 op)."""
     if dtype == _F32:
@@ -304,7 +304,7 @@ class _Lowering:
         return a.meta["val"] if isinstance(a, torch.fx.Node) else a
 
 
-def _to_ir(traced: Traced, out_dtype=None) -> IR:
+def _to_ir(traced: Traced, out_dtype=None) -> IR:  # analysis: allow(host-sync, host-loop): translates a CPU trace, once per program
     """The IR of a traced component; raises :class:`_Refuse`."""
     gm = traced.graph
     b = _Lowering()
@@ -477,7 +477,7 @@ def evaluate_op(tr: "Translation", a, b):
 # IR -> CUDA
 # --------------------------------------------------------------------------
 
-def _lit(value, dtype) -> str:
+def _lit(value, dtype) -> str:  # analysis: allow(host-sync): a host constant's C literal
     if dtype == _F32:
         bits = int(np.array(value, np.float32).view(np.uint32))
         return f"__int_as_float(0x{bits:08x})"
@@ -567,7 +567,7 @@ def _expr(ir: IR, n: Node, a: list) -> str:
     raise AssertionError(op)
 
 
-def _code(ir: IR, bind: dict, prefix: str):
+def _code(ir: IR, bind: dict, prefix: str):  # analysis: allow(host-loop): writes C++ over IR nodes, once per program
     """Statements computing ``ir`` (inputs bound to C++ expressions) and
     the variable that holds its result."""
     lines, var = [], {}

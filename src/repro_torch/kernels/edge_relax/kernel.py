@@ -206,7 +206,7 @@ def _generic_libraries(tr) -> dict:
         tuple(KERNEL_SOURCES[n]), flags, (hdr,)) for n in names}
 
 
-def build_generic(*translations) -> None:
+def build_generic(*translations) -> None:  # analysis: allow(host-loop): builds once per program structure
     """Write the generated headers, then compile (all in parallel) and
     bind the generic libraries of every translation not bound yet.
     Called by a generic instance's first launch; a caller may build
@@ -248,7 +248,7 @@ def _gen_fields(tr, vstate, shape, device):
     """The pointer array of the state fields gen::pack reads, each checked
     against the schema's dtype and ``shape``."""
     ptrs = []
-    for k, dt in tr.fields:
+    for k, dt in tr.fields:  # analysis: allow(host-loop): static over the state schema
         _check(f"vstate[{k!r}]", vstate[k], dt, shape, device)
         ptrs.append(vstate[k].data_ptr())
     return (ctypes.c_void_p * 8)(*ptrs)
@@ -277,7 +277,7 @@ def edge_relax_blocks(prog, vstate, senders, gid, key, src, weight, dst_gid,
     streams = [("key", key), ("src", src), ("weight", weight)]
     if a["gen"] is not None and a["gen"].reads_dst_gid:
         streams.append(("dst_gid", dst_gid))
-    for name, t in streams:
+    for name, t in streams:  # analysis: allow(host-loop): static over the stream arguments
         if t.data_ptr() % 16 or a["row"] % 4:
             raise ValueError(f"{name} rows must be 16-byte aligned for "
                              f"K1's vector loads")
@@ -542,7 +542,7 @@ def _scan_streams(key, skey, src, weight, dst_gid, reads_dst_gid):
     rows = key.stride()
     if rows[-1] != 1:
         raise ValueError("key must have unit last-dim stride")
-    for name, t in (("key", key), ("skey", skey), ("src", src)):
+    for name, t in (("key", key), ("skey", skey), ("src", src)):  # analysis: allow(host-loop): static over the stream arguments
         _check(name, t, torch.int32, (s_, es), dev, rows)
     _check("weight", weight, torch.float32, (s_, es), dev, rows)
     if reads_dst_gid:

@@ -302,7 +302,7 @@ def stream_scan(monoid, cand, send, key, pay=None, tile: int = SCAN_TILE,
     if nt > 1:
         idx = torch.arange(nt, device=key.device)
         last = torch.cummax(torch.where(agg_f, idx, -1), dim=-1).values
-        depth = int((idx[1:] - last[..., :-1]).max())
+        depth = int((idx[1:] - last[..., :-1]).max())  # analysis: allow(host-sync): the plain version, on CPU tensors only
         for _ in range(depth):
             af = agg_f[..., :-1]
             if carry_p is not None:

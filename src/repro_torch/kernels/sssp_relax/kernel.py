@@ -58,7 +58,7 @@ def relax_sorted(dist, active, weight, src, dst_sorted, n_nodes: int):
         return ref.relax_ref(dist, weight, src, dst_sorted, active, n_nodes)
     np_ = dist.shape[0]
     e = weight.shape[0]
-    for name, t, dtype, n in (("dist", dist, torch.float32, np_),
+    for name, t, dtype, n in (("dist", dist, torch.float32, np_),  # analysis: allow(host-loop): static over the arguments
                               ("active", active, torch.bool, np_),
                               ("weight", weight, torch.float32, e),
                               ("src", src, torch.int32, e),

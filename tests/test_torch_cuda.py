@@ -1066,3 +1066,124 @@ def test_cpu_and_card_snapshots_have_equal_digests(gpu_session, tmp_path):
             continue
         if top in ("graph", "part", "ns", "cache"):
             assert m["digest"] == man["cuda"][leaf]["digest"], leaf
+
+
+# --------------------------------------------------------------------------
+# the SPMD engine's per-rank shapes and the sanitizer on the card
+# --------------------------------------------------------------------------
+
+# a warm sssp query's host reads besides one poll a round and a
+# sub-iteration and the last round's check: the watchdog's converged
+# flag, the results' copies (dist, parent, the two live-id arrays) and,
+# on a graph with a staged-delta capacity, its counters
+SSSP_QUERY_SYNCS = 6
+
+
+@pytest.mark.parametrize("kind", ["K1", "K2 laned", "K3"])
+def test_per_rank_relax_matches_plain_and_logical_rows(gpu_session, kind):
+    """The SPMD engine's relaxation on rank c: one source cell ``[c:c+1]``
+    against keys over every cell.  Each kernel at that shape is bitwise
+    its plain version on CPU copies of the same inputs, and bitwise row
+    ``[c]`` of the logical engine's [S, S, (L,) Np] tables."""
+    from repro_torch.core.diffuse import sweep_streams
+    from repro_torch.core.relax import make_relax
+
+    sess, _ = gpu_session
+    sg = sess.sg
+    S, Np, block = sg.n_shards, sg.n_per_shard, sg.csr_block
+    g = torch.Generator(device="cpu").manual_seed(7)
+    p = 0.02 if kind == "K3" else 0.5
+    if kind == "K2 laned":
+        prog = make_laned([PROGRAMS["sssp"].factory(source=s)
+                           for s in (1, 5, 9, 40)])
+        sess.query("sssp", sources=[1, 5, 9, 40])
+        vstate = {k: torch.stack([sess.vertex_state("sssp", source=s)[k]
+                                  for s in (1, 5, 9, 40)], dim=1)
+                  for k in ("dist", "parent")}
+        shape = (S, 4, Np)
+    else:
+        prog = PROGRAMS["sssp"].factory(source=1)
+        sess.query("sssp", source=1)
+        vstate = sess.vertex_state("sssp", source=1)
+        shape = (S, Np)
+    senders = (torch.rand(shape, generator=g) < p).cuda() & (
+        sg.node_ok[:, None] if kind == "K2 laned" else sg.node_ok)
+    sweep = "push" if kind == "K3" else "pull"
+    sgd, delta_e = sweep_streams(sg, with_push=kind == "K3")
+    relax = make_relax(prog, S, Np, block, delta_e=delta_e, sweep=sweep)
+    nb = sgd["push_src"].shape[-1] // block if kind == "K3" else 0
+
+    def bucket(s, d):
+        if kind != "K3":
+            return None
+        got = int(active_push_blocks(s, d["push_src"], block).max())
+        return select_bucket(got, nb, "push")
+
+    whole = relax(vstate, senders, sgd, bucket(senders, sgd))
+    counter = {"K1": "edge_relax_blocks", "K2 laned": "edge_relax_scan",
+               "K3": "edge_relax_push_blocks"}[kind]
+    for c in range(S):
+        row = {k: v[c:c + 1] for k, v in sgd.items()}
+        vs = {k: v[c:c + 1] for k, v in vstate.items()}
+        b = bucket(senders[c:c + 1], row)
+        n0 = kernel.LAUNCHES[counter]
+        got = relax(vs, senders[c:c + 1], row, b)
+        assert kernel.LAUNCHES[counter] > n0
+        cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+        plain = relax(cpu(vs), senders[c:c + 1].cpu(), cpu(row), b)
+        for x, y, w in zip(got, plain, whole):
+            assert x.shape[:2] == (1, S)
+            assert torch.equal(x.cpu(), y)
+            assert torch.equal(x, w[c:c + 1])
+
+
+def test_warm_query_syncs_within_budget_and_no_rebuilds(cuda):
+    """The port's engine reads the host by design (one poll a round and a
+    sub-iteration): a warm sssp query under ``sanitize(transfers="log")``
+    makes at most rounds + local_iters + 1 + SSSP_QUERY_SYNCS synchronizing
+    calls, and rebuilds no kernel cache."""
+    from repro_torch.analysis import sanitize
+
+    src, dst, w, n = make_graph_family("scale_free", 3000, seed=4)
+    sess = DiffusionSession.from_edges(src, dst, n, w, n_cells=4,
+                                       device="cuda")
+    sess.query("sssp", source=0)                    # builds the kernels
+    with sanitize(transfers="log") as rep:
+        res = sess.query("sssp", source=7)
+    st = res.stats
+    budget = int(st.rounds) + int(st.local_iters) + 1 + SSSP_QUERY_SYNCS
+    assert rep.guarded
+    assert int(st.rounds) < rep.syncs() <= budget, rep.sync_sites()
+    assert rep.total_retraces() == 0
+
+
+def test_disallow_raises_on_a_host_read(cuda):
+    from repro_torch.analysis import sanitize
+
+    x = torch.arange(8, device=cuda)
+    with pytest.raises(RuntimeError, match="synchronizing"):
+        with sanitize(transfers="disallow", retraces=False):
+            x.sum().item()
+    # the mode is restored: the same read outside the block is fine
+    assert int(x.sum().item()) == 28
+
+
+def test_world_of_one_follows_the_session_device(cuda):
+    """``engine="spmd"`` on a one-cell session starts its world of one on
+    the backend of the session's device, and starts it anew when the next
+    one-cell session lives on the other device: CPU (gloo), card (NCCL),
+    CPU again; each query bitwise the session's logical engine."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import cells_group
+
+    src, dst, w, n = make_graph_family("scale_free", 500, seed=2)
+    for device, backend in (("cpu", "gloo"), ("cuda", "nccl"),
+                            ("cpu", "gloo")):
+        sess = DiffusionSession.from_edges(src, dst, n, w, n_cells=1,
+                                           device=device)
+        got = sess.query("sssp", engine="spmd", source=0)
+        assert dist.get_backend(cells_group(1, device)) == backend
+        want = sess.query("sssp", engine="sharded", source=0)
+        assert np.array_equal(np.asarray(got.values).view(np.int32),
+                              np.asarray(want.values).view(np.int32))

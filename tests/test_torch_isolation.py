@@ -57,7 +57,9 @@ def test_the_port_has_modules():
                 "kernels/sssp_relax/kernel.py", "models/common.py",
                 "models/transformer.py", "configs/registry.py",
                 "launch/serve.py", "core/chaos.py", "core/journal.py",
-                "checkpoint/manager.py", "runtime/fault_tolerance.py"):
+                "checkpoint/manager.py", "runtime/fault_tolerance.py",
+                "launch/mesh.py", "analysis/lint.py",
+                "analysis/sanitizer.py"):
         assert mod in names
 
 

@@ -130,9 +130,13 @@ def test_api_wrappers_match_session():
 
 
 def test_not_yet_ported_paths_raise(small_session, tmp_path):
-    sess, _ = small_session
-    with pytest.raises(NotImplementedError, match="SPMD"):
-        sess.query("cc", engine="spmd")
+    sess, (src, dst, w, n) = small_session
+    # the SPMD engine is ported (test_torch_spmd.py): a one-cell session
+    # runs it in a world of one and matches the logical engine bitwise
+    one = TSession.from_edges(src, dst, n, w, n_cells=1, device="cpu")
+    spmd = one.query("cc", engine="spmd")
+    assert np.array_equal(spmd.values, one.query("cc").values)
+    assert ("cc", "spmd", ()) in one._cache
     with pytest.raises(ValueError, match="sweep"):
         sess.query("cc", sweep="sideways")
     # the event oracle, triangles and hub replicas are ported
