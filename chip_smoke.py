@@ -96,6 +96,18 @@ kernels line and the final result line):
    ``RetraceError``: its libraries build), ``.item()`` under
    ``"disallow"`` (raises), and ``python -m repro_torch.analysis.lint
    src/repro_torch/core src/repro_torch/kernels`` (exits 0);
+3l. the diffusion dry-run (``repro_torch.launch.dryrun_diffusion``, each
+   run in its own process): rank 0 of a fake process group of 256 ranks
+   (pull and push) and of 512 ranks (pull) runs the SPMD engine's
+   per-rank function for two rounds on its own cell of the production
+   shape at RMAT ``--dry-scale`` 26 (262,144 vertices and 8,388,608 edge
+   slots at 256 cells, 131,072 and 4,194,304 at 512; ``n_keys``
+   67,108,864): the rank's argument, output and peak bytes and the
+   collectives of a round and of the run, by op, count and bytes (the
+   values are not read: fake collectives carry no other rank's data);
+   then the same rank's cells built in this process, K1 (and K3 on the
+   push streams at 256 cells, 1 % of the vertices sending) bitwise their
+   plain versions there;
 3h. the generic instances on the main path: sssp (with parents), cc and
    ppr stripped of their KernelEmit through pull, push and auto, bitwise
    phase 3's builtin answers (values, state, rounds, local iterations,
@@ -176,7 +188,30 @@ kernels line and the final result line):
 4e. K4 at the prefill shape (q [1, 32, 1024, 64], k/v [1, 4, 1024, 64]
    bf16, causal): held against its plain version there (its error is the
    one in the kernels line), then timed against the plain version, its
-   bound and ``scaled_dot_product_attention``, with both TFLOP/s.
+   bound and ``scaled_dot_product_attention``, with both TFLOP/s;
+5c. MoE serving at full width: phi3.5-moe-42b-a6.6b at its published
+   widths in bf16, cut from 32 to 24 layers (the 32 layers' weights and a
+   KV cache do not fit 80 GB), seeded weights, the card's free memory
+   checked before loading; ``DecodeServer`` (4 slots, max_len 2048)
+   admits 4 prompts of 1024 tokens and takes 32 greedy steps, the
+   counters zeroed just before and read just after (K4: 24 launches per
+   prompt); prefill tokens/s, ms per decode step and its byte bound (the
+   weights of the experts the step's tokens route to, beside the capacity
+   path's all-experts floor), the peak memory and the rows each prefill's
+   capacity dropped (read from the timed prefill's own routing);
+5d. the float32 MoE LMs at published widths on 2 layers each,
+   phi3.5-moe and then grok-1, freed between: prefill logits on K4
+   against the plain attention, decode logits at p = 127 (where no row can
+   be dropped) against a prefill over p + 1, and phi3.5 with the int8 KV
+   cache (prefill -> ``kv_quantize`` -> ``decode_step``) within 5 % of the
+   unquantized decode's largest logit and the same argmax; then grok-1's
+   2 layers in bf16, whose prefill runs K4's bf16 softcap instance (the
+   grok-1 K4 row's launches);
+4e (MoE). K4 at both MoE prefill shapes (q [1, 32, 1024, 128] and
+   [1, 48, 1024, 128] with softcap 30, k/v 8 heads, bf16, causal) held and
+   timed as above; the library call of the softcapped shape is
+   ``flex_attention`` (SDPA has no softcap; its uncapped time is printed
+   beside it).
 
 With ``--profile``, each trace also gives K1's, K2's and K4's device time
 and their share of the busy and the wall time, and the device time under
@@ -192,6 +227,7 @@ Without a CUDA device it exits 2 before doing anything.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import subprocess
@@ -3431,17 +3467,24 @@ def lm_config(args):
     return mod.make_config()
 
 
-def phase_serve(args, device) -> dict:
+def phase_serve(args, device, cfg=None, phase: str = "serve") -> dict:
     """The LM serving path at full width: ``DecodeServer`` with 4 slots
-    and max_len 2048 on tinyllama-1.1b (bf16, seeded random weights);
-    admit 4 prompts of 1024 tokens, then 32 greedy decode steps, with every
-    launch counter zeroed just before and read just after."""
+    and max_len 2048 on ``cfg`` (tinyllama-1.1b by default; bf16, seeded
+    random weights); admit 4 prompts of 1024 tokens, then 32 greedy decode
+    steps, with every launch counter zeroed just before and read just
+    after.  For an MoE LM the timed runs also keep each ``moe.route``'s
+    group sizes (references, no device work): the rows each prompt's
+    prefill lost to the capacity, and the experts each decode step's
+    tokens route to, whose weights set the step's bound."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
 
-    cfg = lm_config(args)
+    cfg = cfg or lm_config(args)
     slots, max_len, plen, steps = ((4, 64, 16, 4) if args.cpu_rehearsal
                                    else (4, 2048, args.prompt_len, 32))
+    free = check_free(device, model_bytes(cfg, slots, max_len), phase)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     params = tf.init_params(cfg, seed=args.seed, device=device)
     srv = serve.DecodeServer(cfg, params, batch_slots=slots, max_len=max_len)
@@ -3453,19 +3496,22 @@ def phase_serve(args, device) -> dict:
     srv.retire(0)
     sync(device)
     setup_s = time.perf_counter() - t
+    moe = cfg.moe is not None
     reset_all_launches()
-    t = time.perf_counter()
-    for p in prompts:
-        check(srv.admit(p) is not None, "no free slot")
-    sync(device)
-    prefill_s = time.perf_counter() - t
+    with recording_routes(moe) as prefill_routes:
+        t = time.perf_counter()
+        for p in prompts:
+            check(srv.admit(p) is not None, "no free slot")
+        sync(device)
+        prefill_s = time.perf_counter() - t
     kv_positions = 0
-    t = time.perf_counter()
-    for _ in range(steps):
-        kv_positions += int(srv.lens[srv.active].sum())
-        srv.step()
-    sync(device)
-    decode_s = time.perf_counter() - t
+    with recording_routes(moe) as decode_routes:
+        t = time.perf_counter()
+        for _ in range(steps):
+            kv_positions += int(srv.lens[srv.active].sum())
+            srv.step()
+        sync(device)
+        decode_s = time.perf_counter() - t
     launches = all_launches()
     k4 = launches["flash_attention"]
     if device.type == "cuda":
@@ -3480,17 +3526,38 @@ def phase_serve(args, device) -> dict:
         check(bool(torch.isfinite(srv.cache[kv].float()).all()),
               f"non-finite {kv} cache")
     outs = [srv.retire(s) for s in range(slots)]
+    drops = experts_a_step = None
+    if moe:
+        check(len(prefill_routes) == slots * cfg.n_layers and
+              len(decode_routes) == steps * cfg.n_layers,
+              f"{len(prefill_routes)} prefill and {len(decode_routes)} "
+              f"decode routings")
+        per_prompt = cfg.n_layers
+        drops = [dropped_rows(cfg.moe, prefill_routes[i: i + per_prompt])
+                 for i in range(0, len(prefill_routes), per_prompt)]
+        # expert-layers whose weights a step's tokens need
+        experts_a_step = int(sum(int((sz > 0).sum())
+                                 for sz, _ in decode_routes)) / steps
     profiles = []
     if args.profile and device.type == "cuda":
-        profiles = [trace("prefill", lambda: srv.admit(prompts[0])),
-                    trace("decode_step", srv.step)]
-    # a decode step's least time: every weight and the live KV read once
-    wbytes = cfg.param_count() * params["embed"].element_size()
+        tag = "" if phase == "serve" else f"{phase}_"
+        profiles = [trace(f"{tag}prefill", lambda: srv.admit(prompts[0])),
+                    trace(f"{tag}decode_step", srv.step)]
+    # a decode step's least time: the weights it needs and the live KV read
+    # once; for an MoE LM only the experts its tokens route to (the
+    # capacity path reads all of them: its own floor, kept beside)
+    wbytes = sum(p.numel() * p.element_size() for p in params.parameters())
     kv_per_pos = cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2 * \
         params["embed"].element_size()
-    bound_step_ms = (wbytes + kv_per_pos * kv_positions / steps) \
-        / PEAK_BYTES_PER_S * 1e3
-    rep = {"phase": "serve", "arch": cfg.name, "dtype": str(cfg.dtype),
+    kv_bytes = kv_per_pos * kv_positions / steps
+    step_bytes = all_experts_bytes = wbytes + kv_bytes
+    if moe:
+        expert_bytes = 3 * cfg.d_model * cfg.moe.d_ff * \
+            params["embed"].element_size()
+        step_bytes -= expert_bytes * (cfg.n_layers * cfg.moe.n_experts -
+                                      experts_a_step)
+    bound_step_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+    rep = {"phase": phase, "arch": cfg.name, "dtype": str(cfg.dtype),
            "layers": cfg.n_layers, "slots": slots, "max_len": max_len,
            "prompt_len": plen, "decode_steps": steps,
            "setup_s": setup_s, "prefill_s": prefill_s,
@@ -3499,14 +3566,27 @@ def phase_serve(args, device) -> dict:
            "decode_tokens_per_s": slots * steps / decode_s,
            "ms_per_decode_step": decode_s / steps * 1e3,
            "decode_step_bound_ms": bound_step_ms,
+           "decode_step_bytes": step_bytes,
+           "routed_experts_a_step": experts_a_step,
+           "all_experts_floor_ms": (all_experts_bytes / PEAK_BYTES_PER_S *
+                                    1e3 if moe else None),
            "weight_bytes": wbytes,
            "k4_launches": k4, "k4_per_prompt": k4 / slots,
            "launches": launches,
+           "free_bytes_before": free,
+           "peak_bytes": (torch.cuda.max_memory_allocated()
+                          if device.type == "cuda" else None),
+           "capacity_dropped_rows": drops,
+           # of the rows the router sends in one prompt's prefill
+           "capacity_dropped_share": (sum(drops) / (
+               slots * cfg.n_layers * plen * cfg.moe.top_k) if drops
+               else None),
            "first_tokens": [o[plen: plen + 8].tolist() for o in outs]}
     emit(rep)
     for line in profiles:
         emit(line)
     del srv, params
+    free_card(device)
     return rep
 
 
@@ -3519,7 +3599,6 @@ def phase_lm_checks(args, device) -> dict:
     import dataclasses
     from unittest import mock
 
-    from repro_torch.kernels.flash_attention import ref
     from repro_torch.models import transformer as tf
 
     cfg = dataclasses.replace(lm_config(args), dtype=torch.float32)
@@ -3529,13 +3608,7 @@ def phase_lm_checks(args, device) -> dict:
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, plen))).to(
         device)
     logits, cache = tf.prefill(params, prompt, cfg, max_len=plen + 1)
-
-    def plain(q, k, v, causal=True, softcap=0.0):
-        return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       softcap=softcap,
-                                       q_offset=k.shape[2] - q.shape[2])
-
-    with mock.patch.object(tf, "attention", plain):
+    with mock.patch.object(tf, "attention", plain_attention):
         want, _ = tf.prefill(params, prompt, cfg, max_len=plen + 1)
     nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
     dec, _ = tf.decode_step(params, nxt, cache, plen, cfg)
@@ -3559,50 +3632,404 @@ def phase_lm_checks(args, device) -> dict:
 
 def phase_k4_timing(args, launches: int, device, reps: int) -> dict:
     """K4 at the prefill shape: q [1, 32, 1024, 64], k/v [1, 4, 1024, 64]
-    bf16, causal — held against its plain version there (the tolerance of
-    :func:`k4_err`), then timed; the yardstick is
-    ``scaled_dot_product_attention``."""
+    bf16, causal (:func:`k4_row`)."""
+    cfg = lm_config(args)
+    s = 32 if args.cpu_rehearsal else args.prompt_len
+    return k4_row("flash_attention", cfg.n_heads, cfg.n_kv_heads, s, cfg.hd,
+                  cfg.dtype, launches, device, reps)
+
+
+def k4_row(name: str, hq: int, hkv: int, s: int, d: int, dtype, launches,
+           device, reps: int, softcap: float = 0.0) -> dict:
+    """K4 at q [1, hq, s, d], k/v [1, hkv, s, d], causal, ``softcap``:
+    held against its plain version there (the tolerance of
+    :func:`k4_err`), then timed beside the plain version, its bound and one
+    library call of the same function: ``scaled_dot_product_attention``
+    without a softcap; with one, ``flex_attention`` with a tanh-softcap
+    ``score_mod`` and a causal block mask (compiled on the card before the
+    timing; SDPA has no softcap, its uncapped time is kept as
+    ``sdpa_ms``).  The library's output is held to the same tolerance."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel, ref
 
-    cfg = lm_config(args)
-    s = 32 if args.cpu_rehearsal else args.prompt_len
-    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = torch.Generator(device="cpu").manual_seed(7)
-    q = torch.randn((1, hq, s, d), generator=g).to(device, cfg.dtype)
-    k, v = (torch.randn((1, hkv, s, d), generator=g).to(device, cfg.dtype)
+    q = torch.randn((1, hq, s, d), generator=g).to(device, dtype)
+    k, v = (torch.randn((1, hkv, s, d), generator=g).to(device, dtype)
             for _ in range(2))
-    kernel.reset_launches()
-    got = kernel.flash_attention(q, k, v, causal=True)
-    want = ref.flash_attention_ref(q, k, v, causal=True)
+    kw = dict(causal=True, softcap=softcap)
+    got = kernel.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
     sync(device)
-    err, ok = k4_err(got, want, q, k, v, causal=True)
+    err, ok = k4_err(got, want, q, k, v, **kw)
     check(got.shape == q.shape and got.dtype == q.dtype and ok,
-          f"K4 at the prefill shape {list(q.shape)}: max abs err {err}")
+          f"K4 {name} at {list(q.shape)}, kv {hkv}, softcap {softcap}: max "
+          f"abs err {err}")
+    if softcap:
+        library, lib_name = flex_softcap(q, k, v, softcap), "flex_attention"
+    else:
+        library, lib_name = (lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True),
+            "scaled_dot_product_attention")
+    lib_err, lib_ok = k4_err(library(), want, q, k, v, **kw)
+    check(lib_ok, f"{lib_name} at {list(q.shape)}, softcap {softcap}: max "
+                  f"abs err {lib_err} against K4's plain version")
     del got, want
     clock = Clock(device)
-    k_ms = clock.ms(lambda: kernel.flash_attention(q, k, v, causal=True),
-                    reps)
-    p_ms = clock.ms(lambda: ref.flash_attention_ref(q, k, v, causal=True),
+    k_ms = clock.ms(lambda: kernel.flash_attention(q, k, v, **kw), reps)
+    p_ms = clock.ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
                     max(2, reps // 10), warmup=1)
-    lib_ms = clock.ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), reps)
+    lib_ms = clock.ms(library, reps)
+    sdpa_ms = lib_ms if not softcap else clock.ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True), reps)
     el = q.element_size()
     nbytes = 2 * q.numel() * el + 2 * k.numel() * el
     flops = 4 * hq * d * (s * (s + 1) // 2)
     row = kernel_row(
-        "flash_attention", "src/repro_torch/kernels/flash_attention/csrc/"
+        name, "src/repro_torch/kernels/flash_attention/csrc/"
         "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:89",
         launches, err, k_ms, p_ms, nbytes, flops, lib_ms,
         peak_ops=PEAK_BF16_OPS_PER_S)
-    emit({"phase": "k4_timing", "shape": [1, hq, s, d], "kv_heads": hkv,
-          "dtype": str(cfg.dtype), "causal": True, "max_abs_err": err,
-          "tflops": flops / (k_ms * 1e-3) / 1e12,
+    emit({"phase": "k4_timing", "name": name, "shape": [1, hq, s, d],
+          "kv_heads": hkv, "dtype": str(dtype), "causal": True,
+          "softcap": softcap, "max_abs_err": err,
+          "tflops": flops / (k_ms * 1e-3) / 1e12, "library": lib_name,
+          "library_max_abs_err": lib_err,
           "library_tflops": flops / (lib_ms * 1e-3) / 1e12,
+          "sdpa_ms": sdpa_ms,
+          "sdpa_note": "no softcap: SDPA computes the uncapped function"
+          if softcap else "the library call",
           **{k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}})
     return row
+
+
+def flex_softcap(q, k, v, softcap: float):
+    """``flex_attention`` computing K4's causal softcapped attention on
+    (q, k, v) (scores scaled by 1/sqrt(D), then ``softcap * tanh(s /
+    softcap)``), as a call of no arguments: compiled and run once here on
+    the card (eager, the library's own fallback, on the CPU)."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    s = q.shape[2]
+
+    def capped(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    mask = create_block_mask(lambda b, h, q_idx, kv_idx: q_idx >= kv_idx,
+                             None, None, s, s, device=q.device)
+    fn = torch.compile(flex_attention, dynamic=False) if q.is_cuda \
+        else flex_attention
+
+    def call():
+        return fn(q, k, v, score_mod=capped, block_mask=mask, enable_gqa=True)
+
+    call()
+    sync(q.device)
+    return call
+
+
+# --------------------------------------------------------------------------
+# the MoE LMs (phases 5c, 5d) and the diffusion dry-run (phase 3l)
+# --------------------------------------------------------------------------
+
+MOE_SERVE_ARCH, MOE_SERVE_LAYERS = "phi3.5-moe-42b-a6.6b", 24
+MOE_CHECK_ARCHS = ("phi3.5-moe-42b-a6.6b", "grok-1-314b")
+DRYRUN_CELLS = ((256, "pull"), (256, "push"), (512, "pull"))
+# a prefill of at most this many tokens drops no row: each expert gets at
+# most one row a token, and the least capacity is 128
+NO_DROP_LEN = 128
+
+
+def moe_config(args, arch: str = MOE_SERVE_ARCH,
+               layers: int = MOE_SERVE_LAYERS, dtype=torch.bfloat16):
+    """``arch`` at its published widths cut to ``layers`` layers (the
+    smoke config on the CPU rehearsal)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    mod = registry.get_module(arch)
+    if args.cpu_rehearsal:
+        return mod.smoke_config(dtype=dtype)
+    return dataclasses.replace(mod.make_config(dtype=dtype),
+                               n_layers=layers)
+
+
+def free_card(device) -> None:
+    import gc
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def check_free(device, need: int, what: str) -> int | None:
+    """The card's free bytes, checked against ``need`` before a model is
+    loaded (None on the CPU)."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info()
+    check(free >= need, f"{what} needs {need} B of the card, {free} B free")
+    return free
+
+
+def model_bytes(cfg, slots: int, max_len: int) -> int:
+    """What loading and serving ``cfg`` takes on the card: its weights,
+    the slots' KV cache and a prefill's, and the two float32 copies of the
+    largest tensor ``dense_init`` holds before casting."""
+    el = torch.empty((), dtype=cfg.dtype).element_size()
+    kv = cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2 * el * max_len
+    f = cfg.moe.d_ff if cfg.moe is not None else cfg.d_ff
+    e = cfg.moe.n_experts if cfg.moe is not None else 1
+    return cfg.param_count() * el + kv * (slots + 1) + \
+        2 * e * cfg.d_model * f * 4
+
+
+@contextlib.contextmanager
+def recording_routes(on: bool = True):
+    """``moe.route`` wrapped to keep, at each call, its group sizes [E]
+    (a device tensor, not read) and its token count, in the list yielded;
+    ``moe_ffn`` routes once a call, so routing and drops are the run's
+    own.  ``on`` False records nothing (a dense model)."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    routes = []
+    if not on:
+        yield routes
+        return
+    real = moe.route
+
+    def recorded(params, x, cfg):
+        out = real(params, x, cfg)
+        routes.append((out[-1], x.shape[0]))
+        return out
+
+    with mock.patch.object(moe, "route", recorded):
+        yield routes
+
+
+def dropped_rows(cfg, routes) -> int:
+    """The rows the capacity path drops in ``routes`` (group sizes past
+    ``moe.capacity`` of each call's token count)."""
+    from repro_torch.models import moe
+
+    return int(sum(int((sz - moe.capacity(cfg, t)).clamp(min=0).sum())
+                   for sz, t in routes))
+
+
+def plain_attention(q, k, v, causal=True, softcap=0.0):
+    """``ops.attention`` on K4's plain version (the same alignment)."""
+    from repro_torch.kernels.flash_attention import ref
+
+    return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap,
+                                   q_offset=k.shape[2] - q.shape[2])
+
+
+def phase_moe_checks(args, device) -> dict:
+    """Phase 5d: the float32 MoE LMs at published widths on 2 layers each,
+    phi3.5-moe and then grok-1 (freed between): prefill logits on K4
+    against the same model on the plain attention; the decode logits at
+    p = ``NO_DROP_LEN`` - 1, where no expert can receive more rows than the
+    least capacity (128) holds, against the last logits of a prefill over
+    p + 1 tokens (1e-3 max abs, as phase 5b); and phi3.5 with the int8 KV
+    cache made from that prefill's (prefill -> ``kv_quantize`` ->
+    ``decode_step``): within the reference test's 5 % of the unquantized
+    decode's largest logit, with the same argmax.  Then grok-1's 2 layers
+    in bf16: a prefill of the prompt, which launches K4's bf16 softcap
+    instance (counted: the grok-1 K4 row's launches)."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.models import transformer as tf
+
+    plen = 16 if args.cpu_rehearsal else args.prompt_len
+    p = min(plen, NO_DROP_LEN) - 1
+    out = {"phase": "moe_checks", "dtype": "float32", "prompt_len": plen,
+           "decode_at": p, "tolerance": 1e-3, "int8_tolerance": 0.05}
+    for arch in MOE_CHECK_ARCHS:
+        cfg = moe_config(args, arch, layers=2, dtype=torch.float32)
+        free = check_free(device, model_bytes(cfg, 1, plen + 1),
+                          f"5d {arch}")
+        params = tf.init_params(cfg, seed=args.seed + 2, device=device)
+        rng = np.random.default_rng(args.seed + 2)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, plen))).to(
+            device)
+        k4.reset_launches()
+        with recording_routes() as routes:
+            logits, _ = tf.prefill(params, prompt, cfg, max_len=plen + 1)
+        launches = k4.LAUNCHES["flash_attention"]
+        dropped = dropped_rows(cfg.moe, routes)
+        with mock.patch.object(tf, "attention", plain_attention):
+            want, _ = tf.prefill(params, prompt, cfg, max_len=plen + 1)
+        sync(device)
+        err_k4 = float((logits - want).abs().max())
+        check(bool(torch.isfinite(logits).all()) and logits.shape ==
+              (1, 1, cfg.vocab), f"5d {arch}: prefill logits are not finite "
+                                 f"[1, 1, V]")
+        check(err_k4 <= 1e-3, f"5d {arch}: f32 prefill on K4 vs plain "
+                              f"attention: {err_k4}")
+        # decode at p against a prefill over p + 1: neither can drop a row
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        with recording_routes() as short_routes:
+            _, cache = tf.prefill(params, prompt[:, :p], cfg, max_len=p + 1)
+            longer, _ = tf.prefill(params, torch.cat([prompt[:, :p], nxt], 1),
+                                   cfg, max_len=p + 1)
+        (qk, sk), (qv, sv) = (tf.kv_quantize(cache[n]) for n in "kv")
+        dec, _ = tf.decode_step(params, nxt, cache, p, cfg)
+        if cfg.logit_softcap:       # decode caps, prefill does not
+            longer = cfg.logit_softcap * torch.tanh(
+                longer / cfg.logit_softcap)
+        err_dec = float((dec - longer).abs().max())
+        check(dropped_rows(cfg.moe, short_routes) == 0,
+              f"5d {arch}: a prefill of {p + 1} tokens dropped a row")
+        check(err_dec <= 1e-3, f"5d {arch}: f32 decode vs prefill over "
+                               f"p + 1 at p = {p}: {err_dec}")
+        row = {"layers": cfg.n_layers, "free_bytes_before": free,
+               "k4_launches": launches, "capacity_dropped_rows": dropped,
+               "logit_absmax": float(logits.abs().max()),
+               "k4_vs_plain_max_abs": err_k4,
+               "decode_vs_prefill_max_abs": err_dec}
+        if arch == MOE_CHECK_ARCHS[0]:
+            lg_q, qc2 = tf.decode_step(
+                params, nxt, {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv},
+                p, dataclasses.replace(cfg, kv_quant=True))
+            sync(device)
+            rel = float((lg_q - dec).abs().max() / dec.abs().max())
+            same = bool((lg_q.argmax(-1) == dec.argmax(-1)).all())
+            check(qc2["k"].dtype == torch.int8 and rel < 0.05 and same,
+                  f"5d {arch}: int8 decode {rel} of the largest logit "
+                  f"(limit 0.05), same argmax {same}")
+            row["int8_vs_decode_rel"] = rel
+            row["int8_same_argmax"] = same
+        out[arch] = row
+        del params, cache, qk, qv, logits, want, dec, longer
+        free_card(device)
+    # grok-1 in bf16, the serving dtype: K4's bf16 softcap instance
+    cfg = moe_config(args, MOE_CHECK_ARCHS[1], layers=2, dtype=torch.bfloat16)
+    free = check_free(device, model_bytes(cfg, 1, plen), "5d grok-1 bf16")
+    params = tf.init_params(cfg, seed=args.seed + 2, device=device)
+    rng = np.random.default_rng(args.seed + 2)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, plen))).to(
+        device)
+    k4.reset_launches()
+    logits, _ = tf.prefill(params, prompt, cfg, max_len=plen)
+    sync(device)
+    launches = k4.LAUNCHES["flash_attention"]
+    check(bool(torch.isfinite(logits).all()) and logits.shape ==
+          (1, 1, cfg.vocab), "5d grok-1 bf16: prefill logits are not finite "
+                             "[1, 1, V]")
+    if device.type == "cuda":
+        check(launches == cfg.n_layers, f"5d grok-1 bf16: K4 launched "
+                                        f"{launches} times, not "
+                                        f"{cfg.n_layers}")
+    out["grok_bf16"] = {"layers": cfg.n_layers, "free_bytes_before": free,
+                        "k4_launches": launches,
+                        "logit_absmax": float(logits.abs().max())}
+    del params, logits
+    free_card(device)
+    emit(out)
+    return out
+
+
+def phase_dryrun(args, device) -> dict:
+    """Phase 3l: the diffusion dry-run at RMAT ``--dry-scale`` (26), each
+    run in its own process (``python -m
+    repro_torch.launch.dryrun_diffusion``: rank 0 of a fake world of 256
+    or 512 ranks, on its own cell of the production shape; see that
+    module) at 256 cells on pull and push and 512 cells on pull: the
+    rank's argument, output and peak bytes, the collectives of a round and
+    of the run.  Then the same rank's cells made here by the module's
+    ``build_cell``, and K1 (and K3, at 256 cells with the push streams) on them
+    bitwise their plain versions, with no process group."""
+    import os
+
+    from repro_torch.core.programs import sssp_program
+    from repro_torch.core.relax import (
+        active_push_blocks,
+        push_caps,
+        select_bucket,
+    )
+    from repro_torch.kernels.edge_relax import kernel, ref
+    from repro_torch.launch import dryrun_diffusion as dry
+
+    scale = args.dry_scale
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = {"phase": "dryrun", "scale": scale, "runs": []}
+    for cells, sweep in DRYRUN_CELLS:
+        where = OUT_DIR / "dryrun" / f"{cells}-{sweep}"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun_diffusion",
+               "--scale", str(scale), "--sweep", sweep, "--device",
+               device.type, "--seed", str(args.seed), "--out-dir",
+               str(where)] + (["--multi-pod"] if cells == 512 else [])
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                              env=env, timeout=600)
+        wall = time.perf_counter() - t
+        check(proc.returncode == 0, f"3l: the dry-run at {cells} cells "
+              f"({sweep}) failed:\n{proc.stdout[-2000:]}\n"
+              f"{proc.stderr[-3000:]}")
+        rep = json.loads((where / f"diffusion_sssp_s{scale}_{cells}cells"
+                                  f".json").read_text())
+        np_ = rep["per_cell_vertices"]
+        per_round = rep["collectives_per_round"]
+        check(rep["rounds"] == 2 and rep["world"] ==
+              f"fake group of {cells} ranks", f"3l: {rep['world']}, "
+                                              f"{rep['rounds']} rounds")
+        check(per_round.get("all_to_all_single", {}).get("bytes") ==
+              5 * cells * np_, f"3l: a round's all_to_all {per_round}")
+        if device.type == "cuda":
+            check(rep["launches"].get("edge_relax_blocks", 0) > 0 or
+                  sweep != "pull", f"3l: no K1 launch {rep['launches']}")
+            check(rep["launches"].get("edge_relax_push_blocks", 0) > 0 or
+                  sweep == "pull", f"3l: no K3 launch {rep['launches']}")
+            check(rep["device"] == torch.cuda.get_device_name(0),
+                  f"3l: the dry-run ran on {rep['device']}")
+        line = {k: v for k, v in rep.items() if k != "calls"}
+        line.update(phase="dryrun_run", process_wall_s=wall)
+        emit(line)
+        out["runs"].append(line)
+
+    prog = sssp_program(0, track_parents=False)
+    be = kernel.BLOCK_E
+    holds = {}
+    for cells, with_push in ((256, True), (512, False)):
+        cell = dry.build_cell(scale, cells, 0, with_push=with_push,
+                              seed=args.seed, device=device)
+        n_keys = cells * cell["gid"].shape[1]
+        g = torch.Generator(device="cpu").manual_seed(args.seed + 50)
+        shape = tuple(cell["node_ok"].shape)
+        vs = {"dist": (torch.rand(shape, generator=g) * 64).to(device)}
+        senders = (torch.rand(shape, generator=g) < 0.5).to(device)
+        tag = f"3l {cells} cells"
+        hold = {"n_keys": n_keys, "edge_slots": cell["csr_key"].shape[1],
+                "k1_max_abs_err": hold_k1(
+                    (prog, vs, senders, cell["gid"], cell["csr_key"],
+                     cell["csr_src"], cell["csr_weight"],
+                     cell["csr_dst_gid"]), n_keys, tag)}
+        if with_push:
+            few = (torch.rand(shape, generator=g) < 0.01).to(device)
+            nb = cell["push_src"].shape[-1] // be
+            count = int(active_push_blocks(few, cell["push_src"], be).max())
+            cap = push_caps(nb)[select_bucket(count, nb, "push")]
+            idx, valid = ref.compact_push_blocks(few, cell["push_src"], be,
+                                                 cap)
+            hold["k3"] = hold_k3(
+                (prog, vs, few, cell["gid"], cell["push_key"],
+                 cell["push_src"], cell["push_weight"], cell["push_dst_gid"],
+                 idx), valid, n_keys, tag, be)
+            hold["k3"]["active_blocks"] = count
+        holds[cells] = hold
+        del cell, vs, senders
+        free_card(device)
+    out["kernels_vs_plain"] = holds
+    emit({"phase": "dryrun_kernels", "bitwise": True, **holds})
+    return out
 
 # --------------------------------------------------------------------------
 
@@ -3625,6 +4052,8 @@ def main(argv=None) -> int:
                     help="scale_free vertices of phase 3f's event oracle")
     ap.add_argument("--spmd-scale", type=int, default=16,
                     help="Graph500 scale of phase 3j's four gloo ranks")
+    ap.add_argument("--dry-scale", type=int, default=26,
+                    help="RMAT scale of phase 3l's diffusion dry-run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
@@ -3647,6 +4076,7 @@ def main(argv=None) -> int:
         args.tri_scale = min(args.tri_scale, 10)
         args.event_n = min(args.event_n, 128)
         args.spmd_scale = min(args.spmd_scale, 8)
+        args.dry_scale = min(args.dry_scale, 12)
     elif not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
               file=sys.stderr)
@@ -3715,6 +4145,7 @@ def main(argv=None) -> int:
     watchdog = phase_watchdog(sess, queries, sources, device)
     spmd = phase_spmd(args, sess, data, sources, roots, device)
     sanitized = phase_sanitize(args, sess, roots, device)
+    dryrun = phase_dryrun(args, device)
     gen_launches = phase_generic(args, sess, results, lanes16, roots,
                                  sources, data, device)
     del lanes16
@@ -3749,11 +4180,29 @@ def main(argv=None) -> int:
     k5_row = phase_k5(args, device, args.reps)
     served = phase_serve(args, device)
     lm = phase_lm_checks(args, device)
-    k4_row = phase_k4_timing(args, served["k4_launches"], device,
-                             args.reps)
-    rows += [k4_row, k5_row, k6_row]
+    k4_dense = phase_k4_timing(args, served["k4_launches"], device,
+                               args.reps)
+    # the MoE LMs: every graph session and process group is gone
+    check(not torch.distributed.is_initialized(),
+          "a process group outlived phase 3j")
+    free_card(device)
+    moe_cfg = moe_config(args)
+    moe_served = phase_serve(args, device, moe_cfg, phase="moe_serve")
+    moe = phase_moe_checks(args, device)
+    s_moe = 32 if args.cpu_rehearsal else args.prompt_len
+    grok = moe_config(args, MOE_CHECK_ARCHS[1], dtype=torch.bfloat16)
+    moe_rows = [
+        k4_row("flash_attention (phi3.5-moe prefill)", moe_cfg.n_heads,
+               moe_cfg.n_kv_heads, s_moe, moe_cfg.hd, moe_cfg.dtype,
+               moe_served["k4_launches"], device, args.reps),
+        k4_row("flash_attention (grok-1 prefill, softcap 30)", grok.n_heads,
+               grok.n_kv_heads, s_moe, grok.hd, grok.dtype,
+               moe["grok_bf16"]["k4_launches"], device, args.reps,
+               softcap=grok.attn_softcap)]
+    rows += [k4_dense, *moe_rows, k5_row, k6_row]
     detail = {"nvidia_smi": smi, "kernels": rows, "k3": k3_detail,
-              "serve": served, "lm_checks": lm, "k4_vs_plain": k4_check,
+              "serve": served, "lm_checks": lm, "moe_serve": moe_served,
+              "moe_checks": moe, "dryrun": dryrun, "k4_vs_plain": k4_check,
               "replicas": replicas, "oracles": oracles,
               "watchdog": watchdog, "generic": gen_launches,
               "spmd": spmd, "sanitize": sanitized,

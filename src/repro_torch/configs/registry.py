@@ -1,21 +1,20 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-The port runs the dense LMs.  The reference's other architectures are
-named here with the ROADMAP item that brings them, and ``get_module``
-raises ``NotImplementedError`` for them.
+The port runs the dense LMs and the MoE LMs.  The reference's other
+architectures are named here with the ROADMAP item that brings them, and
+``get_module`` raises ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
 
-from . import qwen2_7b, tinyllama_1_1b
+from . import grok_1_314b, phi3_5_moe_42b, qwen2_7b, tinyllama_1_1b
 
 __all__ = ["ARCHS", "NOT_PORTED", "get_module"]
 
-ARCHS = {m.ARCH_ID: m for m in (tinyllama_1_1b, qwen2_7b)}
+ARCHS = {m.ARCH_ID: m for m in (tinyllama_1_1b, qwen2_7b, grok_1_314b,
+                                phi3_5_moe_42b)}
 
 NOT_PORTED = {
-    "grok-1-314b": "MoE LMs (models/moe.py), ROADMAP queue 1",
-    "phi3.5-moe-42b-a6.6b": "MoE LMs (models/moe.py), ROADMAP queue 1",
     "command-r-plus-104b": "sharded LMs (dist/; 104B bf16 does not fit one "
                            "card), ROADMAP queue 1",
     "equiformer-v2": "GNN models (models/gnn), ROADMAP queue 1",

@@ -24,6 +24,7 @@ __all__ = [
     "scale_free",
     "powerlaw_cluster",
     "graph500_rmat",
+    "rmat_pairs",
     "GENERATORS",
     "make_graph_family",
 ]
@@ -154,7 +155,17 @@ def graph500_rmat(
     """Graph500 RMAT (stochastic Kronecker) generator, vectorized."""
     rng = np.random.default_rng(seed)
     n = 1 << scale
-    m = n * edge_factor
+    src, dst = rmat_pairs(rng, scale, n * edge_factor, a, b, c)
+    # graph500 permutes vertex labels to break locality
+    perm = rng.permutation(n).astype(src.dtype)
+    return _symmetrize_dedup(perm[src], perm[dst], n)
+
+
+def rmat_pairs(rng: np.random.Generator, scale: int, m: int,
+               a: float = 0.57, b: float = 0.19, c: float = 0.19):
+    """``m`` raw RMAT (src, dst) pairs over 2**scale vertex ids, drawn
+    from ``rng``: one quadrant choice per bit, before Graph500's label
+    permutation and symmetrization."""
     dt = np.int32 if scale < 31 else np.int64
     src = np.zeros(m, dt)
     dst = np.zeros(m, dt)
@@ -168,9 +179,7 @@ def graph500_rmat(
         dst_bit = np.where(src_bit, r2 > c_norm, r2 > a_norm)
         src |= src_bit.astype(dt) << dt(i)
         dst |= dst_bit.astype(dt) << dt(i)
-    # graph500 permutes vertex labels to break locality
-    perm = rng.permutation(n).astype(dt)
-    return _symmetrize_dedup(perm[src], perm[dst], n)
+    return src, dst
 
 
 GENERATORS = {

@@ -1,0 +1,35 @@
+"""MoE expert-parallel plan (PyTorch port of ``repro/dist/moe_parallel.py``).
+
+The plan is a plain dict naming the mesh, the token (data) axes, the
+tensor (model) axis carrying the d_ff shards and the FSDP axis of the
+parameters at rest: serializable and inspectable, the contract between
+the code that lays out cells and a sharding layer.  The mesh is a
+:class:`torch.distributed.device_mesh.DeviceMesh`.
+
+On one card the transformer calls ``moe_ffn`` directly: the reference's
+``dist/sharding.py::moe_apply`` runs ``fn(params, x)`` whenever no plan is
+bound, so it is not ported, as ``logical_constraint`` (a no-op on one
+device) is not.
+"""
+
+from __future__ import annotations
+
+__all__ = ["make_moe_plan"]
+
+
+def make_moe_plan(mesh, data_axes=("data",), model_axis: str = "model",
+                  fsdp_axis: str = "data") -> dict:
+    """Build the expert-parallel plan for ``mesh``.
+
+    data_axes: mesh axes tokens are sharded over (("pod", "data") on the
+    two-pod mesh).  model_axis: the d_ff / expert tensor axis.  fsdp_axis:
+    where expert parameters are stored when sharded at rest.
+    """
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return {
+        "mesh": mesh,
+        "data_axes": tuple(a for a in data_axes if a in sizes),
+        "model_axis": model_axis,
+        "fsdp_axis": fsdp_axis,
+        "n_tensor_shards": sizes.get(model_axis, 1),
+    }

@@ -1,5 +1,9 @@
-"""The process group the SPMD engine runs on (PyTorch counterpart of
-``repro.launch.mesh``, whose ``mesh_context`` is JAX's ambient mesh).
+"""The process group the SPMD engine runs on, and the production mesh
+(PyTorch counterpart of ``repro.launch.mesh``, whose ``mesh_context`` is
+JAX's ambient mesh and needs no counterpart).
+
+:func:`make_production_mesh` is a function, so importing this module
+touches no process state.
 
 ``engine="spmd"`` runs one compute cell per rank of a
 :mod:`torch.distributed` world.  A multi-rank world is started by the
@@ -15,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["cells_group"]
+__all__ = ["cells_group", "make_production_mesh"]
 
 # the world of one this module started: (its default group, the device it
 # serves); a world the caller started is never touched
@@ -68,3 +72,16 @@ def cells_group(n_cells: int, device="cuda"):
                                 world_size=1)
     _own_world = (dist.group.WORLD, dev)
     return dist.group.WORLD
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """(16, 16) data x model single pod; (2, 16, 16) pod x data x model for
+    the two-pod (512-rank) configuration: a
+    :class:`~torch.distributed.device_mesh.DeviceMesh` over the default
+    process group, whose world must be 256 (512) ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(torch.device(device).type, shape,
+                            mesh_dim_names=axes)

@@ -7,7 +7,12 @@ admits a request into a free KV-cache slot (batch 1, on the K4 attention
 kernel); a decode step advances every active slot by one greedy token;
 a finished sequence frees its slot.  Like the reference, ``step`` runs
 every slot at one shared ``cache_len = max(lens[active]) - 1``, which is
-right only when the active prompts have equal lengths.
+right only when the active prompts have equal lengths.  It serves the
+dense and the MoE LMs.  It refuses an int8 KV cache (``kv_quant``): the
+reference's ``admit`` writes the unquantized prefill k/v into the int8
+cache and never sets its scales, and porting that would port a wrong
+result.  The int8 cache is reached through ``prefill`` ->
+``transformer.kv_quantize`` -> ``decode_step``.
 
 :class:`DurableSessionLoop` is the graph-store analogue: a streaming-update
 loop over a :class:`~repro_torch.core.session.DiffusionSession` with
@@ -32,6 +37,14 @@ from ..runtime.fault_tolerance import PreemptionGuard
 
 class DecodeServer:
     def __init__(self, cfg, params, batch_slots: int, max_len: int):
+        if cfg.kv_quant:
+            raise ValueError(
+                "DecodeServer does not serve kv_quant configs: the "
+                "reference's DecodeServer.admit writes the unquantized "
+                "prefill k/v into the int8 cache and never sets k_scale/"
+                "v_scale, so porting it would port a wrong result. Quantize "
+                "a prefill's cache with transformer.kv_quantize and call "
+                "decode_step instead.")
         self.cfg = cfg
         self.params = params
         self.max_len = max_len

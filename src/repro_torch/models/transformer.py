@@ -1,28 +1,32 @@
-"""Decoder-only LM: GQA + RoPE + {RMS,Layer}Norm + dense SwiGLU FFN.
+"""Decoder-only LM: GQA + RoPE + {RMS,Layer}Norm + {dense, MoE} FFN.
 
-The port of ``repro/models/transformer.py`` for the dense configurations
-(tinyllama-1.1b, qwen2-7b).  Parameters keep the JAX package's tree and
-layouts (``wq [d, H, hd]``, ``wo [H, hd, d]``, the KV cache
-``[L, B, Hkv, M, hd]``), held by a :class:`Transformer` module with one
-submodule per layer instead of arrays stacked on a leading L axis: eager
-PyTorch runs the layers as a Python loop, where JAX scans them.
-``init_params``, ``forward``, ``prefill``, ``decode_step`` and
-``init_cache`` keep the JAX names and arguments, with the module in place
-of the params tree (``loss_fn`` waits for the training slice).  Attention over a whole sequence runs on the K4
-kernel (``kernels/flash_attention``); single-token decode, projections,
-the FFN and the unembedding are plain PyTorch, as they are plain XLA in
-JAX.  The module is for inference: its parameters do not require grad
-(the training slice brings K4's backward).
+The port of ``repro/models/transformer.py`` for the single-card
+configurations (tinyllama-1.1b, qwen2-7b, and the MoE LMs grok-1-314b and
+phi3.5-moe-42b-a6.6b at a cut depth).  Parameters keep the JAX package's
+tree and layouts (``wq [d, H, hd]``, ``wo [H, hd, d]``, ``moe.w_gate [E,
+d, f]``, the KV cache ``[L, B, Hkv, M, hd]``), held by a
+:class:`Transformer` module with one submodule per layer instead of arrays
+stacked on a leading L axis: eager PyTorch runs the layers as a Python
+loop, where JAX scans them.  ``init_params``, ``forward``, ``prefill``,
+``decode_step``, ``init_cache``, ``kv_quantize`` and ``kv_dequantize``
+keep the JAX names and arguments, with the module in place of the params
+tree (``loss_fn`` waits for the training slice).  Attention over a whole
+sequence runs on the K4 kernel (``kernels/flash_attention``);
+single-token decode, projections, the FFN, the MoE layer (``moe.py``) and
+the unembedding are plain PyTorch, as they are plain XLA in JAX.  The
+module is for inference: its parameters do not require grad (the training
+slice brings K4's backward).
 
-Not ported here (each raises ``NotImplementedError``): MoE layers, the
-int8 KV cache and sharded execution (``logical_constraint`` is a no-op on
-one device and is dropped).
+The int8 KV cache (``kv_quant``) holds int8 values and float32 scales per
+position and head, ``{k, v, k_scale, v_scale}``; ``prefill`` still
+returns the unquantized cache, which ``kv_quantize`` turns into one, as in
+the reference.  Sharded execution is not ported (``logical_constraint``
+and ``moe_apply`` do nothing on one device and are dropped).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import numpy as np
 import torch
@@ -37,9 +41,11 @@ from .common import (
     layernorm,
     rmsnorm,
 )
+from .moe import MoEConfig, init_moe, moe_ffn
 
 __all__ = ["TransformerConfig", "Transformer", "init_params", "forward",
-           "prefill", "decode_step", "init_cache", "params_from_numpy"]
+           "prefill", "decode_step", "init_cache", "params_from_numpy",
+           "kv_quantize", "kv_dequantize"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,33 +65,45 @@ class TransformerConfig:
     rope_theta: float = 10_000.0
     attn_softcap: float = 0.0
     logit_softcap: float = 0.0
-    moe: Any = None                  # MoE layers: not ported yet
+    moe: MoEConfig | None = None
     tie_embeddings: bool = True
     emb_scale: float = 1.0
     logit_scale: float = 1.0
     dtype: torch.dtype = torch.float32
-    kv_quant: bool = False           # int8 KV cache: not ported yet
-
-    def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                "MoE layers (models/moe.py) are not ported yet: ROADMAP "
-                "queue 1, MoE LMs")
-        if self.kv_quant:
-            raise NotImplementedError(
-                "the int8 KV cache is not ported yet: ROADMAP queue 1, MoE "
-                "LMs and the serving options")
+    # int8 KV cache with per-position-per-head f32 scales: decode is
+    # KV-bandwidth-bound, so int8 halves the dominant term against bf16
+    kv_quant: bool = False
 
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    def _attn_params(self) -> int:
+        d, h, hkv, hd = self.d_model, self.n_heads, self.n_kv_heads, self.hd
+        return d * h * hd + 2 * d * hkv * hd + h * hd * d
+
+    def _emb_params(self) -> int:
+        return self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+
     def param_count(self) -> int:
-        d, f, v, l = self.d_model, self.d_ff, self.vocab, self.n_layers
-        h, hkv, hd = self.n_heads, self.n_kv_heads, self.hd
-        attn = d * h * hd + 2 * d * hkv * hd + h * hd * d
-        emb = v * d * (1 if self.tie_embeddings else 2)
-        return l * (attn + 3 * d * f) + emb
+        d = self.d_model
+        if self.moe is not None:
+            e = self.moe.n_experts
+            ffn = d * e + 3 * e * d * self.moe.d_ff
+        else:
+            ffn = 3 * d * self.d_ff
+        return self.n_layers * (self._attn_params() + ffn) + \
+            self._emb_params()
+
+    def active_param_count(self) -> int:
+        """Parameters one token reads (the 6 N_active D convention of MoE
+        rooflines): the router and ``top_k`` experts a layer."""
+        if self.moe is None:
+            return self.param_count()
+        d, m = self.d_model, self.moe
+        ffn = d * m.n_experts + 3 * m.top_k * d * m.d_ff
+        return self.n_layers * (self._attn_params() + ffn) + \
+            self._emb_params()
 
 
 class _Tree(nn.Module):
@@ -141,11 +159,14 @@ def _layer_tree(gen, cfg: TransformerConfig) -> dict:
     layer = {"attn": attn, "ln1": norm()}
     if not cfg.parallel_block:
         layer["ln2"] = norm()
-    layer["mlp"] = {
-        "w_gate": dense_init(gen, (d, cfg.d_ff), 0, dtype=dt),
-        "w_up": dense_init(gen, (d, cfg.d_ff), 0, dtype=dt),
-        "w_down": dense_init(gen, (cfg.d_ff, d), 0, dtype=dt),
-    }
+    if cfg.moe is not None:
+        layer["moe"] = init_moe(gen, d, cfg.moe, dtype=dt)
+    else:
+        layer["mlp"] = {
+            "w_gate": dense_init(gen, (d, cfg.d_ff), 0, dtype=dt),
+            "w_up": dense_init(gen, (d, cfg.d_ff), 0, dtype=dt),
+            "w_down": dense_init(gen, (cfg.d_ff, d), 0, dtype=dt),
+        }
     return layer
 
 
@@ -171,15 +192,18 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
 def params_from_numpy(tree: dict, cfg: TransformerConfig,
                       device="cuda") -> Transformer:
     """The JAX package's params tree (leaves as numpy arrays, layers
-    stacked on a leading L axis) as the port's module, in ``cfg.dtype``."""
-    def conv(a):
+    stacked on a leading L axis) as the port's module, in ``cfg.dtype``
+    but the MoE ``router``, which stays float32 as ``init_moe`` makes
+    it."""
+    def conv(a, name):
+        dt = torch.float32 if name == "router" else cfg.dtype
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=cfg.dtype)
+            device=device, dtype=dt)
 
-    def walk(node, pick=None):
+    def walk(node, pick=None, name=None):
         if isinstance(node, dict):
-            return {k: walk(v, pick) for k, v in node.items()}
-        return conv(node if pick is None else np.asarray(node)[pick])
+            return {k: walk(v, pick, k) for k, v in node.items()}
+        return conv(node if pick is None else np.asarray(node)[pick], name)
 
     out = {k: walk(v) for k, v in tree.items() if k != "layers"}
     out["layers"] = [walk(tree["layers"], i) for i in range(cfg.n_layers)]
@@ -197,11 +221,47 @@ def _ffn_dense(cfg, p, x):
     return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
+def _ffn(cfg, p, x):
+    """The layer's FFN on [B, S, d] -> ([B, S, d], the MoE router
+    statistics or None): ``moe_ffn`` on the [B*S, d] tokens, or the dense
+    SwiGLU."""
+    if cfg.moe is None:
+        return _ffn_dense(cfg, p["mlp"], x), None
+    b, s, d = x.shape
+    y, aux = moe_ffn(p["moe"], x.reshape(b * s, d), cfg.moe)
+    return y.reshape(b, s, d), aux
+
+
+def kv_quantize(x):
+    """[..., D] -> (int8 values, per-row scale [..., 1] f32).  Rounds half
+    to even, as ``jnp.round`` does.  The scale stays f32: a bf16 scale
+    adds ~0.4 % relative error to every dequantized row."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def kv_dequantize(q, s, dtype):
+    return (q.float() * s.float()).to(dtype)
+
+
+def _write_cache(cache, at: int, new) -> None:
+    """Write ``new`` [B, Hkv, S, X] into ``cache`` at position ``at``, in
+    place (JAX's ``dynamic_update_slice`` on a donated buffer does the
+    same)."""
+    s = new.shape[2]
+    if at + s > cache.shape[2]:
+        raise ValueError(f"cache of {cache.shape[2]} positions is full at "
+                         f"{at} + {s}")
+    cache[:, :, at:at + s] = new.to(cache.dtype)
+
+
 def _attention_block(cfg, p, h, positions, kv_cache=None, cache_len=None):
-    """h [B, S, d] (pre-normed) -> (attn_out [B, S, d], (k, v)).  With a
-    cache, k/v are written into it in place at ``cache_len`` (JAX's
-    ``dynamic_update_slice`` on a donated buffer does the same) and the
-    query attends to the first ``cache_len + S`` positions."""
+    """h [B, S, d] (pre-normed) -> (attn_out [B, S, d], the cache tuple).
+    With a cache, (k, v) or the int8 (k, v, k_scale, v_scale), the new
+    k/v are written into it in place at ``cache_len`` and the query
+    attends to the first ``cache_len + S`` positions."""
     q = torch.einsum("bsd,dhk->bhsk", h, p["wq"])
     k = torch.einsum("bsd,dhk->bhsk", h, p["wk"])
     v = torch.einsum("bsd,dhk->bhsk", h, p["wv"])
@@ -214,29 +274,40 @@ def _attention_block(cfg, p, h, positions, kv_cache=None, cache_len=None):
     if kv_cache is None:
         o = attention(q, k, v, causal=True, softcap=cfg.attn_softcap)
         new_kv = (k, v)
+    elif len(kv_cache) == 4:
+        # int8 cache: quantize the new rows, attend to the dequantized cache
+        ck, cv, cks, cvs = kv_cache
+        qk, sk = kv_quantize(k)
+        qv, sv = kv_quantize(v)
+        for cache, new in ((ck, qk), (cv, qv), (cks, sk), (cvs, sv)):
+            _write_cache(cache, cache_len, new)
+        o = decode_attention(q, kv_dequantize(ck, cks, h.dtype),
+                             kv_dequantize(cv, cvs, h.dtype),
+                             cache_len + q.shape[2], softcap=cfg.attn_softcap)
+        new_kv = kv_cache
     else:
         ck, cv = kv_cache
-        s = q.shape[2]
-        if cache_len + s > ck.shape[2]:
-            raise ValueError(f"cache of {ck.shape[2]} positions is full at "
-                             f"{cache_len} + {s}")
-        ck[:, :, cache_len:cache_len + s] = k.to(ck.dtype)
-        cv[:, :, cache_len:cache_len + s] = v.to(cv.dtype)
-        o = decode_attention(q, ck, cv, cache_len + s,
+        _write_cache(ck, cache_len, k)
+        _write_cache(cv, cache_len, v)
+        o = decode_attention(q, ck, cv, cache_len + q.shape[2],
                              softcap=cfg.attn_softcap)
-        new_kv = (ck, cv)
+        new_kv = kv_cache
     out = torch.einsum("bhsk,hkd->bsd", o.to(h.dtype), p["wo"])
     return out, new_kv
 
 
 def _layer_apply(cfg, p, x, positions, kv_cache=None, cache_len=None):
+    """One block -> (x, the cache tuple, the MoE router statistics or
+    None)."""
     h = _norm(cfg, x, p["ln1"])
     attn_out, new_kv = _attention_block(cfg, p["attn"], h, positions,
                                         kv_cache, cache_len)
     if cfg.parallel_block:
-        return x + attn_out + _ffn_dense(cfg, p["mlp"], h), new_kv
+        ff_out, aux = _ffn(cfg, p, h)
+        return x + attn_out + ff_out, new_kv, aux
     x = x + attn_out
-    return x + _ffn_dense(cfg, p["mlp"], _norm(cfg, x, p["ln2"])), new_kv
+    ff_out, aux = _ffn(cfg, p, _norm(cfg, x, p["ln2"]))
+    return x + ff_out, new_kv, aux
 
 
 def _unembed(params, cfg, x):
@@ -252,20 +323,35 @@ def _softcap_logits(cfg, logits):
 
 @torch.no_grad()
 def forward(params: Transformer, tokens, cfg: TransformerConfig):
-    """Full-sequence forward.  tokens [B, S] -> (logits [B, S, V], aux);
-    aux is None (dense FFN)."""
+    """Full-sequence forward.  tokens [B, S] -> (logits [B, S, V], aux):
+    aux is the MoE router statistics averaged over the layers, None for a
+    dense FFN."""
     x = params["embed"][tokens.long()].to(cfg.dtype) * cfg.emb_scale
     positions = torch.arange(tokens.shape[1], device=x.device)
+    auxs = []
     for p in params.layers:
-        x, _ = _layer_apply(cfg, p, x, positions)
+        x, _, aux = _layer_apply(cfg, p, x, positions)
+        auxs.append(aux)
     x = _norm(cfg, x, params["final_norm"])
-    return _softcap_logits(cfg, _unembed(params, cfg, x)), None
+    logits = _softcap_logits(cfg, _unembed(params, cfg, x))
+    if cfg.moe is None:
+        return logits, None
+    return logits, {k: torch.stack([a[k] for a in auxs]).mean(0)
+                    for k in auxs[0]}
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                dtype=None, device="cuda") -> dict:
-    """Zeroed KV cache {"k", "v"}, each [L, B, Hkv, max_len, hd]."""
+    """Zeroed KV cache {"k", "v"}, each [L, B, Hkv, max_len, hd]; with
+    ``kv_quant``, int8 values and f32 ``k_scale``/``v_scale`` [L, B, Hkv,
+    max_len, 1]."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
+    if cfg.kv_quant:
+        sshape = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, device=device),
+                "v_scale": torch.zeros(sshape, device=device)}
     dt = dtype or cfg.dtype
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -274,23 +360,19 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 @torch.no_grad()
 def prefill(params: Transformer, tokens, cfg: TransformerConfig,
             max_len: int):
-    """Prefill: (last-position logits [B, 1, V], the KV cache filled at
-    positions < S and zero after).  No ``logit_softcap``, as in the
-    reference's prefill (its ``decode_step`` and ``forward`` apply it)."""
+    """Prefill: (last-position logits [B, 1, V], the unquantized KV cache
+    filled at positions < S and zero after), also with ``kv_quant``, as in
+    the reference.  No ``logit_softcap``, as in the reference's prefill
+    (its ``decode_step`` and ``forward`` apply it)."""
     b, s = tokens.shape
     x = params["embed"][tokens.long()].to(cfg.dtype) * cfg.emb_scale
     positions = torch.arange(s, device=x.device)
-    cache = init_cache(cfg, b, max_len, device=x.device)
+    cache = init_cache(dataclasses.replace(cfg, kv_quant=False), b, max_len,
+                       device=x.device)
     for i, p in enumerate(params.layers):
-        h = _norm(cfg, x, p["ln1"])
-        attn_out, (k, v) = _attention_block(cfg, p["attn"], h, positions)
+        x, (k, v), _ = _layer_apply(cfg, p, x, positions)
         cache["k"][i, :, :, :s] = k
         cache["v"][i, :, :, :s] = v
-        if cfg.parallel_block:
-            x = x + attn_out + _ffn_dense(cfg, p["mlp"], h)
-        else:
-            x = x + attn_out
-            x = x + _ffn_dense(cfg, p["mlp"], _norm(cfg, x, p["ln2"]))
     x = _norm(cfg, x[:, -1:, :], params["final_norm"])
     return _unembed(params, cfg, x), cache
 
@@ -298,15 +380,16 @@ def prefill(params: Transformer, tokens, cfg: TransformerConfig,
 @torch.no_grad()
 def decode_step(params: Transformer, token, cache: dict, cache_len: int,
                 cfg: TransformerConfig):
-    """One-token decode.  token [B, 1]; cache leaves [L, B, Hkv, M, hd],
-    updated in place at position ``cache_len``.  Returns (logits [B, 1, V],
-    cache)."""
+    """One-token decode.  token [B, 1]; cache leaves [L, B, Hkv, M, hd]
+    (with ``kv_quant`` the int8 cache of :func:`init_cache`), updated in
+    place at position ``cache_len``.  Returns (logits [B, 1, V], cache)."""
     x = params["embed"][token.long()].to(cfg.dtype) * cfg.emb_scale
     positions = torch.full((token.shape[0], 1), int(cache_len),
                            dtype=torch.int32, device=x.device)
+    names = ("k", "v", "k_scale", "v_scale") if cfg.kv_quant else ("k", "v")
     for i, p in enumerate(params.layers):
-        x, _ = _layer_apply(cfg, p, x, positions,
-                            kv_cache=(cache["k"][i], cache["v"][i]),
-                            cache_len=int(cache_len))
+        x, _, _ = _layer_apply(cfg, p, x, positions,
+                               kv_cache=tuple(cache[n][i] for n in names),
+                               cache_len=int(cache_len))
     x = _norm(cfg, x, params["final_norm"])
     return _softcap_logits(cfg, _unembed(params, cfg, x)), cache

@@ -59,7 +59,9 @@ def test_the_port_has_modules():
                 "launch/serve.py", "core/chaos.py", "core/journal.py",
                 "checkpoint/manager.py", "runtime/fault_tolerance.py",
                 "launch/mesh.py", "analysis/lint.py",
-                "analysis/sanitizer.py"):
+                "analysis/sanitizer.py", "models/moe.py",
+                "dist/moe_parallel.py", "launch/dryrun_diffusion.py",
+                "configs/grok_1_314b.py", "configs/phi3_5_moe_42b.py"):
         assert mod in names
 
 
@@ -121,3 +123,15 @@ def test_every_kernel_wrapper_launches_on_cuda_tensors():
         assert f'LAUNCHES["{fn.__name__}"] += 1' in src, fn.__name__
         assert "except" not in src, fn.__name__
         assert set(mod.LAUNCHES) == set(mod.KERNEL_SOURCES)
+
+
+def test_dryrun_and_mesh_default_to_the_card():
+    import inspect
+
+    from repro_torch.launch import dryrun_diffusion, mesh
+
+    assert dryrun_diffusion.parser().parse_args([]).device == "cuda"
+    for fn in (dryrun_diffusion.build_cell, dryrun_diffusion.dry_run,
+               mesh.make_production_mesh):
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", fn.__qualname__

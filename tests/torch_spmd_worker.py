@@ -9,6 +9,13 @@ on pull, push and auto, 2- and 4-lane queries, hub replicas, a commit's
 restart and warm repairs, ``save``/``open`` and the refusals.  Rank 0
 writes ``results.json`` (check -> [passed, detail]) and ``spmd.npz`` (the
 values and stats the test holds against the JAX package's spmd engine).
+
+``python tests/torch_spmd_worker.py RANKS OUT_DIR dryrun SCALE`` runs the
+diffusion dry-run's per-rank function instead
+(``repro_torch.launch.dryrun_diffusion.dry_run``): every rank its own
+synthetic cell at RMAT scale SCALE, pull and push, with the collectives
+recorded; rank 0 writes ``dryrun.json`` (sweep -> its report), which
+``tests/test_torch_dryrun.py`` holds against the same run on a fake group.
 Imports only ``repro_torch``."""
 
 from __future__ import annotations
@@ -233,7 +240,32 @@ def _rank(rank: int, S: int, out_dir: str):
         dist.destroy_process_group()
 
 
+DRYRUN_SWEEPS = ("pull", "push")
+
+
+def _dryrun_rank(rank: int, S: int, out_dir: str, scale: int):
+    from repro_torch.launch import dryrun_diffusion
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(out_dir, 'store')}",
+        rank=rank, world_size=S, timeout=datetime.timedelta(seconds=120))
+    try:
+        reps = {sweep: dryrun_diffusion.dry_run(scale, S, sweep,
+                                                device="cpu")
+                for sweep in DRYRUN_SWEEPS}
+        if rank == 0:
+            with open(os.path.join(out_dir, "dryrun.json"), "w") as f:
+                json.dump(reps, f)
+    finally:
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
     ranks, out = int(sys.argv[1]), sys.argv[2]
     os.makedirs(out, exist_ok=True)
-    mp.spawn(_rank, args=(ranks, out), nprocs=ranks)
+    if sys.argv[3:4] == ["dryrun"]:
+        mp.spawn(_dryrun_rank, args=(ranks, out, int(sys.argv[4])),
+                 nprocs=ranks)
+    else:
+        mp.spawn(_rank, args=(ranks, out), nprocs=ranks)
