@@ -41,6 +41,15 @@ kernels line and the final result line):
    dims 64 and 128, causal or not, softcap 0 and 30, GQA groups 1 and 8,
    sq == skv and sq < skv (64 cases, tolerance at ``k4_err``: f32 2e-5,
    bf16 2^-7 |want| + 2^-8 A + 2e-5 with A the plain version on |v|);
+4h. K4's gradient: ``ops.attention(q, k, v).backward(dout)`` (K4 forward,
+   the reference's chunked backward in plain PyTorch) against autograd
+   through ``ref.flash_attention_ref`` on the same tensors: f32 and bf16,
+   D 64 and 128, causal or not, softcap 0 and 30, GQA groups 1 and 8, S
+   512 and 1024 (one and two backward chunks), and tinyllama's training
+   shape at B = 1 (q [1, 32, 4096, 64], k/v 4 heads, bf16, causal); dq, dk
+   and dv within ``k4_grad_err`` (f32: 2e-5 (1 + max |grad|); bf16: 2^-7
+   |want| + 2^-8 B + that, B what rounding the recomputed out to bf16
+   moves through delta), one K4 launch a case (the forward only);
 3. the graph main path at a real size: ``DiffusionSession.from_edges`` on
    the Graph500 RMAT graph (default scale 20, edge factor 16) over 4
    cells, then ``query`` for sssp (2 sources), bfs, cc, ppr and pagerank,
@@ -211,7 +220,35 @@ kernels line and the final result line):
    [1, 48, 1024, 128] with softcap 30, k/v 8 heads, bf16, causal) held and
    timed as above; the library call of the softcapped shape is
    ``flex_attention`` (SDPA has no softcap; its uncapped time is printed
-   beside it).
+   beside it);
+5e. training the dense LM: first one f32 train step of tinyllama-1.1b at
+   its widths cut to 2 layers on one 1024-token sequence, on K4 and the
+   chunked backward against the plain attention (loss 1e-4, grad norm
+   1e-4 relative, every updated parameter 1e-6); then at full width
+   (after ``free_card`` and a check of the free memory): tinyllama-1.1b
+   in bf16, 22 layers, seeded weights, ``launch.steps.build_cell(
+   "tinyllama-1.1b", "train_4k", batch=8)`` (adafactor 1e-3, clip 1.0,
+   n_micro 1, remat on) and ``train_loop`` on ``TokenPipeline(8, 4096,
+   32000, seed=--seed)`` through a ``Prefetcher``: 6 steps with
+   ``ckpt_every=3`` into ``chiprun_out/train``, then a second
+   ``train_loop`` to 8 steps resumes at step 6 with the parameters and
+   optimizer state bitwise the live ones after step 5, and runs steps 6-7
+   only; 3 snapshots of the live bytes (about 2.25 GB each) on disk,
+   removed at the end; every loss and grad norm finite, K4 launched 44
+   times a step (the forward and the remat recompute), the loss on step
+   0's batch reported before, after step 0 and at step 6 (the resume
+   does not fast-forward the stream); step seconds and their median,
+   tokens/s, peak memory, model FLOPs a step (6 N T + 6 L B S^2 Hq D) and
+   their share of 989 TFLOP/s; with ``--profile`` one step traced (busy
+   share, K4, the ``repro_torch.attention_bwd`` and
+   ``repro_torch.train.*`` ranges);
+4e (train). K4 at the training shape (q [8, 32, 4096, 64], k/v 4 heads,
+   bf16, causal; its launches the training run's) held and timed as
+   above, and the attention backward at that shape (the chunked f32
+   recompute and two-pass backward) timed beside
+   ``scaled_dot_product_attention``'s backward and the flash backward's
+   bound (five causal products at 989 TFLOP/s); not in the kernels line:
+   the reference computes it in XLA, not in a Pallas kernel.
 
 With ``--profile``, each trace also gives K1's, K2's and K4's device time
 and their share of the busy and the wall time, and the device time under
@@ -219,7 +256,8 @@ the engine's ``repro_torch.*`` ranges (relax, outbox_merge, receive,
 counters, poll, exchange, the phase-2 combines).
 
 With ``--cpu-rehearsal`` the same phases run on the CPU on the kernels'
-plain versions at tiny sizes (the serving phases on the smoke config).
+plain versions at tiny sizes (the serving phases, 4h and 5e on the smoke
+config and shapes).
 Any failed check raises, so the script exits nonzero and prints no result.
 Without a CUDA device it exits 2 before doing anything.
 """
@@ -3280,6 +3318,135 @@ def phase_k4_vs_plain(device) -> dict:
                                       "the plain version on |v|"}}
 
 
+# phase 4h: K4's gradient.  Twice the 2^-9 rounding of the recomputed out
+# (bf16) that the backward's delta reads, as K4_BF16_P is twice K4's P
+# rounding
+K4_GRAD_P = 2.0 ** -8
+
+
+def k4_grad_err(got, want, q, k, v, dout, causal: bool,
+                softcap: float) -> tuple:
+    """({"dq", "dk", "dv"}: max abs error, all within tolerance) of the
+    port's attention gradient (K4 forward, the chunked backward) against
+    autograd through K4's plain version on the same inputs.
+
+    float32: 2e-5 (K4's f32 limit) plus 2e-5 of the largest |grad| (f32
+    products over up to 4096 keys and a group's heads, in other orders).
+
+    bf16, per element: |got - want| <= 2^-7 |want| + 2^-8 B + the f32
+    limit.  The backward never reads K4's output (so K4_BF16_P's P
+    rounding does not enter): it recomputes out with the chunked forward,
+    which returns it in q's dtype as the reference's ``_mea_fwd`` does, so
+    each out element is within 2^-9 of the f32 out, delta_i = sum_d
+    out_id dout_id within 2^-9 r_i (r_i = sum_d |out_id dout_id|), and
+    ds_ij = p_ij (dp_ij - delta_i) dcap_ij (|dcap| <= 1) within p_ij of
+    that.  So dq_i moves by at most 2^-9 scale r_i sum_j p_ij |k_j| (B_q:
+    the plain version on (q, k, |k|)), dk_j by 2^-9 scale sum_i p_ij r_i
+    |q_i| (B_k: the plain version's v-gradient for the cotangent r |q|),
+    dv not at all (B_v = 0).  As K4's limit: twice that, one bf16 ulp
+    (each side rounds its f32 gradient once) and the f32 limit."""
+    from repro_torch.kernels.flash_attention import ref
+
+    names = ("dq", "dk", "dv")
+    diffs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
+    errs = {n: float(x.max()) for n, x in zip(names, diffs)}
+    f32 = [K4_F32_TOL * (1.0 + float(w.float().abs().max())) for w in want]
+    if q.dtype == torch.float32:
+        return errs, all(e <= t for e, t in zip(errs.values(), f32))
+    kw = dict(causal=causal, softcap=softcap,
+              q_offset=k.shape[2] - q.shape[2])
+    qf, kf, vf, df = (t.detach().float() for t in (q, k, v, dout))
+    scale = q.shape[-1] ** -0.5
+    with torch.no_grad():
+        r = (df * ref.flash_attention_ref(qf, kf, vf, **kw)).abs().sum(
+            -1, keepdim=True)
+        b_q = scale * r * ref.flash_attention_ref(qf, kf, kf.abs(), **kw)
+    vv = vf.clone().requires_grad_()
+    (b_k,) = torch.autograd.grad(ref.flash_attention_ref(qf, kf, vv, **kw),
+                                 vv, r * qf.abs())
+    ok = True
+    for x, w, b, t in zip(diffs, want, (b_q, scale * b_k, 0.0), f32):
+        ok &= bool((x <= K4_BF16_ULP * w.float().abs() + K4_GRAD_P * b
+                    + t).all())
+    return errs, ok
+
+
+def k4_grad_case(q, k, v, dout, causal: bool, softcap: float) -> tuple:
+    """(errors, ok, K4 launches) of one gradient case (see
+    :func:`k4_grad_err`)."""
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+
+    kernel.reset_launches()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.attention(*leaves, causal=causal, softcap=softcap).backward(dout)
+    launches = kernel.LAUNCHES["flash_attention"]
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.flash_attention_ref(*plain, causal=causal, softcap=softcap,
+                            q_offset=k.shape[2] - q.shape[2]).backward(dout)
+    sync(q.device)
+    errs, ok = k4_grad_err([t.grad for t in leaves],
+                           [t.grad for t in plain], q, k, v, dout, causal,
+                           softcap)
+    return errs, ok, launches
+
+
+def phase_k4_grad(args, device) -> dict:
+    """Phase 4h: ``attention(q, k, v).backward()`` on the card against
+    autograd through ``ref.flash_attention_ref``: f32 and bf16, D = 64 and
+    128, causal or not, softcap 0 and 30, GQA groups 1 and 8, S 512 and
+    1024 (one and two chunks of the backward), then tinyllama's training
+    shape at B = 1 (q [1, 32, 4096, 64], k/v 4 heads, bf16, causal):
+    dq, dk, dv within :func:`k4_grad_err`'s tolerance, and one K4 launch a
+    case (the forward; the backward is plain PyTorch)."""
+    g = torch.Generator(device="cpu").manual_seed(8)
+    lens = (64, 128) if args.cpu_rehearsal else (512, 1024)
+    want_launches = 1 if device.type == "cuda" else 0
+    worst, n = {}, 0
+
+    def inputs(b, hq, hkv, s, d, dtype):
+        return [torch.randn(shape, generator=g).to(device, dtype)
+                for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                              (b, hq, s, d))]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        for d in (64, 128):
+            for groups in (1, 8):
+                for s in lens:
+                    q, k, v, dout = inputs(1, 2 * groups, 2, s, d, dtype)
+                    for causal in (True, False):
+                        for cap in (0.0, 30.0):
+                            errs, ok, launches = k4_grad_case(
+                                q, k, v, dout, causal, cap)
+                            check(ok and launches == want_launches,
+                                  f"4h {tag} d={d} g={groups} s={s} causal="
+                                  f"{causal} softcap={cap}: {errs}, K4 "
+                                  f"launched {launches}")
+                            for name, e in errs.items():
+                                worst[f"{tag}/{name}"] = max(
+                                    worst.get(f"{tag}/{name}", 0.0), e)
+                            n += 1
+    s = 256 if args.cpu_rehearsal else 4096
+    q, k, v, dout = inputs(1, 32, 4, s, 64, torch.bfloat16)
+    errs, ok, launches = k4_grad_case(q, k, v, dout, True, 0.0)
+    check(ok and launches == want_launches,
+          f"4h training shape [1, 32, {s}, 64]: {errs}, K4 launched "
+          f"{launches}")
+    del q, k, v, dout
+    free_card(device)
+    rep = {"phase": "k4_grad", "cases": n, "max_abs_err": worst,
+           "training_shape": {"shape": [1, 32, s, 64], "kv_heads": 4,
+                              "dtype": "bfloat16", "causal": True,
+                              "max_abs_err": errs},
+           "k4_launches_per_case": want_launches,
+           "tolerance": {"float32": "2e-5 (1 + max |grad|)",
+                         "bfloat16": "2^-7 |want| + 2^-8 B + 2e-5 (1 + "
+                                     "max |grad|), B: what rounding the "
+                                     "recomputed out to bf16 moves"}}
+    emit(rep)
+    return rep
+
+
 def k5_inputs(n: int, device, f: int = 128):
     """One GNN aggregation layer at width ``f``: values [E, f] over the
     edges of ``make_graph_family("scale_free", n)``, summed by destination."""
@@ -3640,8 +3807,8 @@ def phase_k4_timing(args, launches: int, device, reps: int) -> dict:
 
 
 def k4_row(name: str, hq: int, hkv: int, s: int, d: int, dtype, launches,
-           device, reps: int, softcap: float = 0.0) -> dict:
-    """K4 at q [1, hq, s, d], k/v [1, hkv, s, d], causal, ``softcap``:
+           device, reps: int, softcap: float = 0.0, b: int = 1) -> dict:
+    """K4 at q [b, hq, s, d], k/v [b, hkv, s, d], causal, ``softcap``:
     held against its plain version there (the tolerance of
     :func:`k4_err`), then timed beside the plain version, its bound and one
     library call of the same function: ``scaled_dot_product_attention``
@@ -3654,8 +3821,8 @@ def k4_row(name: str, hq: int, hkv: int, s: int, d: int, dtype, launches,
     from repro_torch.kernels.flash_attention import kernel, ref
 
     g = torch.Generator(device="cpu").manual_seed(7)
-    q = torch.randn((1, hq, s, d), generator=g).to(device, dtype)
-    k, v = (torch.randn((1, hkv, s, d), generator=g).to(device, dtype)
+    q = torch.randn((b, hq, s, d), generator=g).to(device, dtype)
+    k, v = (torch.randn((b, hkv, s, d), generator=g).to(device, dtype)
             for _ in range(2))
     kw = dict(causal=True, softcap=softcap)
     got = kernel.flash_attention(q, k, v, **kw)
@@ -3685,13 +3852,13 @@ def k4_row(name: str, hq: int, hkv: int, s: int, d: int, dtype, launches,
                                                enable_gqa=True), reps)
     el = q.element_size()
     nbytes = 2 * q.numel() * el + 2 * k.numel() * el
-    flops = 4 * hq * d * (s * (s + 1) // 2)
+    flops = 4 * b * hq * d * (s * (s + 1) // 2)
     row = kernel_row(
         name, "src/repro_torch/kernels/flash_attention/csrc/"
         "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:89",
         launches, err, k_ms, p_ms, nbytes, flops, lib_ms,
         peak_ops=PEAK_BF16_OPS_PER_S)
-    emit({"phase": "k4_timing", "name": name, "shape": [1, hq, s, d],
+    emit({"phase": "k4_timing", "name": name, "shape": [b, hq, s, d],
           "kv_heads": hkv, "dtype": str(dtype), "causal": True,
           "softcap": softcap, "max_abs_err": err,
           "tflops": flops / (k_ms * 1e-3) / 1e12, "library": lib_name,
@@ -3937,6 +4104,351 @@ def phase_moe_checks(args, device) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 5e: training the dense LM at full width
+# --------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_BATCH = "tinyllama-1.1b", 8
+TRAIN_STEPS, TRAIN_RESUME_TO, TRAIN_CKPT_EVERY = 6, 8, 3
+# 2.2 GB of bf16 weights and gradients, ~3 GB of saved layer
+# inputs, ~13 GB around the f32 logits, the attention backward's chunks
+TRAIN_NEED_BYTES = 55 * 10**9
+
+
+def train_flops(cfg, b: int, s: int) -> float:
+    """Model FLOPs of one training step: 6 N T + 6 L B S^2 Hq D, with N the
+    parameters outside the embedding (the unembedding counts) and T = B S
+    tokens."""
+    n = cfg.param_count() - cfg.vocab * cfg.d_model
+    return 6.0 * n * b * s + 6.0 * cfg.n_layers * b * s * s * cfg.n_heads \
+        * cfg.hd
+
+
+def phase_train(args, device) -> dict:
+    """Phase 5e: tinyllama-1.1b at its published widths and depth in bf16
+    with seeded weights, trained through ``launch.steps.build_cell``
+    (``train_4k``, the global batch cut to 8 x 4096; adafactor 1e-3, clip
+    1.0, n_micro 1, remat on) and ``runtime.trainer.train_loop`` on the
+    ``TokenPipeline`` synthetic stream through a ``Prefetcher`` (smoke
+    config, 8 x 64 tokens, on the CPU rehearsal).  Six steps with
+    ``ckpt_every=3`` into ``chiprun_out/train``; then a second
+    ``train_loop`` to 8 steps on weights of another seed resumes at step
+    6: the restored parameters and optimizer state equal the live ones
+    after step 5 bit for bit, and it runs steps 6-7 only; three snapshots
+    (steps 2, 5, 7) of the live tensors' bytes are on disk, and the
+    directory is removed at the end.  Every loss and grad norm is finite;
+    K4 launches 2 L a step (forward and remat recompute).  The loss on
+    step 0's batch is reported before, right after step 0's update and
+    after six updates (step 6 reads it again: a resume does not
+    fast-forward the stream); one update lowers the loss on the batch it
+    was taken on.  Step 5's loss is not held below step 0's: without
+    warmup the recipe does not lower the loss on six fresh batches, and
+    the reference's own loss rises as far as step 4 at these widths
+    (``tests/test_torch_train_wide.py``, which the port tracks), as the
+    plain attention's does in :func:`phase_train_check`.  Reports step
+    seconds, tokens/s, peak memory and the model-FLOPs share of 989
+    TFLOP/s; with ``--profile`` one more step is traced."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager, flatten
+    from repro_torch.data.pipeline import Prefetcher, TokenPipeline
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import on_device
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.trainer import train_loop
+
+    rehearsal = args.cpu_rehearsal
+    cell = steps.build_cell(TRAIN_ARCH, "train_4k", smoke=rehearsal,
+                            batch=TRAIN_BATCH, device=device)
+    cfg = cell.config
+    b, s = cell.input_specs()["tokens"].shape
+    free_card(device)
+    free = check_free(device, TRAIN_NEED_BYTES, "5e training")
+    ckpt_dir = OUT_DIR / "train"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    def stream():
+        return on_device(Prefetcher(TokenPipeline(b, s, cfg.vocab,
+                                                  seed=args.seed)), device)
+
+    rows = []
+
+    def on_metrics(step, m, dt):
+        rows.append({"step": step, "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]), "seconds": dt,
+                     "k4_launches": k4.LAUNCHES["flash_attention"]})
+        reset_all_launches()
+
+    try:
+        t = time.perf_counter()
+        params = cell.init_params(args.seed)
+        opt_state = cell.init_opt(params)
+        sync(device)
+        setup_s = time.perf_counter() - t
+        probe = {}
+
+        def probed_step(p, o, step_no, batch):
+            # step 0's batch again right after step 0's update (a forward
+            # whose K4 launches are not the step's)
+            out = cell.step(p, o, step_no, batch)
+            if step_no == 0:
+                n = k4.LAUNCHES["flash_attention"]
+                with torch.no_grad():
+                    probe["loss"] = float(tf.loss_fn(
+                        out[0], batch["tokens"], batch["labels"], cfg))
+                k4.LAUNCHES["flash_attention"] = n
+            return out
+
+        reset_all_launches()
+        params, opt_state, last = train_loop(
+            probed_step, params, opt_state, stream(), TRAIN_STEPS,
+            str(ckpt_dir), ckpt_every=TRAIN_CKPT_EVERY,
+            on_metrics=on_metrics)
+        peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+                else None)
+        live = {n: t.detach().to("cpu", copy=True) for n, t in
+                flatten((params, opt_state)).items()}
+        live_bytes = sum(t.numel() * t.element_size() for t in live.values())
+        del params, opt_state
+        free_card(device)
+        # the resume: weights of another seed, which the restore overwrites
+        params = cell.init_params(args.seed + 1)
+        opt_state = cell.init_opt(params)
+        first = {}
+
+        def checked_step(p, o, step_no, batch):
+            if not first:
+                got = flatten((p, o))
+                first.update(step=step_no, names=sorted(got) == sorted(live),
+                             bitwise=all(same_tensor(live[n], got[n])
+                                         for n in live))
+            return cell.step(p, o, step_no, batch)
+
+        params, opt_state, last2 = train_loop(
+            checked_step, params, opt_state, stream(), TRAIN_RESUME_TO,
+            str(ckpt_dir), ckpt_every=TRAIN_CKPT_EVERY,
+            on_metrics=on_metrics)
+        snaps = {st: dir_bytes(ckpt_dir / f"step_{st}")
+                 for st in CheckpointManager(str(ckpt_dir)).all_steps()}
+        profile = None
+        if args.profile and device.type == "cuda":
+            batch = next(stream())
+            profile = trace("train_step", lambda: cell.step(
+                params, opt_state, TRAIN_RESUME_TO, batch))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    secs = [r["seconds"] for r in rows]
+    med = float(np.median(secs))
+    flops = train_flops(cfg, b, s)
+    rep = {"phase": "train", "arch": cfg.name, "dtype": str(cfg.dtype),
+           "layers": cfg.n_layers, "batch": b, "seq_len": s,
+           "optimizer": "adafactor(lr=1e-3)", "clip": 1.0, "n_micro": 1,
+           "remat": cfg.remat, "setup_s": setup_s, "steps": rows,
+           "step_seconds_median": med,
+           "step_seconds_median_after_first": float(np.median(secs[1:])),
+           "tokens_per_s": b * s / med,
+           "k4_launches_per_step": rows[-1]["k4_launches"],
+           "k4_launches": sum(r["k4_launches"] for r in rows),
+           "model_flops_per_step": flops,
+           "model_flops_share_of_bf16_peak": flops / med /
+           PEAK_BF16_OPS_PER_S, "peak_bytes": peak,
+           "free_bytes_before": free, "snapshot_bytes": snaps,
+           "live_state_bytes": live_bytes, "resumed_at": first.get("step"),
+           "resume_bitwise": first.get("bitwise"),
+           "last_steps": [last, last2],
+           # the loss on step 0's batch: before, after step 0's update, and
+           # after 6 updates (step 6 reads it again: no fast-forward)
+           "step0_batch_loss": [rows[0]["loss"], probe.get("loss"),
+                                rows[TRAIN_STEPS]["loss"]]}
+    emit(rep)
+    ran = [r["step"] for r in rows]
+    check(last == TRAIN_STEPS - 1 and last2 == TRAIN_RESUME_TO - 1 and
+          ran == list(range(TRAIN_RESUME_TO)),
+          f"5e ran steps {ran} (last {last}, then {last2})")
+    check(first.get("step") == TRAIN_STEPS and first["names"] and
+          first["bitwise"], f"5e resume: {first}")
+    # each leaf's .npy adds a header of 128 B, the manifest ~200 B a leaf
+    check(sorted(snaps) == [2, 5, 7] and all(
+        live_bytes <= v <= live_bytes + 512 * len(live)
+        for v in snaps.values()),
+        f"5e snapshots {snaps} against {live_bytes} live bytes")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+              for r in rows), f"5e a loss or grad norm is not finite: {rows}")
+    check(probe.get("loss", np.inf) < rows[0]["loss"],
+          f"5e step 0's update did not lower the loss on its own batch: "
+          f"{rep['step0_batch_loss']}")
+    if device.type == "cuda":
+        check(all(r["k4_launches"] == 2 * cfg.n_layers for r in rows),
+              f"5e K4 launches a step {[r['k4_launches'] for r in rows]}, "
+              f"not {2 * cfg.n_layers}")
+    if profile is not None:
+        emit(profile)
+    del params, opt_state, live
+    free_card(device)
+    return rep
+
+
+def phase_train_check(args, device) -> dict:
+    """Phase 5e (f32): train steps (``launch.steps._make_train_step``: the
+    gradient, clip 1.0, adafactor 1e-3, ``p + u``) of tinyllama-1.1b at its
+    published widths in float32 cut to 2 layers, on 1024-token sequences
+    of the ``TokenPipeline`` stream (two chunks of the attention
+    backward), with K4 and the chunked backward against the same steps on
+    the plain attention (autograd through ``ref.flash_attention_ref``).
+    Step 0: loss within 1e-4 (one f32 cross entropy; phase 5b's logits
+    agree to 1e-3), grad norm within 1e-4 of itself, every parameter after
+    the update within 1e-6 (a thousandth of the lr: adafactor's step-0
+    update is the gradient over its factored RMS, so a 1e-4 relative
+    gradient error moves it by 1e-4 lr).  Steps 1-5, the recipe of phase
+    5e: each loss within 1e-3 of the plain path's (the step-0 differences
+    carried through five updates), and on both paths the loss on step 0's
+    batch right after step 0's update below step 0's.  Both loss
+    trajectories are reported, the plain one the witness of what six
+    steps of the recipe do.  K4 launches 2 a layer a step: the forward and
+    the remat recompute."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adafactor, tree_leaves
+
+    cfg = dataclasses.replace(lm_config(args), dtype=torch.float32,
+                              n_layers=2)
+    s = 128 if args.cpu_rehearsal else 1024
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for b, _ in zip(TokenPipeline(1, s, cfg.vocab,
+                                             seed=args.seed + 3),
+                               range(TRAIN_STEPS))]
+    opt = adafactor(lr=1e-3)
+    step = steps._make_train_step(
+        lambda p, b: tf.loss_fn(p, b["tokens"], b["labels"], cfg), opt)
+
+    def loss_of(params, batch):
+        with torch.no_grad():
+            return float(tf.loss_fn(params, batch["tokens"],
+                                    batch["labels"], cfg))
+
+    def run():
+        params = tf.init_params(cfg, seed=args.seed + 3, device=device)
+        state, ms = opt.init(params.tree()), []
+        for i, batch in enumerate(batches):
+            params, state, m = step(params, state, i, batch)
+            ms.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                after0 = [t.detach().clone() for t in
+                          tree_leaves(params.tree())]
+                n = k4.LAUNCHES["flash_attention"]
+                probe = loss_of(params, batches[0])
+                k4.LAUNCHES["flash_attention"] = n
+        return after0, ms, probe
+
+    k4.reset_launches()
+    got, gm, gprobe = run()
+    launches = k4.LAUNCHES["flash_attention"]
+    with mock.patch.object(tf, "attention", plain_attention):
+        want, wm, wprobe = run()
+    sync(device)
+    err_p = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    err_loss = [abs(g["loss"] - w["loss"]) for g, w in zip(gm, wm)]
+    err_norm = abs(gm[0]["grad_norm"] - wm[0]["grad_norm"])
+    rep = {"phase": "train_check", "dtype": "float32",
+           "layers": cfg.n_layers, "seq_len": s, "steps": len(batches),
+           "loss": gm[0]["loss"], "loss_abs_err": err_loss[0],
+           "grad_norm": gm[0]["grad_norm"], "grad_norm_abs_err": err_norm,
+           "params_max_abs_err": err_p,
+           "losses": [m["loss"] for m in gm],
+           "plain_losses": [m["loss"] for m in wm],
+           "grad_norms": [m["grad_norm"] for m in gm],
+           "plain_grad_norms": [m["grad_norm"] for m in wm],
+           "later_loss_abs_err": max(err_loss[1:]),
+           "step0_batch_loss_after_update": gprobe,
+           "plain_step0_batch_loss_after_update": wprobe,
+           "k4_launches": launches,
+           "tolerance": {"loss": 1e-4, "grad_norm": "1e-4 relative",
+                         "params": 1e-6, "later_loss": 1e-3}}
+    emit(rep)
+    check(np.isfinite(rep["loss"]) and err_loss[0] <= 1e-4 and
+          err_norm <= 1e-4 * wm[0]["grad_norm"] and err_p <= 1e-6,
+          f"5e f32 train step on K4 vs the plain attention: {rep}")
+    check(all(np.isfinite(e) and e <= 1e-3 for e in err_loss[1:]),
+          f"5e f32 steps 1-5 on K4 vs the plain attention: {err_loss}")
+    check(gprobe < gm[0]["loss"] and wprobe < wm[0]["loss"],
+          f"5e f32 step 0's update did not lower the loss on its batch: "
+          f"{gprobe} / {wprobe} against {gm[0]['loss']} / {wm[0]['loss']}")
+    if device.type == "cuda":
+        check(launches == 2 * cfg.n_layers * len(batches),
+              f"5e f32: K4 launched {launches} times, not "
+              f"{2 * cfg.n_layers * len(batches)}")
+    del got, want
+    free_card(device)
+    return rep
+
+
+def phase_attention_bwd_timing(args, device, reps: int) -> dict:
+    """The attention backward at the training shape (q [8, 32, 4096, 64],
+    k/v 4 heads, bf16, causal; smaller on the CPU rehearsal): what
+    ``ops.attention``'s backward runs (the chunked f32 recompute and the
+    two-pass backward of ``xla_flash.py``, plain PyTorch as in the
+    reference) timed beside ``scaled_dot_product_attention``'s backward
+    (its forward run once outside the timing) and the flash backward's
+    bound: five products of 2 Sq Skv D a head, halved by the causal mask,
+    at 989 TFLOP/s bf16.  Not a TPU kernel: the reference computes it in
+    XLA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import xla_flash
+
+    b, hq, hkv, s, d = ((1, 4, 2, 256, 64) if args.cpu_rehearsal
+                        else (TRAIN_BATCH, 32, 4, 4096, 64))
+    g = torch.Generator(device="cpu").manual_seed(9)
+    q, dout = (torch.randn((b, hq, s, d), generator=g).to(
+        device, torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=g).to(
+        device, torch.bfloat16) for _ in range(2))
+    chunk = min(512, s)
+
+    def port():
+        out, lse = xla_flash.mea_fwd(q, k, v, True, 0.0, chunk)
+        return xla_flash.mea_bwd(q, k, v, out, lse, dout, True, 0.0, chunk)
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                       enable_gqa=True)
+
+    def library():
+        return torch.autograd.grad(o, leaves, dout, retain_graph=True)
+
+    clock = Clock(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    port_ms = clock.ms(port, 3, warmup=1)
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else None)
+    lib_ms = clock.ms(library, reps)
+    causal_flops = 2 * b * hq * d * (s * (s + 1) // 2)   # one product
+    bound_ms = 5 * causal_flops / PEAK_BF16_OPS_PER_S * 1e3
+    # what the port's passes compute: 2 + 5 unmasked f32 products
+    port_flops = 7 * 2 * b * hq * s * s * d
+    rep = {"phase": "attention_bwd_timing", "shape": [b, hq, s, d],
+           "kv_heads": hkv, "dtype": "bfloat16", "causal": True,
+           "chunk": chunk, "port_ms": port_ms, "sdpa_backward_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": "operations",
+           "port_f32_flops": port_flops,
+           "port_f32_tflops": port_flops / (port_ms * 1e-3) / 1e12,
+           "port_over_sdpa": port_ms / lib_ms,
+           "port_peak_bytes": peak}
+    emit(rep)
+    del q, k, v, dout, leaves, o
+    free_card(device)
+    return rep
+
+
 def phase_dryrun(args, device) -> dict:
     """Phase 3l: the diffusion dry-run at RMAT ``--dry-scale`` (26), each
     run in its own process (``python -m
@@ -4131,6 +4643,7 @@ def main(argv=None) -> int:
     del ksess
     k4_check = phase_k4_vs_plain(device)
     emit({"phase": "k4_vs_plain", **k4_check})
+    k4_grad = phase_k4_grad(args, device)
 
     sess, launches, sources, results, walls, data, queries = phase_main(
         args, device)
@@ -4199,8 +4712,21 @@ def main(argv=None) -> int:
                grok.n_kv_heads, s_moe, grok.hd, grok.dtype,
                moe["grok_bf16"]["k4_launches"], device, args.reps,
                softcap=grok.attn_softcap)]
-    rows += [k4_dense, *moe_rows, k5_row, k6_row]
+    # training the dense LM (5e), then K4 and the backward at its shape
+    free_card(device)
+    train_check = phase_train_check(args, device)
+    trained = phase_train(args, device)
+    k4_train = k4_row(
+        "flash_attention (tinyllama-1.1b training: B 8, S 4096)",
+        32, 4, 256 if args.cpu_rehearsal else 4096, 64, torch.bfloat16,
+        trained["k4_launches"], device, args.reps,
+        b=1 if args.cpu_rehearsal else TRAIN_BATCH)
+    attention_bwd = phase_attention_bwd_timing(args, device, args.reps)
+    rows += [k4_dense, *moe_rows, k4_train, k5_row, k6_row]
     detail = {"nvidia_smi": smi, "kernels": rows, "k3": k3_detail,
+              "k4_grad": k4_grad, "train": trained,
+              "train_check": train_check,
+              "attention_bwd": attention_bwd,
               "serve": served, "lm_checks": lm, "moe_serve": moe_served,
               "moe_checks": moe, "dryrun": dryrun, "k4_vs_plain": k4_check,
               "replicas": replicas, "oracles": oracles,

@@ -1,5 +1,5 @@
-# Snapshots of flat dicts of tensors and arrays (manager.py): the storage
-# half of the durable session.
+# Snapshots of trees of tensors and arrays (manager.py): the storage half
+# of the durable session and of train_loop.
 from .manager import CheckpointManager
 
 __all__ = ["CheckpointManager"]

@@ -1,6 +1,14 @@
-"""Asynchronous snapshots of flat dicts of tensors and arrays (the port of
+"""Asynchronous snapshots of trees of tensors and arrays (the port of
 ``repro.checkpoint.manager``, with the same on-disk layout).
 
+* **Trees**: nested dicts, tuples and lists of tensors or arrays, flattened
+  under the reference's leaf names (``_path_str``: keys and indices joined
+  by ``/``, dict keys sorted as JAX flattens), so a flat dict keeps its
+  names.  A ``torch.nn.Module`` is a node whose children are its
+  parameters and submodules by attribute name (the LM's ``Transformer``
+  flattens as the reference's params tree), restored in place.  A
+  ``train_loop`` directory either package writes in float32 resumes in the
+  other.
 * **Layout**: step ``n`` lives in ``step_<n>/``: one ``.npy`` a leaf, named
   by its path with ``/`` turned into ``__``, and a ``manifest.json`` with the
   step, each leaf's file, shape, dtype and blake2b-16 digest.  Writes go to
@@ -16,8 +24,11 @@
   propagates.
 * **Retention**: the last ``keep`` snapshots stay, older ones are pruned.
 
-A leaf whose dtype numpy lacks (bfloat16, the float8 types) is refused by
-name.
+bfloat16 leaves are written as the reference writes them, byte for byte:
+the raw 2-byte bits in a ``.npy`` whose header names ``<V2`` (numpy reads
+it back as ``|V2``), manifest dtype ``"bfloat16"``, the digest of those
+bytes; they load back as ``torch.bfloat16``.  A leaf of another
+dtype numpy lacks (the float8 types) is refused by name.
 """
 
 from __future__ import annotations
@@ -34,20 +45,75 @@ import torch
 
 from ..core import chaos
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "flatten"]
+
+_BF16_BITS = np.dtype("V2")      # how numpy stores a bfloat16 leaf
 
 
-def _to_host(name: str, leaf) -> np.ndarray:
-    """A host copy of one leaf that later in-place writes cannot reach."""
+def _path_str(path) -> str:
+    return "/".join(str(k) for k in path)
+
+
+def _items(node):
+    """The children of a tree node as (key, child), or None for a leaf."""
+    if isinstance(node, torch.nn.Module):
+        node = {**dict(node.named_parameters(recurse=False)),
+                **dict(node.named_children())}
+    if isinstance(node, dict):
+        return [(k, node[k]) for k in sorted(node)]
+    if isinstance(node, (tuple, list)):
+        return list(enumerate(node))
+    return None
+
+
+def flatten(tree, prefix: tuple = ()) -> dict:
+    """{leaf name: leaf} of a tree, in the reference's flatten order."""
+    items = _items(tree)
+    if items is None:
+        return {_path_str(prefix): tree}
+    out = {}
+    for key, child in items:
+        out.update(flatten(child, prefix + (key,)))
+    return out
+
+
+def _to_host(name: str, leaf) -> tuple[np.ndarray, str]:
+    """(a host copy of one leaf that later in-place writes cannot reach,
+    the manifest's dtype name)."""
     if not isinstance(leaf, torch.Tensor):
-        return np.array(leaf)
+        arr = np.array(leaf)
+        return arr, str(arr.dtype)
     t = leaf.detach()
+    if t.dtype == torch.bfloat16:
+        arr = t.view(torch.int16).cpu().numpy().copy().view(_BF16_BITS)
+        return arr, "bfloat16"
     t = t.clone() if t.device.type == "cpu" else t.cpu()
     try:
-        return t.numpy()
+        arr = t.numpy()
     except TypeError as e:
         raise TypeError(f"snapshot leaf {name!r}: numpy has no {t.dtype} "
                         f"({e})") from None
+    return arr, str(arr.dtype)
+
+
+def _save_leaf(path: str, arr: np.ndarray, dtype: str) -> None:
+    """``np.save``, except that a bfloat16 leaf's header names ``<V2``, as
+    numpy writes the reference's (ml_dtypes') bfloat16: the same bytes."""
+    if dtype != "bfloat16":
+        np.save(path, arr)
+        return
+    header = np.lib.format.header_data_from_array_1_0(arr)
+    header["descr"] = "<V2"
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, header)
+        f.write(np.ascontiguousarray(arr).tobytes())
+
+
+def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    if arr.dtype == _BF16_BITS:
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def _digest(arr: np.ndarray) -> str:
@@ -63,12 +129,13 @@ class CheckpointManager:
         self._write_error: BaseException | None = None
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree: dict, wait: bool = False):
-        """Snapshot the flat dict ``tree`` (leaf path -> tensor or array)
-        at ``step``; returns once the host copies are taken (the files are
-        written in the background)."""
+    def save(self, step: int, tree, wait: bool = False):
+        """Snapshot ``tree`` (see :func:`flatten`) at ``step``; returns
+        once the host copies are taken (the files are written in the
+        background)."""
         self.wait()
-        host = {name: _to_host(name, leaf) for name, leaf in tree.items()}
+        host = {name: _to_host(name, leaf)
+                for name, leaf in flatten(tree).items()}
 
         def _write():
             try:
@@ -76,14 +143,14 @@ class CheckpointManager:
                 final = os.path.join(self.directory, f"step_{step}")
                 os.makedirs(tmp, exist_ok=True)
                 manifest = {"step": step, "leaves": {}}
-                for name, arr in host.items():
+                for name, (arr, dtype) in host.items():
                     fname = name.replace("/", "__") + ".npy"
-                    np.save(os.path.join(tmp, fname), arr)
+                    _save_leaf(os.path.join(tmp, fname), arr, dtype)
                     chaos.point("checkpoint.leaf-written")
                     manifest["leaves"][name] = {
                         "file": fname,
                         "shape": list(arr.shape),
-                        "dtype": str(arr.dtype),
+                        "dtype": dtype,
                         "digest": _digest(arr),
                     }
                 with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -151,6 +218,9 @@ class CheckpointManager:
             if verify and _digest(arr) != meta["digest"]:
                 raise IOError(
                     f"checkpoint step {step}: leaf {name} is corrupt")
+            if (arr.dtype == _BF16_BITS) != (meta["dtype"] == "bfloat16"):
+                raise IOError(f"checkpoint step {step}: leaf {name} holds "
+                              f"{arr.dtype} for {meta['dtype']}")
             arrays[name] = arr
         return arrays
 
@@ -173,17 +243,51 @@ class CheckpointManager:
         raise last_err
 
     def restore_flat(self, step: int | None = None, verify: bool = True):
-        """Load a snapshot as a flat {path: np.ndarray} dict.  Returns
-        ``(arrays, step)``; ``step=None`` falls back past damaged steps,
-        newest first."""
+        """Load a snapshot as a flat {path: np.ndarray} dict (a bfloat16
+        leaf as its ``|V2`` bits).  Returns ``(arrays, step)``;
+        ``step=None`` falls back past damaged steps, newest first."""
         self.wait()
         return self._load_with_fallback(step, verify)
 
-    def restore(self, step: int | None = None, device="cuda",
+    def restore(self, target=None, step: int | None = None, device="cuda",
                 verify: bool = True):
-        """Load a snapshot as a flat {path: tensor} dict on ``device`` (the
-        GPU unless the caller asks for the CPU).  Returns ``(tensors,
-        step)``, with :meth:`restore_flat`'s fallback."""
+        """Load a snapshot, with :meth:`restore_flat`'s fallback.  Returns
+        ``(tree, step)``.
+
+        Without ``target``: a flat {path: tensor} dict on ``device`` (the
+        GPU unless the caller asks for the CPU).  With ``target``, as the
+        reference's ``restore(target_tree)``: its structure, each leaf read
+        by its name onto the device of the target's leaf (a tensor; an
+        array stays on the host); a module is loaded in place and
+        returned.  A missing name raises ``KeyError``,
+        another shape ``ValueError``."""
         arrays, step = self.restore_flat(step, verify)
-        return {name: torch.from_numpy(arr).to(device)
-                for name, arr in arrays.items()}, step
+        if target is None:
+            return {name: _to_tensor(arr, device)
+                    for name, arr in arrays.items()}, step
+        return _fill(target, arrays, ()), step
+
+
+def _fill(node, arrays: dict, prefix: tuple):
+    """``node``'s structure with each leaf read from ``arrays`` by name."""
+    items = _items(node)
+    if isinstance(node, torch.nn.Module):
+        with torch.no_grad():
+            for key, child in items:
+                got = _fill(child, arrays, prefix + (key,))
+                if isinstance(child, torch.Tensor):
+                    child.copy_(got)
+        return node
+    if items is None:
+        name = _path_str(prefix)
+        arr = arrays[name]
+        if tuple(arr.shape) != tuple(node.shape):
+            raise ValueError(f"checkpoint leaf {name}: shape "
+                             f"{tuple(arr.shape)} for {tuple(node.shape)}")
+        if isinstance(node, torch.Tensor):
+            return _to_tensor(arr, node.device)
+        return arr
+    filled = [(k, _fill(c, arrays, prefix + (k,))) for k, c in items]
+    if isinstance(node, dict):
+        return dict(filled)
+    return type(node)(c for _, c in filled)

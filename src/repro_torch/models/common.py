@@ -25,13 +25,23 @@ __all__ = [
 ]
 
 
-def dense_init(gen: torch.Generator, shape, in_axis=0, dtype=torch.float32):
-    """Truncated-normal (+-2 sigma) fan-in init on ``gen``'s device."""
+def dense_init(gen: torch.Generator | None, shape, in_axis=0,
+               dtype=torch.float32, out=None):
+    """Truncated-normal (+-2 sigma) fan-in init on ``gen``'s device (with
+    ``gen=None``, an empty tensor on the meta device: the shape alone).
+    With ``out`` (``shape``, ``dtype``) the values are drawn into it, and
+    at most one float32 temporary is made."""
     axes = (in_axis,) if isinstance(in_axis, int) else tuple(in_axis)
     fan_in = math.prod(shape[a] for a in axes)
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    t = (out if out is not None and out.dtype == torch.float32 else
+         torch.empty(shape, dtype=torch.float32, device=gen.device))
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * (1.0 / fan_in) ** 0.5).to(dtype)
+    t.mul_((1.0 / fan_in) ** 0.5)
+    if out is None:
+        return t.to(dtype)
+    return t if t is out else out.copy_(t)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,

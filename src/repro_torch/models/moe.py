@@ -17,8 +17,9 @@ before the per-expert products.  Two implementations:
 The reference's products are plain XLA (``@`` and ``ragged_dot``) and its
 combine a ``segment_sum``, so here they are torch matmuls and
 ``index_add_``.  Each token has at most ``top_k`` rows, so the combine's
-sum is order-free for ``top_k = 2``.  ``loss_fn`` waits for the training
-slice; :func:`router_aux_loss` is here.
+sum is order-free for ``top_k = 2``.  Both paths carry gradients (the
+gather, the products, ``index_add_`` and the f32 router); the
+transformer's ``loss_fn`` adds :func:`router_aux_loss`.
 """
 
 from __future__ import annotations
@@ -45,16 +46,22 @@ class MoEConfig:
     impl: str = "sliced"     # 'sliced' (capacity grouped GEMM) | 'ragged'
 
 
-def init_moe(gen: torch.Generator, d_model: int, cfg: MoEConfig,
-             dtype=torch.float32) -> dict:
+def init_moe(gen: torch.Generator | None, d_model: int, cfg: MoEConfig,
+             dtype=torch.float32, out: dict | None = None) -> dict:
     """The router stays float32 at every ``dtype``; the expert weights use
-    fan-in axis 1."""
+    fan-in axis 1.  ``gen`` and ``out`` as in ``dense_init``: ``out`` a
+    dict of the same leaves to draw into."""
     e, f = cfg.n_experts, cfg.d_ff
+    o = out or {}
     return {
-        "router": dense_init(gen, (d_model, e), 0, dtype=torch.float32),
-        "w_gate": dense_init(gen, (e, d_model, f), 1, dtype=dtype),
-        "w_up": dense_init(gen, (e, d_model, f), 1, dtype=dtype),
-        "w_down": dense_init(gen, (e, f, d_model), 1, dtype=dtype),
+        "router": dense_init(gen, (d_model, e), 0, dtype=torch.float32,
+                             out=o.get("router")),
+        "w_gate": dense_init(gen, (e, d_model, f), 1, dtype=dtype,
+                             out=o.get("w_gate")),
+        "w_up": dense_init(gen, (e, d_model, f), 1, dtype=dtype,
+                           out=o.get("w_up")),
+        "w_down": dense_init(gen, (e, f, d_model), 1, dtype=dtype,
+                             out=o.get("w_down")),
     }
 
 

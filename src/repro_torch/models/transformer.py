@@ -4,18 +4,28 @@ The port of ``repro/models/transformer.py`` for the single-card
 configurations (tinyllama-1.1b, qwen2-7b, and the MoE LMs grok-1-314b and
 phi3.5-moe-42b-a6.6b at a cut depth).  Parameters keep the JAX package's
 tree and layouts (``wq [d, H, hd]``, ``wo [H, hd, d]``, ``moe.w_gate [E,
-d, f]``, the KV cache ``[L, B, Hkv, M, hd]``), held by a
-:class:`Transformer` module with one submodule per layer instead of arrays
-stacked on a leading L axis: eager PyTorch runs the layers as a Python
-loop, where JAX scans them.  ``init_params``, ``forward``, ``prefill``,
-``decode_step``, ``init_cache``, ``kv_quantize`` and ``kv_dequantize``
-keep the JAX names and arguments, with the module in place of the params
-tree (``loss_fn`` waits for the training slice).  Attention over a whole
-sequence runs on the K4 kernel (``kernels/flash_attention``);
-single-token decode, projections, the FFN, the MoE layer (``moe.py``) and
-the unembedding are plain PyTorch, as they are plain XLA in JAX.  The
-module is for inference: its parameters do not require grad (the training
-slice brings K4's backward).
+d, f]``, the KV cache ``[L, B, Hkv, M, hd]``), each layer leaf one ``[L,
+...]`` parameter as JAX stacks it, held by a :class:`Transformer` module
+(:meth:`~Transformer.tree` is the reference's params tree of the module's
+own tensors).  Eager PyTorch runs the layers as a Python loop over views
+of the stacked leaves, where JAX scans them.  ``init_params``,
+``forward``, ``prefill``, ``decode_step``, ``init_cache``,
+``kv_quantize``, ``kv_dequantize`` and ``loss_fn`` keep the JAX names and
+arguments, with the module in place of the params tree.  Attention over a
+whole sequence runs on the K4 kernel (``kernels/flash_attention``, whose
+backward is the reference's chunked XLA one in PyTorch); single-token
+decode, projections, the FFN, the MoE layer (``moe.py``) and the
+unembedding are plain PyTorch, as they are plain XLA in JAX.
+
+Training: ``forward`` and ``loss_fn`` carry gradients once the parameters
+require them (``init_params`` makes them without: serving keeps
+``requires_grad=False``; ``launch/steps.py``'s train step turns them on).
+A layer leaf's gradient is its ``[L, ...]`` stack, the reference's leaf
+that the optimizer and the snapshots see.  With ``cfg.remat`` each layer
+runs under ``torch.utils.checkpoint`` (non-reentrant;
+``remat_policy="dots"`` keeps the 2-D matrix products, as JAX's
+``dots_with_no_batch_dims_saveable``), where JAX wraps the scanned body in
+``jax.checkpoint``.
 
 The int8 KV cache (``kv_quant``) holds int8 values and float32 scales per
 position and head, ``{k, v, k_scale, v_scale}``; ``prefill`` still
@@ -36,16 +46,17 @@ from ..kernels.flash_attention.ops import attention, decode_attention
 from .common import (
     ACTIVATIONS,
     apply_rope,
+    cross_entropy,
     dense_init,
     embed_init,
     layernorm,
     rmsnorm,
 )
-from .moe import MoEConfig, init_moe, moe_ffn
+from .moe import MoEConfig, init_moe, moe_ffn, router_aux_loss
 
 __all__ = ["TransformerConfig", "Transformer", "init_params", "forward",
            "prefill", "decode_step", "init_cache", "params_from_numpy",
-           "kv_quantize", "kv_dequantize"]
+           "params_to_numpy", "loss_fn", "kv_quantize", "kv_dequantize"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +81,10 @@ class TransformerConfig:
     emb_scale: float = 1.0
     logit_scale: float = 1.0
     dtype: torch.dtype = torch.float32
+    remat: bool = True
+    # remat policy: None = full recompute; "dots" = save the 2-D matrix
+    # products (less backward recompute, more live memory)
+    remat_policy: str | None = None
     # int8 KV cache with per-position-per-head f32 scales: decode is
     # KV-bandwidth-bound, so int8 halves the dominant term against bf16
     kv_quant: bool = False
@@ -125,61 +140,99 @@ class _Tree(nn.Module):
     def __contains__(self, key) -> bool:
         return key in self._parameters or key in self._modules
 
+    def tree(self) -> dict:
+        """The leaves as a nested dict of the module's own parameters."""
+        return {key: (child.tree() if isinstance(child, _Tree) else child)
+                for key, child in [*self._parameters.items(),
+                                   *self._modules.items()]}
+
 
 class Transformer(_Tree):
-    """The parameters: ``embed``, ``layers`` (a ``ModuleList``, one
-    :class:`_Tree` per layer), ``final_norm`` and, untied, ``unembed``."""
+    """The parameters: ``embed``, ``layers`` (each leaf stacked ``[L,
+    ...]``), ``final_norm`` and, untied, ``unembed``."""
 
-    def __init__(self, tree: dict):
-        layers = tree["layers"]
-        super().__init__({k: v for k, v in tree.items() if k != "layers"})
-        self.layers = nn.ModuleList(_Tree(p) for p in layers)
+    def layer_params(self) -> list:
+        """Layer ``i``'s parameters as a nested dict of views ``[i]`` of
+        the stacked leaves: one ``unbind`` a leaf, whose backward stacks
+        the L gradients in one write."""
+        def walk(node):
+            if isinstance(node, dict):
+                subs = {k: walk(v) for k, v in node.items()}
+                return [{k: sub[i] for k, sub in subs.items()}
+                        for i in range(n)]
+            return node.unbind(0)
+        n = self.layers["ln1"]["scale"].shape[0]
+        return walk(self.layers.tree())
 
 
-def _layer_tree(gen, cfg: TransformerConfig) -> dict:
+def _layer_tree(gen, cfg: TransformerConfig, out=None) -> dict:
+    """One layer's leaves drawn from ``gen``; ``gen=None``: their shapes as
+    meta tensors; ``out``: a zeroed tree of the same leaves to draw
+    into (the zero leaves stay)."""
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    dt, dev = cfg.dtype, gen.device
+    dt = cfg.dtype
+    dev = gen.device if gen is not None else torch.device("meta")
+    o = out or {}
+
+    def w(group, key, shape, in_axis):
+        return dense_init(gen, shape, in_axis, dtype=dt,
+                          out=o[group][key] if o else None)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
     attn = {
-        "wq": dense_init(gen, (d, h, hd), 0, dtype=dt),
-        "wk": dense_init(gen, (d, hkv, hd), 0, dtype=dt),
-        "wv": dense_init(gen, (d, hkv, hd), 0, dtype=dt),
-        "wo": dense_init(gen, (h, hd, d), (0, 1), dtype=dt),
+        "wq": w("attn", "wq", (d, h, hd), 0),
+        "wk": w("attn", "wk", (d, hkv, hd), 0),
+        "wv": w("attn", "wv", (d, hkv, hd), 0),
+        "wo": w("attn", "wo", (h, hd, d), (0, 1)),
     }
     if cfg.qkv_bias:
-        attn["bq"] = torch.zeros((h, hd), dtype=dt, device=dev)
-        attn["bk"] = torch.zeros((hkv, hd), dtype=dt, device=dev)
-        attn["bv"] = torch.zeros((hkv, hd), dtype=dt, device=dev)
+        attn["bq"] = zeros((h, hd))
+        attn["bk"] = zeros((hkv, hd))
+        attn["bv"] = zeros((hkv, hd))
 
     def norm():
-        p = {"scale": torch.zeros((d,), dtype=dt, device=dev)}
+        p = {"scale": zeros((d,))}
         if cfg.norm == "layernorm":
-            p["bias"] = torch.zeros((d,), dtype=dt, device=dev)
+            p["bias"] = zeros((d,))
         return p
 
     layer = {"attn": attn, "ln1": norm()}
     if not cfg.parallel_block:
         layer["ln2"] = norm()
     if cfg.moe is not None:
-        layer["moe"] = init_moe(gen, d, cfg.moe, dtype=dt)
+        layer["moe"] = init_moe(gen, d, cfg.moe, dtype=dt, out=o.get("moe"))
     else:
         layer["mlp"] = {
-            "w_gate": dense_init(gen, (d, cfg.d_ff), 0, dtype=dt),
-            "w_up": dense_init(gen, (d, cfg.d_ff), 0, dtype=dt),
-            "w_down": dense_init(gen, (cfg.d_ff, d), 0, dtype=dt),
+            "w_gate": w("mlp", "w_gate", (d, cfg.d_ff), 0),
+            "w_up": w("mlp", "w_up", (d, cfg.d_ff), 0),
+            "w_down": w("mlp", "w_down", (cfg.d_ff, d), 0),
         }
     return layer
+
+
+def _map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0,
                 device="cuda") -> Transformer:
     """Random weights with the reference's distributions, drawn on
-    ``device`` from a generator seeded with ``seed``."""
+    ``device`` from a generator seeded with ``seed``, layer after layer,
+    straight into the stacked leaves (no layer is held twice)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = cfg.dtype
     tree = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype=dt),
-            "layers": [_layer_tree(gen, cfg) for _ in range(cfg.n_layers)],
-            "final_norm": {"scale": torch.zeros((cfg.d_model,), dtype=dt,
-                                                device=gen.device)}}
+            "layers": _map(lambda t: torch.zeros(
+                (cfg.n_layers, *t.shape), dtype=t.dtype, device=gen.device),
+                _layer_tree(None, cfg))}
+    for i in range(cfg.n_layers):
+        _layer_tree(gen, cfg, out=_map(lambda t: t[i], tree["layers"]))
+    tree["final_norm"] = {"scale": torch.zeros((cfg.d_model,), dtype=dt,
+                                               device=gen.device)}
     if cfg.norm == "layernorm":
         tree["final_norm"]["bias"] = torch.zeros((cfg.d_model,), dtype=dt,
                                                  device=gen.device)
@@ -195,19 +248,28 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig,
     stacked on a leading L axis) as the port's module, in ``cfg.dtype``
     but the MoE ``router``, which stays float32 as ``init_moe`` makes
     it."""
-    def conv(a, name):
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
         dt = torch.float32 if name == "router" else cfg.dtype
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        return torch.from_numpy(np.array(node, dtype=np.float32)).to(
             device=device, dtype=dt)
 
-    def walk(node, pick=None, name=None):
-        if isinstance(node, dict):
-            return {k: walk(v, pick, k) for k, v in node.items()}
-        return conv(node if pick is None else np.asarray(node)[pick], name)
+    return Transformer(walk(tree))
 
-    out = {k: walk(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [walk(tree["layers"], i) for i in range(cfg.n_layers)]
-    return Transformer(out)
+
+def params_to_numpy(params: Transformer, cfg: TransformerConfig) -> dict:
+    """The inverse of :func:`params_from_numpy`: the JAX package's params
+    tree with numpy leaves (bfloat16 leaves widened to float32, which
+    numpy holds)."""
+    n = params.layers["ln1"]["scale"].shape[0]
+    if n != cfg.n_layers:
+        raise ValueError(f"{n} layers for a config of {cfg.n_layers}")
+
+    def conv(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return _map(conv, params.tree())
 
 
 def _norm(cfg, x, p):
@@ -321,16 +383,50 @@ def _softcap_logits(cfg, logits):
     return logits
 
 
-@torch.no_grad()
+def _block(cfg, p, x, positions):
+    x, _, aux = _layer_apply(cfg, p, x, positions)
+    return x, aux
+
+
+def _save_dots():
+    """Selective-checkpoint contexts that keep the 2-D matrix products
+    (``mm``/``addmm``: the projections, FFN and unembedding, JAX's dots
+    without batch dimensions) and recompute the rest."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    dots = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in dots
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _layer_fn(cfg):
+    """One block as the forward runs it: under a non-reentrant checkpoint
+    when ``cfg.remat`` is set and gradients are on."""
+    if cfg.remat_policy not in (None, "dots"):
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: None or "
+                         f"'dots'")
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return _block
+    from torch.utils.checkpoint import checkpoint
+
+    kw = {"context_fn": _save_dots} if cfg.remat_policy == "dots" else {}
+    return lambda *a: checkpoint(_block, *a, use_reentrant=False, **kw)
+
+
 def forward(params: Transformer, tokens, cfg: TransformerConfig):
-    """Full-sequence forward.  tokens [B, S] -> (logits [B, S, V], aux):
-    aux is the MoE router statistics averaged over the layers, None for a
-    dense FFN."""
+    """Training/prefill forward.  tokens [B, S] -> (logits [B, S, V],
+    aux): aux is the MoE router statistics averaged over the layers, None
+    for a dense FFN.  Differentiable when the parameters require grad."""
     x = params["embed"][tokens.long()].to(cfg.dtype) * cfg.emb_scale
     positions = torch.arange(tokens.shape[1], device=x.device)
+    layer = _layer_fn(cfg)
     auxs = []
-    for p in params.layers:
-        x, _, aux = _layer_apply(cfg, p, x, positions)
+    for p in params.layer_params():
+        x, aux = layer(cfg, p, x, positions)
         auxs.append(aux)
     x = _norm(cfg, x, params["final_norm"])
     logits = _softcap_logits(cfg, _unembed(params, cfg, x))
@@ -338,6 +434,16 @@ def forward(params: Transformer, tokens, cfg: TransformerConfig):
         return logits, None
     return logits, {k: torch.stack([a[k] for a in auxs]).mean(0)
                     for k in auxs[0]}
+
+
+def loss_fn(params: Transformer, tokens, labels, cfg: TransformerConfig):
+    """Mean token cross entropy (f32, ``z_loss=1e-4``) plus, for an MoE
+    LM, the router's load-balance and z losses."""
+    logits, aux = forward(params, tokens, cfg)
+    loss = cross_entropy(logits, labels, z_loss=1e-4)
+    if aux is not None:
+        loss = loss + router_aux_loss(aux, cfg.moe)
+    return loss
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -369,7 +475,7 @@ def prefill(params: Transformer, tokens, cfg: TransformerConfig,
     positions = torch.arange(s, device=x.device)
     cache = init_cache(dataclasses.replace(cfg, kv_quant=False), b, max_len,
                        device=x.device)
-    for i, p in enumerate(params.layers):
+    for i, p in enumerate(params.layer_params()):
         x, (k, v), _ = _layer_apply(cfg, p, x, positions)
         cache["k"][i, :, :, :s] = k
         cache["v"][i, :, :, :s] = v
@@ -387,7 +493,7 @@ def decode_step(params: Transformer, token, cache: dict, cache_len: int,
     positions = torch.full((token.shape[0], 1), int(cache_len),
                            dtype=torch.int32, device=x.device)
     names = ("k", "v", "k_scale", "v_scale") if cfg.kv_quant else ("k", "v")
-    for i, p in enumerate(params.layers):
+    for i, p in enumerate(params.layer_params()):
         x, _, _ = _layer_apply(cfg, p, x, positions,
                                kv_cache=tuple(cache[n][i] for n in names),
                                cache_len=int(cache_len))

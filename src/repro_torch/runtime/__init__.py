@@ -1,4 +1,10 @@
-# Preemption handling for long-running loops (fault_tolerance.py).
-from .fault_tolerance import PreemptionGuard
+# Fault tolerance (fault_tolerance.py) and the training loop (trainer.py).
+from .fault_tolerance import (
+    HeartbeatMonitor,
+    PreemptionGuard,
+    StragglerMonitor,
+    largest_mesh_shape,
+)
 
-__all__ = ["PreemptionGuard"]
+__all__ = ["HeartbeatMonitor", "PreemptionGuard", "StragglerMonitor",
+           "largest_mesh_shape"]

@@ -660,22 +660,11 @@ def test_lm_on_gpu_matches_cpu(cuda):
 def _numpy_tree(model):
     """``model``'s parameters as the reference's params tree: numpy
     leaves, the layers' stacked on a leading L axis."""
-    out: dict = {}
-    for name, p in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            if parts[1] != "0":
-                continue
-            parts = ["layers"] + parts[2:]
-            leaf = np.stack([dict(layer.named_parameters())[
-                ".".join(parts[1:])].numpy() for layer in model.layers])
-        else:
-            leaf = p.numpy()
-        node = out
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = leaf
-    return out
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return node.detach().numpy()
+    return conv(model.tree())
 
 
 # ---- the generic instances: programs without a KernelEmit ---------------

@@ -406,8 +406,10 @@ def test_checkpoint_manager_layout_retention_and_errors(tmp_path):
     assert torch.equal(tensors["a/b"], tree["a/b"])
     assert torch.equal(tensors["c"].view(torch.int32),
                        torch.from_numpy(tree["c"]).view(torch.int32))
-    with pytest.raises(TypeError, match="'w'.*bfloat16"):
-        mgr.save(3, {"w": torch.ones(2, dtype=torch.bfloat16)})
+    # bfloat16 is written as the reference's raw bits; a dtype numpy lacks
+    # otherwise is refused by name
+    with pytest.raises(TypeError, match="'w'.*float8"):
+        mgr.save(3, {"w": torch.ones(2, dtype=torch.float8_e4m3fn)})
     # a writer failure resurfaces on the caller thread
     mgr.save(4, {"x": np.zeros(2)})
     mgr._pending.join()

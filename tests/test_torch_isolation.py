@@ -61,7 +61,11 @@ def test_the_port_has_modules():
                 "launch/mesh.py", "analysis/lint.py",
                 "analysis/sanitizer.py", "models/moe.py",
                 "dist/moe_parallel.py", "launch/dryrun_diffusion.py",
-                "configs/grok_1_314b.py", "configs/phi3_5_moe_42b.py"):
+                "configs/grok_1_314b.py", "configs/phi3_5_moe_42b.py",
+                "kernels/flash_attention/xla_flash.py",
+                "optim/optimizers.py", "configs/shapes.py",
+                "data/pipeline.py", "launch/steps.py", "launch/train.py",
+                "runtime/trainer.py"):
         assert mod in names
 
 
@@ -98,11 +102,14 @@ def test_lm_entry_points_default_to_the_card():
     from repro_torch.launch import serve
     from repro_torch.models import transformer
 
+    from repro_torch.launch import steps, train
+
     for fn in (transformer.init_params, transformer.init_cache,
-               transformer.params_from_numpy):
+               transformer.params_from_numpy, steps.build_cell):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn.__qualname__
     assert serve.parser().parse_args([]).device == "cuda"
+    assert train.parser().parse_args(["--arch", "x"]).device == "cuda"
 
 
 def test_every_kernel_wrapper_launches_on_cuda_tensors():

@@ -170,13 +170,8 @@ def test_init_params_shapes_match_reference_tree():
             for k, v in jax.tree_util.tree_leaves_with_path(jtree)}
     n = 0
     for name, p in port.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            key = "".join(f"['{x}']" for x in ["layers"] + parts[2:])
-            assert flat[key][1:] == tuple(p.shape), name
-        else:
-            key = "".join(f"['{x}']" for x in parts)
-            assert flat[key] == tuple(p.shape), name
+        key = "".join(f"['{x}']" for x in name.split("."))
+        assert flat[key] == tuple(p.shape), name
         assert not p.requires_grad
         n += p.numel()
     assert n == cfg.param_count() + sum(
@@ -187,7 +182,7 @@ def test_init_params_shapes_match_reference_tree():
         "tinyllama-1.1b").make_config(dtype=torch.float32), n_layers=1)
     big = tf.init_params(big_cfg, seed=1, device="cpu")
     assert abs(float(big["embed"].std()) - 0.02) < 1e-3
-    wq = big.layers[0]["attn"]["wq"]
+    wq = big.layers["attn"]["wq"][0]
     assert float(wq.abs().max()) <= 2.0 / 2048 ** 0.5 + 1e-6
     assert abs(float(wq.std()) - 0.88 / 2048 ** 0.5) < 2e-3
 
@@ -329,15 +324,13 @@ def test_moe_init_params_match_reference_tree(arch):
     names = set()
     for name, p in port.named_parameters():
         parts = name.split(".")
-        key = "".join(f"['{x}']" for x in ["layers"] + parts[2:]) \
-            if parts[0] == "layers" else "".join(f"['{x}']" for x in parts)
+        key = "".join(f"['{x}']" for x in parts)
         names.add(key)
-        want = flat[key][1:] if parts[0] == "layers" else flat[key]
-        assert want == tuple(p.shape), name
+        assert flat[key] == tuple(p.shape), name
         assert p.dtype == (torch.float32 if parts[-1] == "router"
                            else torch.bfloat16), name
     assert names == set(flat)
     tp = tf.params_from_numpy(jax.tree_util.tree_map(np.asarray, jtree),
                               cfg, device="cpu")
-    assert tp.layers[0]["moe"]["router"].dtype == torch.float32
-    assert tp.layers[0]["moe"]["w_gate"].dtype == torch.bfloat16
+    assert tp.layers["moe"]["router"].dtype == torch.float32
+    assert tp.layers["moe"]["w_gate"].dtype == torch.bfloat16
