@@ -248,7 +248,30 @@ kernels line and the final result line):
    recompute and two-pass backward) timed beside
    ``scaled_dot_product_attention``'s backward and the flash backward's
    bound (five causal products at 989 TFLOP/s); not in the kernels line:
-   the reference computes it in XLA, not in a Pallas kernel.
+   the reference computes it in XLA, not in a Pallas kernel;
+5f. GNN training on the card (``phase_gnn``): the four GNNs at their cells'
+   full widths through ``launch.steps.build_cell``, ``launch.train``'s
+   batches (``data_for`` / ``gnn_batch``, ``on_device``) and
+   ``train_loop`` (adamw 1e-3), 4 steps each on one fixed batch: gatedgcn
+   on full_graph_sm (``data_for``'s seeded graph of 2,708 nodes and 10,556
+   edges, padded to 3,072 / 10,752 with masks) and on minibatch_lg (one
+   ``sample_blocks`` block, 1,024 seeds, fanout (15, 10), of a seeded
+   graph of Reddit's 232,965 nodes and 114,615,892 edges, its CSR made by
+   ``models.sampler.build_csr`` on the host while the other runs train),
+   meshgraphnet on that block, mace on molecule (``data_for``'s 128
+   graphs of 30 atoms and 64 edges, float32) and on the block (bfloat16,
+   16 channel groups), equiformer-v2 on molecule (12 layers, l_max 6) and
+   on full_graph_sm (remat).  Every loss and grad norm finite, K5 launched
+   every step (counted a step), median step seconds and peak bytes a run;
+   then ``launch.train.main`` for equiformer-v2 on molecule, 3 steps, its
+   logged losses and grad norms finite; then each architecture at 2 layers
+   in float32, 3 steps on K5 against the same 3 steps on the plain segment
+   sum (``index_add``), losses within 2e-5 relative; then K5 at gatedgcn
+   minibatch_lg's aggregation ([168,960, 70] f32 into 169,985 segments)
+   against its plain version, timed beside ``index_add_`` (its
+   kernels-line row; launches: the 7 runs' and the launcher's K5
+   launches), and the models' ``segment_sum`` helper there (with its own
+   sort, with a shared one, the sort alone) beside its plain version.
 
 With ``--profile``, each trace also gives K1's, K2's and K4's device time
 and their share of the busy and the wall time, and the device time under
@@ -256,8 +279,8 @@ the engine's ``repro_torch.*`` ranges (relax, outbox_merge, receive,
 counters, poll, exchange, the phase-2 combines).
 
 With ``--cpu-rehearsal`` the same phases run on the CPU on the kernels'
-plain versions at tiny sizes (the serving phases, 4h and 5e on the smoke
-config and shapes).
+plain versions at tiny sizes (the serving phases, 4h, 5e and 5f on the
+smoke configs and shapes).
 Any failed check raises, so the script exits nonzero and prints no result.
 Without a CUDA device it exits 2 before doing anything.
 """
@@ -266,6 +289,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import subprocess
@@ -3147,11 +3171,11 @@ def trace(name: str, run) -> dict:
                    and not e.key.startswith("repro_torch.")),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    # K1's, K2's and K4's device time and their share of the busy and wall
-    # time
+    # K1's, K2's, K4's and K5's device time and their share of the busy
+    # and wall time
     shares = {}
     for label, frag in (("K1", "tables_kernel"), ("K2", "scan_pass"),
-                        ("K4", "flash_fwd")):
+                        ("K4", "flash_fwd"), ("K5", "segment_sum_rows")):
         ms = sum(r[1] for r in rows if frag in r[0])
         shares[label] = {"device_ms": ms,
                          "launches": sum(r[2] for r in rows if frag in r[0]),
@@ -4544,6 +4568,327 @@ def phase_dryrun(args, device) -> dict:
     return out
 
 # --------------------------------------------------------------------------
+# phase 5f: GNN training on the card (K5 on the message-passing path)
+# --------------------------------------------------------------------------
+
+# the sampled runs last: the host builds their graph meanwhile
+GNN_RUNS = (("gatedgcn", "full_graph_sm"), ("mace", "molecule"),
+            ("equiformer-v2", "molecule"), ("equiformer-v2", "full_graph_sm"),
+            ("gatedgcn", "minibatch_lg"), ("meshgraphnet", "minibatch_lg"),
+            ("mace", "minibatch_lg"))
+GNN_STEPS = 4
+# each architecture's K5-against-plain check: the run whose batch it
+# takes, at 2 layers in float32
+GNN_CHECK_RUNS = (("gatedgcn", "full_graph_sm"),
+                  ("meshgraphnet", "minibatch_lg"), ("mace", "molecule"),
+                  ("equiformer-v2", "molecule"))
+GNN_CHECK_STEPS, GNN_CHECK_RTOL = 3, 2e-5
+# the CPU rehearsal's cuts: a graph of 2,000 nodes and 20,000 edges, its
+# block (4 seeds, fanout (3, 2)) fits the smoke cells' 64 nodes, 256 edges
+GNN_REHEARSAL = {"graph": (2000, 20_000), "seeds": 4, "fanout": (3, 2)}
+# the launcher's own run (``launch.train.main``)
+GNN_MAIN_ARGS, GNN_MAIN_STEPS = ("--arch", "equiformer-v2", "--shape",
+                                 "molecule"), 3
+
+
+def reddit_block(args):
+    """One ``sample_blocks`` block (minibatch_lg's 1,024 seeds, fanout (15,
+    10)) of a seeded graph of Reddit's size (232,965 vertices, 114,615,892
+    edges; uniform endpoints, ``--seed``) whose CSR ``build_csr`` makes on
+    the host, as ``launch.train.block_structure``."""
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.launch import train
+    from repro_torch.models.sampler import build_csr, sample_blocks
+
+    rng = np.random.default_rng(args.seed + 23)
+    shape = GNN_SHAPES["minibatch_lg"]
+    n, e = ((shape.n_nodes, shape.n_edges) if not args.cpu_rehearsal
+            else GNN_REHEARSAL["graph"])
+    seeds, fanout = ((shape.batch_nodes, shape.fanout)
+                     if not args.cpu_rehearsal else
+                     (GNN_REHEARSAL["seeds"], GNN_REHEARSAL["fanout"]))
+    t = time.perf_counter()
+    src = rng.integers(0, n, e, dtype=np.int32)
+    dst = rng.integers(0, n, e, dtype=np.int32)
+    graph = build_csr(src, dst, n)
+    del src, dst
+    t_csr = time.perf_counter() - t
+    blk = sample_blocks(graph, rng.choice(n, seeds, replace=False), fanout,
+                        rng)
+    st = train.block_structure(blk)
+    return st, {"n": n, "edges": e, "csr_seconds": t_csr,
+                "seconds": time.perf_counter() - t,
+                "block_nodes": st.n_real, "block_edges": len(st.senders)}
+
+
+@contextlib.contextmanager
+def plain_segment_sums():
+    """The GNN segment sums on their plain version (``index_add``) on the
+    card, for the K5-against-plain check."""
+    from repro_torch.models.gnn import common
+
+    saved = common.segment_sum_sorted_by
+    common.segment_sum_sorted_by = (
+        lambda flat, s: common.segment_sum_plain(flat, s.ids,
+                                                 s.num_segments))
+    try:
+        yield
+    finally:
+        common.segment_sum_sorted_by = saved
+
+
+def gnn_check(arch, cell, batch, seed: int, device) -> dict:
+    """3 adamw steps of ``arch`` at 2 layers in float32 on the run's batch
+    with K5, then the same 3 steps from the same weights on the plain
+    segment sum: the losses within ``GNN_CHECK_RTOL``."""
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(cell.config, n_layers=2, dtype=torch.float32)
+    model = steps._GNN_MODELS[arch]
+    out = {}
+    for tag, ctx in (("k5", contextlib.nullcontext),
+                     ("plain", plain_segment_sums)):
+        opt = adamw(lr=1e-3, weight_decay=1e-5)
+        step = steps._make_train_step(
+            lambda p, b: model.loss_fn(p, b, cfg), opt)
+        params = model.init_params(cfg, seed=seed, device=device)
+        state = opt.init(params.tree())
+        k5.reset_launches()
+        losses = []
+        with ctx():
+            for i in range(GNN_CHECK_STEPS):
+                params, state, m = step(params, state, i, batch)
+                losses.append(float(m["loss"]))
+        out[tag] = {"losses": losses,
+                    "k5_launches": k5.LAUNCHES["segment_sum_sorted"]}
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(out["k5"]["losses"], out["plain"]["losses"]))
+    out["max_rel_diff"] = rel
+    check(all(np.isfinite(out["k5"]["losses"])) and rel <= GNN_CHECK_RTOL,
+          f"5f {arch}: K5 losses against plain {out}")
+    if device.type == "cuda":
+        check(out["k5"]["k5_launches"] > 0 and
+              out["plain"]["k5_launches"] == 0,
+              f"5f {arch}: K5 launches {out}")
+    return out
+
+
+def k5_gnn_row(batch, launches: int, device, reps: int) -> tuple:
+    """K5 at gatedgcn minibatch_lg's aggregation: values [E, 70] f32 over
+    the batch's receivers (masked edges to the spare segment n), sorted;
+    against its plain version, timed beside ``index_add_``.  Also the
+    helper as the models call it (``common.segment_sum``: the sort, the
+    gather in its order and K5; given ``common.segments``: the gather and
+    K5) beside its plain version (``segment_sum_plain``)."""
+    from repro_torch.kernels.segment_reduce import kernel, ref
+    from repro_torch.models.gnn import common
+
+    n, e = batch.n_nodes, batch.receivers.shape[0]
+    ids = torch.where(batch.edge_mask, batch.receivers, n)
+    g = torch.Generator(device=device).manual_seed(70)
+    values = torch.randn((e, 70), generator=g, device=device)
+    seg = common.segments(ids, n + 1)
+    order = torch.argsort(ids, stable=True)
+    pad = (-e) % kernel.BLOCK_E
+    sv = torch.nn.functional.pad(values[order], (0, 0, 0, pad))
+    si = torch.nn.functional.pad(ids[order].to(torch.int32), (0, pad),
+                                 value=-1)
+    got = kernel.segment_sum_sorted(sv, si, n + 1)
+    want = ref.segment_sum_sorted_ref(sv, si, n + 1)
+    mag = ref.segment_sum_ref(values.abs(), ids.to(torch.int32), n + 1)
+    sync(device)
+    err = float((got - want).abs().max())
+    check(bool(((got - want).abs() <= 1e-6 * mag + 1e-30).all()),
+          f"K5 at the GNN shape differs from its plain version ({err})")
+    clock = Clock(device)
+    k_ms = clock.ms(lambda: kernel.segment_sum_sorted(sv, si, n + 1), reps)
+    p_ms = clock.ms(lambda: ref.segment_sum_sorted_ref(sv, si, n + 1),
+                    max(2, reps // 10), warmup=1)
+    lib = torch.zeros((n + 1, 70), device=device)
+    il = ids.long()
+    lib_ms = clock.ms(lambda: lib.index_add_(0, il, values), reps)
+    helper = {
+        "sort_gather_k5_ms": clock.ms(
+            lambda: common.segment_sum(values, ids, n + 1), reps),
+        "gather_k5_ms": clock.ms(lambda: common.segment_sum(values, seg),
+                                 reps),
+        "sort_ms": clock.ms(lambda: common.segments(ids, n + 1), reps),
+        "plain_ms": clock.ms(
+            lambda: common.segment_sum_plain(values, ids, n + 1), reps)}
+    f = 70
+    nbytes = e * f * 4 + e * 4 + (n + 1) * f * 4
+    return kernel_row(
+        f"segment_sum_sorted (gatedgcn minibatch_lg: [{e}, {f}] into "
+        f"{n + 1})", "src/repro_torch/kernels/segment_reduce/csrc/"
+        "segment_sum_sorted.cu",
+        "src/repro/kernels/segment_reduce/kernel.py:59", launches, err,
+        k_ms, p_ms, nbytes, e * f, lib_ms), helper
+
+
+def gnn_main_run(args, root) -> dict:
+    """``launch.train.main`` with ``GNN_MAIN_ARGS`` (equiformer-v2 on
+    molecule; the smoke config on the CPU rehearsal), ``GNN_MAIN_STEPS``
+    steps: every loss and grad norm in its log finite."""
+    import shutil
+
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.launch import train
+
+    shutil.rmtree(root, ignore_errors=True)
+    log = root / "log.jsonl"
+    argv = [*GNN_MAIN_ARGS, "--steps", str(GNN_MAIN_STEPS),
+            "--ckpt-dir", str(root), "--log", str(log)]
+    if args.cpu_rehearsal:
+        argv += ["--smoke", "--device", "cpu"]
+    t = time.perf_counter()
+    k5.reset_launches()
+    train.main(argv)
+    launches = k5.LAUNCHES["segment_sum_sorted"]
+    rows = [json.loads(ln) for ln in log.read_text().splitlines()]
+    out = {"argv": argv,
+           "losses": [r["loss"] for r in rows],
+           "grad_norms": [r["grad_norm"] for r in rows],
+           "k5_launches": launches, "seconds": time.perf_counter() - t}
+    check(len(rows) == GNN_MAIN_STEPS and all(
+        np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+        for r in rows), f"5f launch.train.main: {out}")
+    if not args.cpu_rehearsal:
+        check(launches > 0, f"5f launch.train.main: K5 launches {out}")
+    emit({"phase": "gnn_main", **out})
+    return out
+
+
+def phase_gnn(args, device, reps: int) -> tuple[dict, dict]:
+    """Phase 5f: the four GNNs trained on the card through
+    ``launch.steps.build_cell``, ``launch.train.data_for`` /
+    ``on_device`` and ``runtime.trainer.train_loop`` at their full widths
+    (the reference's config choices), ``GNN_STEPS`` steps each on one fixed
+    batch (smoke configs and a cut graph on the CPU rehearsal): gatedgcn on
+    full_graph_sm (``data_for``'s graph of Cora's 2,708 nodes and 10,556
+    edges, padded with masks) and on minibatch_lg (``gnn_batch`` on one
+    ``sample_blocks`` block, 1,024 seeds, fanout (15, 10), of a seeded
+    graph of Reddit's 232,965 nodes and 114,615,892 edges, built on the
+    host while the other runs train), meshgraphnet on
+    the same block, mace on molecule (``data_for``'s 128 graphs of 30 atoms
+    and 64 edges, float32) and on the block (bfloat16, 16 channel groups),
+    equiformer-v2 on molecule (12 layers, l_max 6) and on full_graph_sm
+    (remat).  Every loss finite; K5 launched every step of every run
+    (counted a step); median step seconds and peak bytes a run.  Then
+    ``launch.train.main`` for equiformer-v2 on molecule
+    (``gnn_main_run``), each
+    architecture's K5-against-plain check (``gnn_check``) and K5 timed at
+    gatedgcn minibatch_lg's aggregation (its kernels-line row: launches the
+    runs' and the launcher's K5 launches)."""
+    import itertools
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.launch import steps, train
+    from repro_torch.runtime.trainer import train_loop
+
+    t0 = time.perf_counter()
+    free_card(device)
+    pool = ThreadPoolExecutor(1)
+    pending = pool.submit(reddit_block, args)
+    block = graph_rep = None
+    runs, batches = [], {}
+    ckpt_root = OUT_DIR / "gnn"
+    try:
+        for i, (arch, shape_name) in enumerate(GNN_RUNS):
+            cell = steps.build_cell(arch, shape_name,
+                                    smoke=args.cpu_rehearsal, device=device)
+            if shape_name == "minibatch_lg" and block is None:
+                t = time.perf_counter()
+                block, graph_rep = pending.result()
+                graph_rep["waited_seconds"] = time.perf_counter() - t
+                emit({"phase": "gnn_graph", **graph_rep})
+            host = (itertools.repeat(train.gnn_batch(
+                        cell, args.seed + i, structure=block))
+                    if shape_name == "minibatch_lg" else train.data_for(cell))
+            data = train.on_device(host, device)
+            batch = next(data)
+            if (arch, shape_name) in GNN_CHECK_RUNS:
+                batches[arch] = (cell, batch)
+            ckpt = ckpt_root / f"{arch}-{shape_name}"
+            shutil.rmtree(ckpt, ignore_errors=True)
+            rows = []
+
+            def on_metrics(step, m, dt):
+                rows.append({"step": step, "loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "seconds": dt, "k5_launches":
+                             k5.LAUNCHES["segment_sum_sorted"]})
+                k5.reset_launches()
+
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            params = cell.init_params(args.seed)
+            opt_state = cell.init_opt(params)
+            k5.reset_launches()
+            params, opt_state, _ = train_loop(
+                cell.step, params, opt_state, itertools.chain([batch], data),
+                GNN_STEPS, str(ckpt), ckpt_every=GNN_STEPS,
+                on_metrics=on_metrics)
+            if args.profile and device.type == "cuda":
+                emit(trace(f"gnn_{arch}_{shape_name}", lambda: cell.step(
+                    params, opt_state, GNN_STEPS, batch)))
+            cfg = cell.config
+            run = {"arch": arch, "shape": shape_name, "dtype": str(cfg.dtype),
+                   "layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+                   "n": batch.n_nodes, "edges": int(batch.senders.shape[0]),
+                   "real_nodes": int(batch.node_mask.sum()),
+                   "real_edges": int(batch.edge_mask.sum()),
+                   **{k: getattr(cfg, k) for k in (
+                       "edge_chunks", "remat", "channel_groups", "l_max")
+                      if hasattr(cfg, k)},
+                   "losses": [r["loss"] for r in rows],
+                   "grad_norms": [r["grad_norm"] for r in rows],
+                   "step_seconds": [r["seconds"] for r in rows],
+                   "step_seconds_median": float(np.median(
+                       [r["seconds"] for r in rows])),
+                   "k5_launches_per_step": [r["k5_launches"] for r in rows],
+                   "peak_bytes": (torch.cuda.max_memory_allocated()
+                                  if device.type == "cuda" else None)}
+            emit({"phase": "gnn_run", **run})
+            runs.append(run)
+            check(len(rows) == GNN_STEPS and all(
+                np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                for r in rows), f"5f {arch} {shape_name}: {rows}")
+            if device.type == "cuda":
+                check(all(r["k5_launches"] > 0 for r in rows),
+                      f"5f {arch} {shape_name}: K5 was not launched every "
+                      f"step: {[r['k5_launches'] for r in rows]}")
+            if shape_name == "minibatch_lg" and arch == "gatedgcn":
+                row_batch = batch
+            del params, opt_state, batch, data
+            if (arch, shape_name) not in GNN_CHECK_RUNS:
+                free_card(device)
+        main_run = gnn_main_run(args, ckpt_root / "main")
+        checks = {arch: gnn_check(arch, cell, batch, args.seed, device)
+                  for arch, (cell, batch) in batches.items()}
+    finally:
+        pool.shutdown()
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    del batches
+    free_card(device)
+    launches = sum(sum(r["k5_launches_per_step"]) for r in runs) + \
+        main_run["k5_launches"]
+    row, helper = k5_gnn_row(row_batch, launches, device, reps)
+    rep = {"phase": "gnn", "graph": graph_rep, "runs": runs,
+           "main_run": main_run, "checks": checks,
+           "check_rtol": GNN_CHECK_RTOL, "k5_launches": launches,
+           "segment_sum_helper": helper,
+           "seconds": time.perf_counter() - t0,
+           **{k: row[k] for k in ("name", "max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}}
+    emit(rep)
+    return rep, row
+
+
+# --------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4571,7 +4916,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one sssp query, one pagerank query, "
                          "16-lane sssp on pull and push, one commit's push "
-                         "repair, one prefill and one decode step with "
+                         "repair, one prefill and one decode step, one "
+                         "training step of each GNN run with "
                          "torch.profiler (tables under chiprun_out/)")
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the path on the CPU with the plain versions "
@@ -4722,11 +5068,13 @@ def main(argv=None) -> int:
         trained["k4_launches"], device, args.reps,
         b=1 if args.cpu_rehearsal else TRAIN_BATCH)
     attention_bwd = phase_attention_bwd_timing(args, device, args.reps)
-    rows += [k4_dense, *moe_rows, k4_train, k5_row, k6_row]
+    free_card(device)
+    gnn, k5_gnn = phase_gnn(args, device, args.reps)
+    rows += [k4_dense, *moe_rows, k4_train, k5_row, k5_gnn, k6_row]
     detail = {"nvidia_smi": smi, "kernels": rows, "k3": k3_detail,
               "k4_grad": k4_grad, "train": trained,
               "train_check": train_check,
-              "attention_bwd": attention_bwd,
+              "attention_bwd": attention_bwd, "gnn": gnn,
               "serve": served, "lm_checks": lm, "moe_serve": moe_served,
               "moe_checks": moe, "dryrun": dryrun, "k4_vs_plain": k4_check,
               "replicas": replicas, "oracles": oracles,

@@ -5,8 +5,9 @@
   under the reference's leaf names (``_path_str``: keys and indices joined
   by ``/``, dict keys sorted as JAX flattens), so a flat dict keeps its
   names.  A ``torch.nn.Module`` is a node whose children are its
-  parameters and submodules by attribute name (the LM's ``Transformer``
-  flattens as the reference's params tree), restored in place.  A
+  parameters and submodules by attribute name, an ``nn.ModuleList`` a
+  list (the LM's ``Transformer`` and a GNN's ``Params`` flatten as the
+  reference's params trees), restored in place.  A
   ``train_loop`` directory either package writes in float32 resumes in the
   other.
 * **Layout**: step ``n`` lives in ``step_<n>/``: one ``.npy`` a leaf, named
@@ -56,6 +57,8 @@ def _path_str(path) -> str:
 
 def _items(node):
     """The children of a tree node as (key, child), or None for a leaf."""
+    if isinstance(node, torch.nn.ModuleList):     # a list, in its order
+        return list(enumerate(node))
     if isinstance(node, torch.nn.Module):
         node = {**dict(node.named_parameters(recurse=False)),
                 **dict(node.named_children())}

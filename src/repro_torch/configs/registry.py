@@ -1,28 +1,34 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-The port runs the dense LMs and the MoE LMs.  The reference's other
-architectures are named here with the ROADMAP item that brings them, and
-``get_module`` (so also ``shapes_for``) raises ``NotImplementedError``
-for them.
+The port runs the dense LMs, the MoE LMs and the four GNNs (gatedgcn,
+meshgraphnet, mace, equiformer-v2).  The reference's other architectures
+are named here with the ROADMAP item that brings them, and ``get_module``
+(so also ``shapes_for``) raises ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations
 
-from . import grok_1_314b, phi3_5_moe_42b, qwen2_7b, tinyllama_1_1b
+from . import (
+    equiformer_v2,
+    gatedgcn,
+    grok_1_314b,
+    mace,
+    meshgraphnet,
+    phi3_5_moe_42b,
+    qwen2_7b,
+    tinyllama_1_1b,
+)
 from .shapes import GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES
 
 __all__ = ["ARCHS", "NOT_PORTED", "get_module", "shapes_for"]
 
 ARCHS = {m.ARCH_ID: m for m in (tinyllama_1_1b, qwen2_7b, grok_1_314b,
-                                phi3_5_moe_42b)}
+                                phi3_5_moe_42b, equiformer_v2, gatedgcn,
+                                meshgraphnet, mace)}
 
 NOT_PORTED = {
     "command-r-plus-104b": "sharded LMs (dist/; 104B bf16 does not fit one "
                            "card), ROADMAP queue 1 item 12",
-    "equiformer-v2": "GNN models (models/gnn), ROADMAP queue 1 item 12",
-    "gatedgcn": "GNN models (models/gnn), ROADMAP queue 1 item 12",
-    "meshgraphnet": "GNN models (models/gnn), ROADMAP queue 1 item 12",
-    "mace": "GNN models (models/gnn), ROADMAP queue 1 item 12",
     "two-tower-retrieval": "recsys models (models/recsys.py), ROADMAP "
                            "queue 1 item 12",
 }

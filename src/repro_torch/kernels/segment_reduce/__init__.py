@@ -3,10 +3,13 @@ kernel.
 
 Layout: ``csrc/segment_sum_sorted.cu`` (the CUDA kernel), kernel.py (its
 ctypes wrapper and launch counter), ref.py (the plain PyTorch versions),
-ops.py (the public ``segment_sum`` / ``segment_sum_presorted`` with their
-row-gather gradient).
+ops.py (the public ``segment_sum`` / ``segment_sum_presorted`` /
+``segment_sum_sorted_by`` with their row-gather gradient, and
+``sort_ids``, which sorts ids once for several sums).
 """
 
-from .ops import segment_sum, segment_sum_presorted
+from .ops import (SortedIds, segment_sum, segment_sum_presorted,
+                  segment_sum_sorted_by, sort_ids)
 
-__all__ = ["segment_sum", "segment_sum_presorted"]
+__all__ = ["segment_sum", "segment_sum_presorted", "segment_sum_sorted_by",
+           "sort_ids", "SortedIds"]

@@ -1,38 +1,64 @@
 """Cells: (architecture x input shape) -> step fn + input specs
-(the port of ``repro/launch/steps.py`` for the LM family).
+(the port of ``repro/launch/steps.py`` for the LM and GNN families).
 
 The train step is the reference's ``_make_train_step``: the gradient of
 the loss (over ``n_micro`` contiguous micro-batches of ``B / n_micro``
 rows, accumulated in float32 when ``n_micro <= 2`` and in bfloat16
 otherwise), clipped to a global norm of 1.0, one optimizer update, then
 ``p + u`` in place.  The optimizer sees the reference's leaves: the
-model's parameters are its tree, each layer leaf one ``[L, ...]`` tensor
-(``Transformer.tree``).  Profiler ranges:
+model's parameters are its tree (an LM's layer leaves one ``[L, ...]``
+tensor each, ``Transformer.tree``; a GNN's ``Params.tree``, lists of
+layers included).  Profiler ranges:
 ``repro_torch.train.{forward,backward,optimizer}`` (the optimizer's
 includes the clip and ``p + u``).
 
+GNN cells (``_gnn_cell``) make the reference's config choices: the input
+width and classes from the shape, ``edge_chunks`` and ``remat=(mode ==
+"full")`` for the geometric models, ``channel_groups=16`` and bfloat16
+above 100,000 nodes (the reference also sets ``spmd_edges=True`` there, a
+``shard_map`` option the port does not have: the models' docstrings),
+equiformer-v2's ``d_out`` the shape's classes; adamw(1e-3, weight decay
+1e-5); the same input shapes and dtypes (a ``GraphBatch`` of
+:class:`Spec`).
+
 The reference's shardings (``batch_spec_fn``, ``context``) belong to the
-sharded runtime, and its GNN and recsys cells to their models (ROADMAP
-queue 1 item 12): ``build_cell`` raises ``NotImplementedError`` for them
-(through ``registry.get_module``).  Its ``REPRO_ACCUM_DTYPE`` experiment
-switch is not ported, and its ``REPRO_KV_QUANT`` switch of the decode
-cell is ``dataclasses.replace(cfg, kv_quant=True)`` on a config the
-caller builds.
+sharded runtime, and its recsys cells to their model (ROADMAP queue 1
+item 12): ``build_cell`` raises ``NotImplementedError`` for them (through
+``registry.get_module``).  Its ``REPRO_ACCUM_DTYPE`` and
+``REPRO_GNN_DTYPE`` experiment switches are not ported, and its
+``REPRO_KV_QUANT`` switch of the decode cell is
+``dataclasses.replace(cfg, kv_quant=True)`` on a config the caller builds.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
 from torch.profiler import record_function
 
 from ..configs import registry
-from ..configs.shapes import LMShape
+from ..configs.shapes import GraphShape, LMShape
 from ..models import transformer
-from ..optim import adafactor, clip_by_global_norm, tree_map
+from ..models.gnn import (
+    equiformer_v2 as eqv2_model,
+    gatedgcn as gatedgcn_model,
+    mace as mace_model,
+    meshgraphnet as mgn_model,
+)
+from ..models.gnn.common import GraphBatch
+from ..models.sampler import block_shapes
+from ..optim import adafactor, adamw, clip_by_global_norm, tree_map
 
 __all__ = ["Cell", "Spec", "build_cell", "pad_to"]
+
+_GNN_MODELS = {
+    "equiformer-v2": eqv2_model,
+    "gatedgcn": gatedgcn_model,
+    "meshgraphnet": mgn_model,
+    "mace": mace_model,
+}
 
 # grad-accumulation factors for the train_4k cells (memory plan)
 _LM_MICROBATCHES = {
@@ -57,20 +83,21 @@ class Spec(NamedTuple):
 class Cell(NamedTuple):
     arch_id: str
     shape_name: str
-    family: str           # lm
+    family: str           # lm | gnn_scalar | gnn_geometric
     mode: str             # train | prefill | decode
     config: Any
     init_params: Callable             # (seed) -> params on the cell's device
     init_opt: Callable | None         # (params) -> opt_state
     step: Callable                    # see mode-specific signatures
-    input_specs: Callable             # () -> dict of Spec
+    input_specs: Callable             # () -> dict (LM) or GraphBatch of Spec
 
 
 def _make_train_step(loss_fn, optimizer, n_micro: int = 1):
     """Train step with optional gradient-accumulation microbatching (one
     optimizer update).  ``step(params, opt_state, step_no, batch) ->
     (params, opt_state, {"loss", "grad_norm"})``; ``params`` (a
-    ``Transformer``) is updated in place and returned."""
+    ``Transformer`` or a GNN's ``Params``) is updated in place and
+    returned."""
     acc_dtype = torch.float32 if n_micro <= 2 else torch.bfloat16
 
     def grads_of(params, tree, batch):
@@ -168,10 +195,94 @@ def _lm_cell(arch_id, mod, shape: LMShape, smoke: bool, batch: int | None,
                 specs)
 
 
+# ---------------------------------------------------------------------------
+# GNN cells
+# ---------------------------------------------------------------------------
+
+def _gnn_sizes(shape: GraphShape, smoke: bool):
+    if smoke:
+        return 64, 256, 1
+    if shape.mode == "sampled":
+        n, e = block_shapes(shape.batch_nodes, shape.fanout)
+        return pad_to(n, 512), pad_to(e, 512 * max(shape.edge_chunks, 1)), 1
+    if shape.mode == "batched":
+        return (pad_to(shape.n_nodes * shape.batch_graphs, 512),
+                pad_to(shape.n_edges * shape.batch_graphs, 512),
+                shape.batch_graphs)
+    return (pad_to(shape.n_nodes, 512),
+            pad_to(shape.n_edges, 512 * max(shape.edge_chunks, 1)), 1)
+
+
+def _gnn_cell(arch_id, mod, shape: GraphShape, smoke: bool, device) -> Cell:
+    model = _GNN_MODELS[arch_id]
+    geometric = mod.NEEDS_GEOMETRY
+    family = "gnn_geometric" if geometric else "gnn_scalar"
+    n, e, n_graphs = _gnn_sizes(shape, smoke)
+    chunks = 1 if smoke else max(shape.edge_chunks, 1)
+
+    kw = {}
+    if arch_id == "gatedgcn" and not smoke:
+        kw = dict(d_in=max(shape.d_feat, 1),
+                  n_classes=max(shape.n_classes, 2))
+    if arch_id == "meshgraphnet" and not smoke:
+        kw = dict(d_node_in=max(shape.d_feat, 8))
+    cfg = mod.smoke_config() if smoke else mod.make_config(**kw)
+    if geometric and not smoke:
+        cfg = dataclasses.replace(cfg, edge_chunks=chunks,
+                                  remat=(shape.mode == "full"))
+        if shape.n_nodes > 100_000:
+            # the reference's billion-edge plan: block-diag channel mixing,
+            # bf16 activations (its shard_map edge routing is not ported)
+            cfg = dataclasses.replace(cfg, channel_groups=16,
+                                      dtype=torch.bfloat16)
+    if arch_id == "equiformer-v2" and not smoke and shape.n_classes:
+        cfg = dataclasses.replace(cfg, d_out=shape.n_classes)
+
+    def init(seed: int = 0):
+        return model.init_params(cfg, seed=seed, device=device)
+
+    def specs():
+        i32, f32 = torch.int32, torch.float32
+        base = dict(senders=Spec((e,), i32), receivers=Spec((e,), i32),
+                    node_mask=Spec((n,), torch.bool),
+                    edge_mask=Spec((e,), torch.bool))
+        if geometric:
+            base["positions"] = Spec((n, 3), f32)
+            base["species"] = Spec((n,), i32)
+        else:
+            d_in = cfg.d_in if arch_id == "gatedgcn" else cfg.d_node_in
+            base["nodes"] = Spec((n, d_in), f32)
+            if arch_id == "meshgraphnet":
+                base["edges"] = Spec((e, cfg.d_edge_in), f32)
+        if geometric and (shape.mode == "batched" or arch_id == "mace"):
+            # per-graph energy regression
+            base["graph_ids"] = Spec((n,), i32)
+            labels = Spec((n_graphs,), f32)
+        elif arch_id == "meshgraphnet":
+            labels = Spec((n, cfg.d_out), f32)
+        else:
+            labels = Spec((n,), i32)
+        return GraphBatch(n_nodes=n, n_graphs=n_graphs, labels=labels,
+                          **base)
+
+    optimizer = adamw(lr=1e-3, weight_decay=1e-5)
+
+    def loss(params, batch):
+        return model.loss_fn(params, batch, cfg)
+
+    def init_opt(params):
+        return optimizer.init(params.tree())
+
+    return Cell(arch_id, shape.name, family, "train", cfg, init, init_opt,
+                _make_train_step(loss, optimizer), specs)
+
+
 def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
                batch: int | None = None, device="cuda") -> Cell:
     """The ``(arch_id, shape_name)`` cell on ``device`` (the GPU unless the
-    caller asks for the CPU); ``batch`` cuts the shape's global batch."""
+    caller asks for the CPU); ``batch`` cuts an LM shape's global batch."""
     mod = registry.get_module(arch_id)
     shape = registry.shapes_for(arch_id)[shape_name]
+    if mod.FAMILY == "gnn":
+        return _gnn_cell(arch_id, mod, shape, smoke, device)
     return _lm_cell(arch_id, mod, shape, smoke, batch, device)

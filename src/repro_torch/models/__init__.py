@@ -1,2 +1,3 @@
-"""The port's model half: so far the dense decoder-only LMs
-(``transformer.py``) on the shared blocks of ``common.py``."""
+"""The port's model half: the decoder-only LMs (``transformer.py``, with
+``moe.py``) on the shared blocks of ``common.py``, the GNNs (``gnn/``) and
+the neighbor sampler (``sampler.py``)."""

@@ -35,19 +35,26 @@ class Optimizer(NamedTuple):
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of the nested dict ``tree``; ``rest`` are
-    trees of the same structure down to ``tree``'s leaves (their nodes
-    there may be dicts, as an Adafactor state's are)."""
+    """``fn`` over the leaves of ``tree``, nested dicts and lists (a GNN's
+    layer list); ``rest`` are trees of the same structure down to
+    ``tree``'s leaves (their nodes there may be dicts, as an Adafactor
+    state's are)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
-    """The leaves of a nested dict, keys sorted as JAX flattens."""
+    """The leaves of nested dicts and lists, in JAX's flatten order (dict
+    keys sorted, list items in order)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 

@@ -591,6 +591,73 @@ def test_k5_kernel_matches_plain(cuda, e, f, n):
     assert bool(((got - want).abs() <= 1e-6 * mag + 1e-30).all())
 
 
+@pytest.mark.parametrize("shape,n", [((5000, 70), 1201), ((3000, 5, 8), 77),
+                                     ((4096,), 128)],
+                         ids=["2d", "3d", "1d"])
+def test_gnn_segment_sum_on_k5_matches_plain(cuda, shape, n):
+    """The GNN models' ``segment_sum`` on CUDA tensors runs K5 (one launch)
+    and equals its plain version (``index_add``) on the same tensors
+    within 1e-5 of the segments' sums of |values| (float atomics in both);
+    its gradient, a row gather, equals the plain one bitwise, the spare
+    segment n (masked edges) included, as the models use it."""
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.models.gnn import common
+
+    g = torch.Generator(device="cpu").manual_seed(shape[0])
+    ids = torch.randint(0, n + 1, shape[:1], generator=g).to(cuda)
+    vals = torch.randn(shape, generator=g).to(cuda)
+    co = torch.randn((n + 1,) + shape[1:], generator=g).to(cuda)
+    out = {}
+    for tag, fn in (("k5", common.segment_sum),
+                    ("plain", lambda v, i, m: common.segment_sum_plain(
+                        v.reshape(v.shape[0], -1), i, m).reshape(
+                        (m,) + v.shape[1:]))):
+        v = vals.clone().requires_grad_(True)
+        n0 = k5.LAUNCHES["segment_sum_sorted"]
+        got = fn(v, ids, n + 1)
+        launched = k5.LAUNCHES["segment_sum_sorted"] - n0
+        (grad,) = torch.autograd.grad((got[:n] * co[:n]).sum(), (v,))
+        out[tag] = (got.detach(), grad, launched)
+    (got, g_k5, l_k5), (want, g_plain, l_plain) = out["k5"], out["plain"]
+    assert (l_k5, l_plain) == (1, 0)
+    mag = common.segment_sum_plain(vals.abs().reshape(shape[0], -1), ids,
+                                   n + 1).reshape(want.shape)
+    assert bool(((got - want).abs() <= 1e-5 * mag + 1e-30).all())
+    assert torch.equal(g_k5, g_plain)
+    assert not g_k5[ids == n].any()
+
+
+def test_gnn_segments_sorted_once_serve_several_sums_on_k5(cuda):
+    """``common.segments`` sorts the ids once on the card; each sum over it
+    is one K5 launch; it and the sum that sorts for itself equal the plain
+    version within 1e-5 of the segments' sums of |values| (float atomics);
+    both gradients are the row gather, bitwise."""
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.models.gnn import common
+
+    n, e = 1201, 5000
+    g = torch.Generator(device="cpu").manual_seed(5)
+    ids = torch.randint(0, n + 1, (e,), generator=g).to(cuda)
+    seg = common.segments(ids, n + 1)
+    assert seg.sorted is not None
+    for f in (70, 9):
+        vals = torch.randn((e, f), generator=g).to(cuda)
+        v1 = vals.clone().requires_grad_(True)
+        v2 = vals.clone().requires_grad_(True)
+        n0 = k5.LAUNCHES["segment_sum_sorted"]
+        got = common.segment_sum(v1, seg)
+        assert k5.LAUNCHES["segment_sum_sorted"] == n0 + 1
+        own = common.segment_sum(v2, ids, n + 1)
+        want = common.segment_sum_plain(vals, ids, n + 1)
+        mag = common.segment_sum_plain(vals.abs(), ids, n + 1)
+        assert bool(((got - want).abs() <= 1e-5 * mag + 1e-30).all())
+        assert bool(((own - want).abs() <= 1e-5 * mag + 1e-30).all())
+        co = torch.randn((n + 1, f), generator=g).to(cuda)
+        (g1,) = torch.autograd.grad((got * co).sum(), (v1,))
+        (g2,) = torch.autograd.grad((own * co).sum(), (v2,))
+        assert torch.equal(g1, g2) and torch.equal(g1, co[ids])
+
+
 def _k6_hub(np_, e, n, seed):
     """A sorted dst stream of ``e`` edges: dead edges first, hub runs of
     3,000 and 9,000 edges (over many 1024-edge tiles) among short runs."""

@@ -220,7 +220,7 @@ def test_prefill_and_decode_cells():
     assert logits.shape == (2, 1, dec.config.vocab)
 
 
-@pytest.mark.parametrize("arch", ["gatedgcn", "two-tower-retrieval",
+@pytest.mark.parametrize("arch", ["two-tower-retrieval",
                                   "command-r-plus-104b"])
 def test_unported_families_raise_naming_item_12(arch):
     with pytest.raises(NotImplementedError, match="item 12"):
