@@ -48,10 +48,11 @@ VARIANTS = {
 
 def build_variants(nvcc: str, flags, argtypes, source="edge_relax_scan.cu",
                    variants=VARIANTS, symbol="edge_relax_scan_launch",
-                   out=OUT) -> dict:
-    """Compile every variant of ``source`` (name -> text substitutions) in
-    parallel into ``out``; name -> its entry point ``symbol``."""
-    src = (CSRC / source).read_text()
+                   out=OUT, csrc=CSRC) -> dict:
+    """Compile every variant of ``csrc / source`` (name -> text
+    substitutions) in parallel into ``out``; name -> its entry point
+    ``symbol``."""
+    src = (csrc / source).read_text()
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, subs in variants.items():
@@ -64,7 +65,7 @@ def build_variants(nvcc: str, flags, argtypes, source="edge_relax_scan.cu",
         cu, so = out / f"{name}.cu", out / f"lib{name}.so"
         cu.write_text(text)
         procs[name] = (subprocess.Popen(
-            [nvcc, *flags, "-I", str(CSRC), "-o", str(so), str(cu)],
+            [nvcc, *flags, "-I", str(csrc), "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     fns = {}
     for name, (proc, so) in procs.items():

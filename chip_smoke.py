@@ -183,8 +183,10 @@ kernels line and the final result line):
    session;
 4d. K5 (``segment_sum_sorted``) through its entry point ``segment_sum`` on
    one GNN aggregation layer (values [E, 128] over the edges of
-   ``scale_free`` 262,144): launches counted, against its plain version
-   and ``index_add_``, timed;
+   ``scale_free`` 262,144): launches counted, against ``index_add_``;
+   then the kernel on the presorted values and with the gather fused
+   (``order``), each bitwise its plain version, five more launches bitwise
+   the first, timed beside both (``k5_row``);
 5. the LM serving path at full width: ``DecodeServer`` (4 slots, max_len
    2048) on tinyllama-1.1b in bf16 with seeded random weights admits 4
    prompts of 1024 tokens and takes 32 greedy decode steps, every launch
@@ -265,16 +267,26 @@ kernels line and the final result line):
    every step (counted a step), median step seconds and peak bytes a run;
    then ``launch.train.main`` for equiformer-v2 on molecule, 3 steps, its
    logged losses and grad norms finite; then each architecture at 2 layers
-   in float32, 3 steps on K5 against the same 3 steps on the plain segment
-   sum (``index_add``), losses within 2e-5 relative; then K5 at gatedgcn
+   in float32: the forward pass and the loss twice at the same weights,
+   bitwise equal; 3 steps on K5, run twice (whether they repeat bitwise is
+   reported), against the same 3 steps on the plain segment sum
+   (``index_add``), losses within 2e-5 relative; then K5 at gatedgcn
    minibatch_lg's aggregation ([168,960, 70] f32 into 169,985 segments)
-   against its plain version, timed beside ``index_add_`` (its
-   kernels-line row; launches: the 7 runs' and the launcher's K5
-   launches), and the models' ``segment_sum`` helper there (with its own
-   sort, with a shared one, the sort alone) beside its plain version.
+   through ``k5_row`` (its kernels-line row; launches: the 7 runs' and
+   the launcher's K5 launches), and the models' ``segment_sum`` helper
+   there (with its own sort, with a shared one, the sort alone) beside its
+   plain version; then ``k5_row`` at three more shapes the runs gave K5
+   (``k5_shapes`` books K5's own launch count by shape, and each run's
+   book adds up to its per-step counts): meshgraphnet on the block
+   (F = 128 f32), mace on the block (F = 640 bf16) and the graph pool with
+   the fewest
+   segments (F = 1; mace's one-graph pool of the block), each with its
+   launches at that shape.
 
-With ``--profile``, each trace also gives K1's, K2's and K4's device time
-and their share of the busy and the wall time, and the device time under
+With ``--profile``, each trace also gives K1's, K2's, K4's and K5's
+device time and their share of the busy and the wall time (K5's level
+kernels start early and wait: its time counts their overlap once, beside
+the sum of its calls' spans from first kernel start to last kernel end), and the device time under
 the engine's ``repro_torch.*`` ranges (relax, outbox_merge, receive,
 counters, poll, exchange, the phase-2 combines).
 
@@ -3133,6 +3145,34 @@ def phase_k3_timing(sess, launches, sources, frontier0, device,
     return row, detail
 
 
+def k5_device_ms(events) -> tuple[float, float]:
+    """K5's calls in a trace: (the time some K5 kernel is on the card,
+    overlaps counted once; the sum over calls of the span from the start
+    of a call's ``chunk_sums`` to the end of its last ``fold_level``, which
+    also holds the gaps where the card waits for the host's launches)."""
+    from torch.autograd import DeviceType
+
+    mine = sorted(((e.time_range.start, e.time_range.end,
+                    "chunk_sums" in e.name) for e in events
+                   if e.device_type == DeviceType.CUDA and (
+                       "chunk_sums" in e.name or "fold_level" in e.name)))
+    busy = span = 0.0
+    lo = hi = first = None
+    for a, b, is_first in mine:
+        if hi is None or a > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        hi = max(hi, b)
+        if is_first:
+            span += 0.0 if first is None else last - first
+            first, last = a, b
+        last = max(last, b)
+    if hi is not None:
+        busy += hi - lo
+        span += last - first
+    return busy / 1e3, span / 1e3
+
+
 def trace(name: str, run) -> dict:
     """One ``torch.profiler`` trace of ``run()``: device time by kernel, the
     ``repro_torch.*`` ranges, and the device busy share of the wall time
@@ -3171,16 +3211,26 @@ def trace(name: str, run) -> dict:
                    and not e.key.startswith("repro_torch.")),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    # K5's level kernels start early (programmatic launch) and wait, so
+    # its kernels' durations overlap: count that time once
+    k5_kernel_ms = sum(r[1] for r in rows
+                       if "chunk_sums" in r[0] or "fold_level" in r[0])
+    k5_ms, k5_span = k5_device_ms(prof.events()) if k5_kernel_ms else (
+        0.0, 0.0)
+    busy_ms -= k5_kernel_ms - k5_ms
     # K1's, K2's, K4's and K5's device time and their share of the busy
     # and wall time
     shares = {}
-    for label, frag in (("K1", "tables_kernel"), ("K2", "scan_pass"),
-                        ("K4", "flash_fwd"), ("K5", "segment_sum_rows")):
-        ms = sum(r[1] for r in rows if frag in r[0])
+    for label, frags in (("K1", ("tables_kernel",)), ("K2", ("scan_pass",)),
+                         ("K4", ("flash_fwd",)),
+                         ("K5", ("chunk_sums", "fold_level"))):
+        mine = [r for r in rows if any(f in r[0] for f in frags)]
+        ms = k5_ms if label == "K5" else sum(r[1] for r in mine)
         shares[label] = {"device_ms": ms,
-                         "launches": sum(r[2] for r in rows if frag in r[0]),
+                         "launches": sum(r[2] for r in mine),
                          "share_of_busy": ms / busy_ms if busy_ms else 0.0,
                          "share_of_wall": ms / (wall * 1e3)}
+    shares["K5"].update(kernel_ms=k5_kernel_ms, span_ms=k5_span)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / f"profile_{name}.txt").write_text(avg.table(
         sort_by="self_cuda_time_total", row_limit=40))
@@ -3482,9 +3532,76 @@ def k5_inputs(n: int, device, f: int = 128):
     return values, torch.from_numpy(dst).to(device), n
 
 
+K5_SOURCE = "src/repro_torch/kernels/segment_reduce/csrc/segment_sum_sorted.cu"
+K5_REPLACES = "src/repro/kernels/segment_reduce/kernel.py:59"
+K5_REPEATS = 5
+
+
+def same_tensor_bits(a, b) -> bool:
+    """Equal bit for bit (bf16 or f32 tensors of one shape)."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        torch.equal(a.view(view), b.view(view))
+
+
+def k5_row(name, values, ids, n, launches, device, reps) -> dict:
+    """K5 over ``ids`` sorted by ``ops.sort_ids`` (the models' and
+    ``segment_sum``'s sort): the kernel on the presorted values and with
+    the gather fused (``order``, the main path's call), each bitwise its
+    plain version, and ``K5_REPEATS`` more launches of each bitwise the
+    first; both timed beside the plain version and ``index_add_`` on the
+    unsorted stream.  ``ms`` and ``bound_ms`` are the presorted call's
+    (values, ``offsets`` and the output once); ``gather_ms`` and
+    ``gather_bound_ms`` the fused call's (``order`` too)."""
+    from repro_torch.kernels.segment_reduce import kernel, ops, ref
+
+    s = ops.sort_ids(ids, n)
+    sv = values.index_select(0, s.order.long())
+
+    def presorted():
+        return kernel.segment_sum_sorted(sv, s.sorted_ids, n,
+                                         offsets=s.offsets)
+
+    def fused():
+        return kernel.segment_sum_sorted(values, s.sorted_ids, n,
+                                         order=s.order, offsets=s.offsets)
+
+    def plain():
+        return ref.segment_sum_sorted_ref(sv, s.sorted_ids, n,
+                                          offsets=s.offsets)
+
+    want, got, got_fused = plain(), presorted(), fused()
+    repeats = all(same_tensor_bits(presorted(), got) and
+                  same_tensor_bits(fused(), got)
+                  for _ in range(K5_REPEATS))
+    sync(device)
+    check(same_tensor_bits(got, want) and same_tensor_bits(got_fused, want),
+          f"{name}: K5 is not bitwise its plain version "
+          f"(max abs {float((got.float() - want.float()).abs().max())}, "
+          f"fused {float((got_fused.float() - want.float()).abs().max())})")
+    check(repeats, f"{name}: repeated K5 launches differ")
+    clock = Clock(device)
+    k_ms = clock.ms(presorted, reps)
+    g_ms = clock.ms(fused, reps)
+    p_ms = clock.ms(plain, max(2, reps // 10), warmup=1)
+    e, f = values.shape
+    lib = torch.zeros((n, f), dtype=values.dtype, device=device)
+    il = ids.long()
+    lib_ms = clock.ms(lambda: lib.index_add_(0, il, values), reps)
+    b = values.element_size()
+    nbytes = e * f * b + 4 * (n + 1) + n * f * b
+    row = kernel_row(name, K5_SOURCE, K5_REPLACES, launches, 0.0, k_ms, p_ms,
+                     nbytes, e * f, lib_ms)
+    row.update(dtype=str(values.dtype).replace("torch.", ""),
+               bitwise=True, repeats=K5_REPEATS, gather_ms=g_ms,
+               gather_bound_ms=(nbytes + 4 * e) / PEAK_BYTES_PER_S * 1e3)
+    return row
+
+
 def phase_k5(args, device, reps: int) -> dict:
-    """K5: its entry point ``segment_sum`` once (launches counted), the
-    kernel against its plain version on the sorted stream, and timings."""
+    """K5: its entry point ``segment_sum`` once (launches counted, against
+    ``index_add_`` within 1e-5 of the segments' sums of |values|), then the
+    kernel bitwise its plain version and timed (``k5_row``)."""
     from repro_torch.kernels.segment_reduce import kernel, ops, ref
 
     values, ids, n = k5_inputs(args.k5_n, device)
@@ -3498,42 +3615,19 @@ def phase_k5(args, device, reps: int) -> dict:
         check(launches > 0, "K5 was not launched by segment_sum")
     check(out.shape == (n, f) and bool(torch.isfinite(out).all()),
           "segment_sum output is not finite [N, F]")
-    order = torch.argsort(ids, stable=True)
-    pad = (-e) % kernel.BLOCK_E
-    sv = torch.nn.functional.pad(values[order], (0, 0, 0, pad))
-    si = torch.nn.functional.pad(ids[order].to(torch.int32), (0, pad),
-                                 value=-1)
-    got = kernel.segment_sum_sorted(sv, si, n)
-    want = ref.segment_sum_sorted_ref(sv, si, n)
-    # a segment's partials from k blocks meet in the atomics' order:
-    # within (k - 1) ulps of its sum of |values| (here 1e-6 relative)
     mag = ref.segment_sum_ref(values.abs(), ids, n)
     lib = torch.zeros((n, f), dtype=torch.float32, device=device)
     lib.index_add_(0, ids.long(), values)
     sync(device)
-    err = float((got - want).abs().max())
-    check(bool(((got - want).abs() <= 1e-6 * mag + 1e-30).all()),
-          f"K5 differs from its plain version beyond 1e-6 of the segments' "
-          f"|sum| (max abs {err})")
     check(bool(((out - lib).abs() <= 1e-5 * mag + 1e-30).all()),
           "segment_sum differs from index_add_")
-    clock = Clock(device)
-    kernel.reset_launches()
-    k_ms = clock.ms(lambda: kernel.segment_sum_sorted(sv, si, n), reps)
-    p_ms = clock.ms(lambda: ref.segment_sum_sorted_ref(sv, si, n),
-                    max(2, reps // 10), warmup=1)
-    il = ids.long()                   # the unsorted stream, as a user has it
-    lib_ms = clock.ms(lambda: lib.index_add_(0, il, values), reps)
-    nbytes = e * f * 4 + e * 4 + n * f * 4
-    row = kernel_row(
-        "segment_sum_sorted", "src/repro_torch/kernels/segment_reduce/csrc/"
-        "segment_sum_sorted.cu",
-        "src/repro/kernels/segment_reduce/kernel.py:59", launches, err,
-        k_ms, p_ms, nbytes, e * f, lib_ms)
+    row = k5_row("segment_sum_sorted", values, ids.to(torch.int32), n,
+                 launches, device, reps)
     emit({"phase": "k5", "graph": "scale_free", "n": n, "edges": e, "f": f,
-          "max_abs_err": err, **{k: row[k] for k in (
-              "launches", "ms", "plain_ms", "bound_ms", "bound_by",
-              "library_ms")}})
+          **{k: row[k] for k in (
+              "max_abs_err", "launches", "ms", "plain_ms", "bound_ms",
+              "bound_by", "library_ms", "gather_ms", "gather_bound_ms",
+              "repeats")}})
     return row
 
 
@@ -4637,9 +4731,48 @@ def plain_segment_sums():
         common.segment_sum_sorted_by = saved
 
 
+@contextlib.contextmanager
+def k5_shapes(book: dict):
+    """Book the GNN segment sums by shape while they run: ``book`` maps
+    (E, F, N, dtype) to [K5 launches, the ids of the first call].  The
+    launches are read from K5's own counter around each
+    ``segment_sum_sorted_by`` call; the CPU rehearsal's plain sums book
+    their shape with no launch (K5 runs only on the card)."""
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.models.gnn import common
+
+    saved = common.segment_sum_sorted_by, common.segment_sum_plain
+
+    def note(flat, ids, n, launches):
+        key = (flat.shape[0], flat.shape[1], n,
+               str(flat.dtype).replace("torch.", ""))
+        book.setdefault(key, [0, ids.clone()])[0] += launches
+
+    def sorted_by(flat, s):
+        before = k5.LAUNCHES["segment_sum_sorted"]
+        out = saved[0](flat, s)
+        note(flat, s.ids, s.num_segments,
+             k5.LAUNCHES["segment_sum_sorted"] - before)
+        return out
+
+    def plain(flat, ids, n):
+        if not flat.is_cuda:
+            note(flat, ids, n, 0)
+        return saved[1](flat, ids, n)
+
+    common.segment_sum_sorted_by, common.segment_sum_plain = sorted_by, plain
+    try:
+        yield book
+    finally:
+        common.segment_sum_sorted_by, common.segment_sum_plain = saved
+
+
 def gnn_check(arch, cell, batch, seed: int, device) -> dict:
-    """3 adamw steps of ``arch`` at 2 layers in float32 on the run's batch
-    with K5, then the same 3 steps from the same weights on the plain
+    """``arch`` at 2 layers in float32 on the run's batch: the forward
+    pass (``apply``) and the loss twice at the same weights, bitwise equal;
+    then 3 adamw steps with K5, run twice from the same weights (whether
+    the losses and grad norms repeat bitwise is reported: the backward's
+    own scatters may use atomics), and the same 3 steps on the plain
     segment sum: the losses within ``GNN_CHECK_RTOL``."""
     from repro_torch.kernels.segment_reduce import kernel as k5
     from repro_torch.launch import steps
@@ -4647,8 +4780,21 @@ def gnn_check(arch, cell, batch, seed: int, device) -> dict:
 
     cfg = dataclasses.replace(cell.config, n_layers=2, dtype=torch.float32)
     model = steps._GNN_MODELS[arch]
-    out = {}
+    params = model.init_params(cfg, seed=seed, device=device)
+    k5.reset_launches()
+    with torch.no_grad():
+        fwd = [model.apply(params, batch, cfg) for _ in range(2)]
+        loss = [model.loss_fn(params, batch, cfg) for _ in range(2)]
+    sync(device)
+    out = {"forward_bitwise": same_tensor_bits(*fwd) and
+           same_tensor_bits(*loss),
+           "forward_k5_launches": k5.LAUNCHES["segment_sum_sorted"]}
+    check(out["forward_bitwise"] and bool(torch.isfinite(loss[0])),
+          f"5f {arch}: two float32 forward passes on K5 differ "
+          f"(loss {float(loss[0])!r} vs {float(loss[1])!r})")
+    del params, fwd, loss
     for tag, ctx in (("k5", contextlib.nullcontext),
+                     ("k5_again", contextlib.nullcontext),
                      ("plain", plain_segment_sums)):
         opt = adamw(lr=1e-3, weight_decay=1e-5)
         step = steps._make_train_step(
@@ -4656,13 +4802,17 @@ def gnn_check(arch, cell, batch, seed: int, device) -> dict:
         params = model.init_params(cfg, seed=seed, device=device)
         state = opt.init(params.tree())
         k5.reset_launches()
-        losses = []
+        losses, norms = [], []
         with ctx():
             for i in range(GNN_CHECK_STEPS):
                 params, state, m = step(params, state, i, batch)
                 losses.append(float(m["loss"]))
-        out[tag] = {"losses": losses,
+                norms.append(float(m["grad_norm"]))
+        out[tag] = {"losses": losses, "grad_norms": norms,
                     "k5_launches": k5.LAUNCHES["segment_sum_sorted"]}
+    out["steps_bitwise"] = {
+        k: out["k5"][k] == out["k5_again"][k]
+        for k in ("losses", "grad_norms")}
     rel = max(abs(a - b) / max(abs(b), 1e-30)
               for a, b in zip(out["k5"]["losses"], out["plain"]["losses"]))
     out["max_rel_diff"] = rel
@@ -4670,6 +4820,7 @@ def gnn_check(arch, cell, batch, seed: int, device) -> dict:
           f"5f {arch}: K5 losses against plain {out}")
     if device.type == "cuda":
         check(out["k5"]["k5_launches"] > 0 and
+              out["forward_k5_launches"] > 0 and
               out["plain"]["k5_launches"] == 0,
               f"5f {arch}: K5 launches {out}")
     return out
@@ -4677,38 +4828,22 @@ def gnn_check(arch, cell, batch, seed: int, device) -> dict:
 
 def k5_gnn_row(batch, launches: int, device, reps: int) -> tuple:
     """K5 at gatedgcn minibatch_lg's aggregation: values [E, 70] f32 over
-    the batch's receivers (masked edges to the spare segment n), sorted;
-    against its plain version, timed beside ``index_add_``.  Also the
-    helper as the models call it (``common.segment_sum``: the sort, the
-    gather in its order and K5; given ``common.segments``: the gather and
-    K5) beside its plain version (``segment_sum_plain``)."""
-    from repro_torch.kernels.segment_reduce import kernel, ref
+    the batch's receivers (masked edges to the spare segment n), through
+    ``k5_row``.  Also the helper as the models call it
+    (``common.segment_sum``: the sort and K5 with the gather fused; given
+    ``common.segments``: K5 alone) beside its plain version
+    (``segment_sum_plain``)."""
     from repro_torch.models.gnn import common
 
     n, e = batch.n_nodes, batch.receivers.shape[0]
     ids = torch.where(batch.edge_mask, batch.receivers, n)
     g = torch.Generator(device=device).manual_seed(70)
     values = torch.randn((e, 70), generator=g, device=device)
+    row = k5_row(f"segment_sum_sorted (gatedgcn minibatch_lg: [{e}, 70] "
+                 f"into {n + 1})", values, ids.to(torch.int32), n + 1,
+                 launches, device, reps)
     seg = common.segments(ids, n + 1)
-    order = torch.argsort(ids, stable=True)
-    pad = (-e) % kernel.BLOCK_E
-    sv = torch.nn.functional.pad(values[order], (0, 0, 0, pad))
-    si = torch.nn.functional.pad(ids[order].to(torch.int32), (0, pad),
-                                 value=-1)
-    got = kernel.segment_sum_sorted(sv, si, n + 1)
-    want = ref.segment_sum_sorted_ref(sv, si, n + 1)
-    mag = ref.segment_sum_ref(values.abs(), ids.to(torch.int32), n + 1)
-    sync(device)
-    err = float((got - want).abs().max())
-    check(bool(((got - want).abs() <= 1e-6 * mag + 1e-30).all()),
-          f"K5 at the GNN shape differs from its plain version ({err})")
     clock = Clock(device)
-    k_ms = clock.ms(lambda: kernel.segment_sum_sorted(sv, si, n + 1), reps)
-    p_ms = clock.ms(lambda: ref.segment_sum_sorted_ref(sv, si, n + 1),
-                    max(2, reps // 10), warmup=1)
-    lib = torch.zeros((n + 1, 70), device=device)
-    il = ids.long()
-    lib_ms = clock.ms(lambda: lib.index_add_(0, il, values), reps)
     helper = {
         "sort_gather_k5_ms": clock.ms(
             lambda: common.segment_sum(values, ids, n + 1), reps),
@@ -4717,14 +4852,46 @@ def k5_gnn_row(batch, launches: int, device, reps: int) -> tuple:
         "sort_ms": clock.ms(lambda: common.segments(ids, n + 1), reps),
         "plain_ms": clock.ms(
             lambda: common.segment_sum_plain(values, ids, n + 1), reps)}
-    f = 70
-    nbytes = e * f * 4 + e * 4 + (n + 1) * f * 4
-    return kernel_row(
-        f"segment_sum_sorted (gatedgcn minibatch_lg: [{e}, {f}] into "
-        f"{n + 1})", "src/repro_torch/kernels/segment_reduce/csrc/"
-        "segment_sum_sorted.cu",
-        "src/repro/kernels/segment_reduce/kernel.py:59", launches, err,
-        k_ms, p_ms, nbytes, e * f, lib_ms), helper
+    return row, helper
+
+
+# phase 5f's other K5 rows, each the shape of that width and dtype that
+# the run gave K5 most often: meshgraphnet and mace (bf16) on the block;
+# and the graph pool (F = 1) with the fewest segments in any run (mace's
+# one-graph pool of the block: every node into one segment)
+GNN_K5_ROWS = ((("meshgraphnet", "minibatch_lg"), 128, "float32"),
+               (("mace", "minibatch_lg"), 640, "bfloat16"),
+               (None, 1, "float32"))
+
+
+def k5_gnn_shape_rows(books: dict, device, reps: int) -> list:
+    """``GNN_K5_ROWS`` through ``k5_row``, each on the ids its run gave K5
+    at that shape and seeded random values; launches: phase 5f's K5
+    launches at that exact shape, all runs together.  On the CPU rehearsal
+    (smoke widths, no K5) a shape of the run of any width stands in."""
+    rows = []
+    for run, f, dtype in GNN_K5_ROWS:
+        found = [(r, k) for r, book in books.items() if run in (None, r)
+                 for k in book if (k[1], k[3]) == (f, dtype)]
+        if device.type != "cuda" and not found:
+            found = [(r, k) for r, book in books.items() if run in (None, r)
+                     for k in book]
+        check(bool(found), f"5f {run}: no K5 call at F = {f} {dtype}")
+        if run is None:                     # the pool: fewest segments
+            r, key = min(found, key=lambda rk: (rk[1][2], -rk[1][0]))
+        else:
+            r, key = max(found, key=lambda rk: books[rk[0]][rk[1]][0])
+        e, f_, n, dt = key
+        ids = books[r][key][1].to(torch.int32)
+        g = torch.Generator(device=device).manual_seed(f_)
+        values = torch.randn((e, f_), generator=g, device=device).to(
+            getattr(torch, dt))
+        launches = sum(b[key][0] for b in books.values() if key in b)
+        name = (f"segment_sum_sorted ({r[0]} {r[1]}"
+                f"{' pool' if run is None else ''}: [{e}, {f_}] {dt} into "
+                f"{n})")
+        rows.append(k5_row(name, values, ids, n, launches, device, reps))
+    return rows
 
 
 def gnn_main_run(args, root) -> dict:
@@ -4778,9 +4945,9 @@ def phase_gnn(args, device, reps: int) -> tuple[dict, dict]:
     (counted a step); median step seconds and peak bytes a run.  Then
     ``launch.train.main`` for equiformer-v2 on molecule
     (``gnn_main_run``), each
-    architecture's K5-against-plain check (``gnn_check``) and K5 timed at
-    gatedgcn minibatch_lg's aggregation (its kernels-line row: launches the
-    runs' and the launcher's K5 launches)."""
+    architecture's K5 checks (``gnn_check``) and K5 timed at gatedgcn
+    minibatch_lg's aggregation (its kernels-line row: launches the runs'
+    and the launcher's K5 launches) and at ``GNN_K5_ROWS``."""
     import itertools
     import shutil
     from concurrent.futures import ThreadPoolExecutor
@@ -4794,7 +4961,7 @@ def phase_gnn(args, device, reps: int) -> tuple[dict, dict]:
     pool = ThreadPoolExecutor(1)
     pending = pool.submit(reddit_block, args)
     block = graph_rep = None
-    runs, batches = [], {}
+    runs, batches, books = [], {}, {}
     ckpt_root = OUT_DIR / "gnn"
     try:
         for i, (arch, shape_name) in enumerate(GNN_RUNS):
@@ -4828,10 +4995,11 @@ def phase_gnn(args, device, reps: int) -> tuple[dict, dict]:
             params = cell.init_params(args.seed)
             opt_state = cell.init_opt(params)
             k5.reset_launches()
-            params, opt_state, _ = train_loop(
-                cell.step, params, opt_state, itertools.chain([batch], data),
-                GNN_STEPS, str(ckpt), ckpt_every=GNN_STEPS,
-                on_metrics=on_metrics)
+            with k5_shapes(books.setdefault((arch, shape_name), {})):
+                params, opt_state, _ = train_loop(
+                    cell.step, params, opt_state,
+                    itertools.chain([batch], data), GNN_STEPS, str(ckpt),
+                    ckpt_every=GNN_STEPS, on_metrics=on_metrics)
             if args.profile and device.type == "cuda":
                 emit(trace(f"gnn_{arch}_{shape_name}", lambda: cell.step(
                     params, opt_state, GNN_STEPS, batch)))
@@ -4861,6 +5029,10 @@ def phase_gnn(args, device, reps: int) -> tuple[dict, dict]:
                 check(all(r["k5_launches"] > 0 for r in rows),
                       f"5f {arch} {shape_name}: K5 was not launched every "
                       f"step: {[r['k5_launches'] for r in rows]}")
+                booked = sum(c[0] for c in books[(arch, shape_name)].values())
+                check(booked == sum(run["k5_launches_per_step"]),
+                      f"5f {arch} {shape_name}: {booked} K5 launches booked "
+                      f"by shape, {run['k5_launches_per_step']} counted")
             if shape_name == "minibatch_lg" and arch == "gatedgcn":
                 row_batch = batch
             del params, opt_state, batch, data
@@ -4877,10 +5049,19 @@ def phase_gnn(args, device, reps: int) -> tuple[dict, dict]:
     launches = sum(sum(r["k5_launches_per_step"]) for r in runs) + \
         main_run["k5_launches"]
     row, helper = k5_gnn_row(row_batch, launches, device, reps)
+    shape_rows = k5_gnn_shape_rows(books, device, reps)
+    for r in (row, *shape_rows):
+        emit({"phase": "gnn_k5", **{k: r[k] for k in (
+            "name", "dtype", "launches", "ms", "bound_ms", "gather_ms",
+            "gather_bound_ms", "plain_ms", "library_ms", "bitwise")}})
     rep = {"phase": "gnn", "graph": graph_rep, "runs": runs,
            "main_run": main_run, "checks": checks,
            "check_rtol": GNN_CHECK_RTOL, "k5_launches": launches,
-           "segment_sum_helper": helper,
+           "segment_sum_helper": helper, "k5_rows": shape_rows,
+           "k5_calls_by_shape": {
+               f"{a} {sh}": {f"[{e}, {f}] {dt} into {n}": c[0]
+                             for (e, f, n, dt), c in b.items()}
+               for (a, sh), b in books.items()},
            "seconds": time.perf_counter() - t0,
            **{k: row[k] for k in ("name", "max_abs_err", "ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms")}}

@@ -5,7 +5,8 @@ Layout: ``csrc/segment_sum_sorted.cu`` (the CUDA kernel), kernel.py (its
 ctypes wrapper and launch counter), ref.py (the plain PyTorch versions),
 ops.py (the public ``segment_sum`` / ``segment_sum_presorted`` /
 ``segment_sum_sorted_by`` with their row-gather gradient, and
-``sort_ids``, which sorts ids once for several sums).
+``sort_ids``, which sorts ids and makes their row pointer once for
+several sums).
 """
 
 from .ops import (SortedIds, segment_sum, segment_sum_presorted,

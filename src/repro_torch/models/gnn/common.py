@@ -5,8 +5,9 @@ Message passing is the diffusive pattern (DESIGN.md §3): gather sender
 state, per-edge compute, segment-reduce at receivers.  Every segment sum of
 the GNN models goes through :func:`segment_sum`, which dispatches by
 device: CUDA tensors run K5 (``kernels/segment_reduce``: a stable sort by
-id, a row gather in that order, the hand-written sorted segment sum, a
-row-gather gradient), CPU tensors the plain ``index_add``.  Several sums
+id and its row pointer, the hand-written sorted segment sum reading the
+rows in that order, a row-gather gradient), CPU tensors the plain
+``index_add``.  Several sums
 over the same ids share one sort: :func:`segments` makes it, and
 :func:`segment_sum` takes it in place of the ids.  There is no fallback: a
 K5 that does not build or launch raises.  ``segment_max`` is plain PyTorch
@@ -242,8 +243,9 @@ def segment_sum(values, ids, num_segments: int | None = None):
     """``jax.ops.segment_sum``: values [E, ...] summed by ``ids`` [E] into
     [num_segments, ...]; ``ids`` may be a :class:`Segments` (then no
     ``num_segments``).  CUDA tensors run K5 on the rows flattened to [E, F]
-    (in float32, cast back to values' dtype; ids outside [0, num_segments)
-    dropped); CPU tensors take :func:`segment_sum_plain`."""
+    (float32 or bfloat16, summed in float32, returned in values' dtype; ids
+    outside [0, num_segments) dropped; a flattening that cannot be a view
+    copies here); CPU tensors take :func:`segment_sum_plain`."""
     seg = ids if isinstance(ids, Segments) else segments(ids, num_segments)
     flat = values.reshape(values.shape[0], -1)
     if seg.sorted is None:

@@ -5,11 +5,12 @@ Run on a machine with the card (no JAX needed):
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain version on the same CUDA inputs —
-K1-K3 and K6 bitwise (K1's tables against the plain partials + phase 2,
-also on hub runs and repeated keys over five launches; K3 at compaction
-caps with fill slots, K2 in both
+K1-K3, K5 and K6 bitwise (K1's tables against the plain partials + phase
+2, also on hub runs and repeated keys over five launches; K3 at
+compaction caps with fill slots, K2 in both
 input modes for every builtin's instance, solo and with 4 or 5 lanes on 4
-cells), K4 and K5 within the tolerances stated at their tests — the
+cells; K5 in f32 and bf16, with the gather fused, over five launches), K4
+within the tolerance stated at its tests — the
 session on the card (pull, push and auto sweeps, and a commit's repairs)
 against the session on the CPU, and the LM's prefill and decode on the
 card against the CPU, and the same for a hub-split session, the triangle
@@ -568,27 +569,83 @@ def test_k4_kernel_kv_len_and_dead_rows(cuda):
                            v[..., :32].contiguous())
 
 
-@pytest.mark.parametrize("e,f,n", [(4096, 128, 300), (1000, 7, 5000),
-                                   (128 * 40, 16, 3)])
-def test_k5_kernel_matches_plain(cuda, e, f, n):
-    """Equal where a segment has at most two blocks' partials; else within
-    (k - 1) ulps of the sum of |values| (atomics' order)."""
-    from repro_torch.kernels.segment_reduce import kernel as k5, ops as o5
+def _k5_bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
-    g = torch.Generator(device="cpu").manual_seed(e)
-    ids = torch.sort(torch.randint(-1, n, (e,), generator=g,
-                                   dtype=torch.int32)).values.to(cuda)
-    vals = torch.randn((e, f), generator=g).to(cuda)
-    pad = (-e) % 128
-    ids_p = torch.nn.functional.pad(ids, (0, pad), value=-1)
-    vals_p = torch.nn.functional.pad(vals, (0, 0, 0, pad))
+
+@pytest.mark.parametrize("f", [1, 70, 128, 640])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_kernel_matches_plain(cuda, dtype, f):
+    """Bitwise its plain version (the fixed order: row-order groups of
+    ``CHUNK`` rows, their sums grouped and folded again, one rounding) on
+    a sorted stream with -1 first, empty segments, a hub of three groups
+    and 5 rows, one of more than ``CHUNK**2`` rows (three levels), and ids
+    >= N last: on the presorted values, with the gather fused (``order``),
+    and on rows with a stride (one column at a time); five repeated
+    launches give equal bits; one launch counted a call."""
+    from repro_torch.kernels.segment_reduce import kernel as k5
+
+    g = torch.Generator(device="cpu").manual_seed(f)
+    n = 3000
+    lens = torch.randint(0, 4, (n,), generator=g)
+    lens[1234] = 3 * k5.CHUNK + 5
+    lens[2000] = k5.CHUNK ** 2 + 3 * k5.CHUNK + 1
+    ids = torch.cat([torch.full((7,), -1),
+                     torch.repeat_interleave(torch.arange(n), lens),
+                     torch.full((9,), n + 5)]).to(torch.int32)
+    e = ids.shape[0]
+    vals = torch.randn((e, f), generator=g).to(dtype)
+    perm = torch.randperm(e, generator=g)
+    shuffled = torch.empty_like(vals)
+    shuffled[perm] = vals
+    wide = torch.zeros((e, f + 2), dtype=dtype)
+    wide[:, 1:f + 1] = vals
+    ids, vals, perm, shuffled, wide = (
+        t.to(cuda) for t in (ids, vals, perm.to(torch.int32), shuffled,
+                             wide))
+    want = k5.ref.segment_sum_sorted_ref(vals, ids, n)
     n0 = k5.LAUNCHES["segment_sum_sorted"]
-    got = k5.segment_sum_sorted(vals_p, ids_p, n)
+    got = k5.segment_sum_sorted(vals, ids, n)
     assert k5.LAUNCHES["segment_sum_sorted"] == n0 + 1
-    want = k5.ref.segment_sum_sorted_ref(vals_p, ids_p, n)
-    mag = o5.segment_sum(vals.abs(), ids, n)
+    fused = k5.segment_sum_sorted(shuffled, ids, n, order=perm)
+    strided = k5.segment_sum_sorted(wide[:, 1:f + 1], ids, n)
     torch.cuda.synchronize()
-    assert bool(((got - want).abs() <= 1e-6 * mag + 1e-30).all())
+    assert got.dtype == dtype and got.shape == (n, f)
+    for out in (got, fused, strided):
+        assert torch.equal(_k5_bits(out), _k5_bits(want))
+    for _ in range(5):
+        assert torch.equal(_k5_bits(k5.segment_sum_sorted(vals, ids, n)),
+                           _k5_bits(got))
+    oracle = k5.ref.segment_sum_ref(vals.float(), ids, n)
+    mag = k5.ref.segment_sum_ref(vals.float().abs(), ids, n)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    assert bool(((got.float() - oracle).abs() <= tol * mag + 1e-30).all())
+
+
+def test_k5_edge_shapes(cuda):
+    """N = 0 launches nothing; E = 0 writes zeros to every segment (the
+    output is not zeroed before); F = 1 over one segment of 169,984 rows
+    (the one-graph pool of a sampled block: three levels) is bitwise its
+    plain version."""
+    from repro_torch.kernels.segment_reduce import kernel as k5
+
+    n0 = k5.LAUNCHES["segment_sum_sorted"]
+    ids = torch.tensor([-1, 0, 2], dtype=torch.int32, device=cuda)
+    assert k5.segment_sum_sorted(torch.ones((3, 4), device=cuda), ids,
+                                 0).shape == (0, 4)
+    assert k5.LAUNCHES["segment_sum_sorted"] == n0
+    torch.full((1 << 20,), float("nan"), device=cuda)   # dirty the pool
+    empty = k5.segment_sum_sorted(
+        torch.zeros((0, 70), dtype=torch.bfloat16, device=cuda),
+        torch.zeros((0,), dtype=torch.int32, device=cuda), 5)
+    torch.cuda.synchronize()
+    assert empty.shape == (5, 70) and not _k5_bits(empty).any()
+    g = torch.Generator(device="cpu").manual_seed(3)
+    pool = torch.randn((169984, 1), generator=g).to(cuda)
+    one = torch.zeros((169984,), dtype=torch.int32, device=cuda)
+    got = k5.segment_sum_sorted(pool, one, 1)
+    want = k5.ref.segment_sum_sorted_ref(pool, one, 1)
+    assert torch.equal(_k5_bits(got), _k5_bits(want))
 
 
 @pytest.mark.parametrize("shape,n", [((5000, 70), 1201), ((3000, 5, 8), 77),
@@ -597,7 +654,8 @@ def test_k5_kernel_matches_plain(cuda, e, f, n):
 def test_gnn_segment_sum_on_k5_matches_plain(cuda, shape, n):
     """The GNN models' ``segment_sum`` on CUDA tensors runs K5 (one launch)
     and equals its plain version (``index_add``) on the same tensors
-    within 1e-5 of the segments' sums of |values| (float atomics in both);
+    within 1e-5 of the segments' sums of |values| (``index_add``'s float
+    atomics, another order);
     its gradient, a row gather, equals the plain one bitwise, the spare
     segment n (masked edges) included, as the models use it."""
     from repro_torch.kernels.segment_reduce import kernel as k5
@@ -629,30 +687,51 @@ def test_gnn_segment_sum_on_k5_matches_plain(cuda, shape, n):
 
 def test_gnn_segments_sorted_once_serve_several_sums_on_k5(cuda):
     """``common.segments`` sorts the ids once on the card; each sum over it
-    is one K5 launch; it and the sum that sorts for itself equal the plain
-    version within 1e-5 of the segments' sums of |values| (float atomics);
-    both gradients are the row gather, bitwise."""
+    is one K5 launch that reads the values where they lie: no
+    ``index_select``, cast, pad or copy of them; it equals the sum that
+    sorts for itself bitwise, and the plain version (``index_add``) within
+    1e-5 of the segments' sums of |values| (``index_add``'s atomics); both
+    gradients are the row gather, bitwise."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
     from repro_torch.kernels.segment_reduce import kernel as k5
     from repro_torch.models.gnn import common
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.add(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
 
     n, e = 1201, 5000
     g = torch.Generator(device="cpu").manual_seed(5)
     ids = torch.randint(0, n + 1, (e,), generator=g).to(cuda)
     seg = common.segments(ids, n + 1)
     assert seg.sorted is not None
-    for f in (70, 9):
-        vals = torch.randn((e, f), generator=g).to(cuda)
+    for f, dtype in ((70, torch.float32), (9, torch.float32),
+                     (640, torch.bfloat16)):
+        vals = torch.randn((e, f), generator=g).to(cuda, dtype)
         v1 = vals.clone().requires_grad_(True)
         v2 = vals.clone().requires_grad_(True)
         n0 = k5.LAUNCHES["segment_sum_sorted"]
-        got = common.segment_sum(v1, seg)
+        with Ops() as seen:
+            got = common.segment_sum(v1, seg)
         assert k5.LAUNCHES["segment_sum_sorted"] == n0 + 1
+        assert not seen.names & {"aten.index_select", "aten.index",
+                                 "aten._to_copy", "aten.constant_pad_nd",
+                                 "aten.copy_", "aten.clone", "aten.zeros",
+                                 "aten.zero_", "aten.fill_"}, seen.names
         own = common.segment_sum(v2, ids, n + 1)
-        want = common.segment_sum_plain(vals, ids, n + 1)
-        mag = common.segment_sum_plain(vals.abs(), ids, n + 1)
-        assert bool(((got - want).abs() <= 1e-5 * mag + 1e-30).all())
-        assert bool(((own - want).abs() <= 1e-5 * mag + 1e-30).all())
-        co = torch.randn((n + 1, f), generator=g).to(cuda)
+        assert got.dtype == dtype
+        assert torch.equal(_k5_bits(got), _k5_bits(own))
+        want = common.segment_sum_plain(vals.float(), ids, n + 1)
+        mag = common.segment_sum_plain(vals.float().abs(), ids, n + 1)
+        tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+        assert bool(((got.float() - want).abs() <= tol * mag + 1e-30).all())
+        co = torch.randn((n + 1, f), generator=g).to(cuda, dtype)
         (g1,) = torch.autograd.grad((got * co).sum(), (v1,))
         (g2,) = torch.autograd.grad((own * co).sum(), (v2,))
         assert torch.equal(g1, g2) and torch.equal(g1, co[ids])

@@ -15,7 +15,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 def _files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "chip_k1_ablation.py",
-                                         ROOT / "chip_k2_ablation.py"]
+                                         ROOT / "chip_k2_ablation.py",
+                                         ROOT / "chip_k5_ablation.py"]
 
 
 def _imports(path: Path):
