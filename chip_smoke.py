@@ -282,6 +282,35 @@ kernels line and the final result line):
    the fewest
    segments (F = 1; mace's one-graph pool of the block), each with its
    launches at that shape.
+5g. two-tower retrieval at its published widths (``phase_recsys``: two
+   2,000,000 x 256 float32 tables, tower MLPs 1024-512-256, seeded
+   weights) through ``launch.steps.build_cell`` and ``launch.train``'s
+   ``RecsysPipeline`` batches, K5's launches booked by shape (the bags'
+   forward reads a table, the tables' gradient the bags') over the main
+   path:
+   train_batch (65,536 x 8 fields x 16 slots, adamw 1e-3) 4 steps, step 0
+   cold (s a step, examples/s, peak bytes, 4 K5 launches a step; a plain
+   step along step 0's gradient lowers the loss on its batch, adamw's
+   first step's effect reported); serve_p99 (200 calls of 512
+   rows, median and p99 ms) and serve_bulk (262,144 rows, ms a call and
+   rows/s); retrieval_cand (one query against 1,000,448 candidates,
+   top-100: ms beside the candidates' bytes over 3.35 TB/s, the indices
+   equal a host ranking of the same scores); ``launch.train.main`` 3 steps
+   (its ~12.3 GB snapshot removed after); then 3 float32 steps at B 8,192
+   on K5 against the same on the plain bag (losses within 1e-4
+   relative), and K5 at train_batch's bag shape, forward and table
+   gradient, each bitwise its plain version and timed beside
+   ``F.embedding_bag(mode="sum")`` and its backward (two kernels-line
+   rows; launches: the main path's at that shape);
+5h. command-r-plus-104b at its published widths (d_model 12,288, 96 query
+   heads on 8 KV heads, d_ff 33,792, vocab 256,000, LayerNorm, the
+   parallel block, logit_scale 0.0625, tied embeddings) in bf16, cut to
+   20 of 64 layers, served as phase 5 serves tinyllama (4 x 1024-token
+   prompts, 32 decode steps; the step's bound its weights read once);
+   then float32 on 2 layers: prefill logits on K4 against the plain
+   attention, decode at p = 127 against a prefill over p + 1 (1e-3); then
+   K4 at its prefill shape (q [1, 96, 1024, 128], k/v 8 heads, bf16,
+   causal) held and timed beside SDPA (its kernels-line row).
 
 With ``--profile``, each trace also gives K1's, K2's, K4's and K5's
 device time and their share of the busy and the wall time (K5's level
@@ -291,8 +320,8 @@ the engine's ``repro_torch.*`` ranges (relax, outbox_merge, receive,
 counters, poll, exchange, the phase-2 combines).
 
 With ``--cpu-rehearsal`` the same phases run on the CPU on the kernels'
-plain versions at tiny sizes (the serving phases, 4h, 5e and 5f on the
-smoke configs and shapes).
+plain versions at tiny sizes (the serving phases, 4h, 5e-5h on the smoke
+configs and shapes).
 Any failed check raises, so the script exits nonzero and prints no result.
 Without a CUDA device it exits 2 before doing anything.
 """
@@ -5070,6 +5099,631 @@ def phase_gnn(args, device, reps: int) -> tuple[dict, dict]:
 
 
 # --------------------------------------------------------------------------
+# phase 5g: two-tower retrieval at full width
+# --------------------------------------------------------------------------
+
+RECSYS_ARCH = "two-tower-retrieval"
+RECSYS_STEPS = 4
+# the float32 check: 3 steps on K5 and 3 on the plain bag, at a batch
+# whose plain gather ([B, 8, 16, 256] f32, 1 GB) fits beside the state;
+# adamw moves an element whose gradient is rounding noise by up to 2 lr
+RECSYS_CHECK_BATCH, RECSYS_CHECK_STEPS, RECSYS_CHECK_RTOL = 8192, 3, 1e-4
+RECSYS_P99_CALLS, RECSYS_BULK_CALLS, RECSYS_QUERIES = 200, 5, 50
+RECSYS_MAIN_STEPS = 3
+# the descent probe: a plain step of this size along the step-0 gradient
+# (adamw's own first step, about lr * sign(g) on every touched table
+# element, raises the loss on its batch at this batch size, in the
+# reference too: ROADMAP queue 3)
+RECSYS_PROBE_LR = 1e-3
+# K5 against F.embedding_bag(mode="sum"): float32 sums of 16 rows in
+# another order, within 1e-5 of the sums of |rows|
+RECSYS_LIBRARY_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def recsys_k5_book(book: dict):
+    """Book the embedding bags' K5 launches while they run: ``book`` maps
+    (value rows, E, F, N, dtype) to launches, read from K5's own counter
+    around each of ``ops.gather_segment_sum``'s ``segment_sum_sorted``
+    calls: the forward reads a table ([V, F] into N bags), the table
+    gradient the output gradient ([N, F] into V rows)."""
+    from repro_torch.kernels.segment_reduce import kernel as k5, ops
+
+    saved = ops.segment_sum_sorted
+
+    def booked(values, sorted_ids, n, **kw):
+        before = k5.LAUNCHES["segment_sum_sorted"]
+        out = saved(values, sorted_ids, n, **kw)
+        key = (values.shape[0], sorted_ids.shape[0], values.shape[1], n,
+               str(values.dtype).replace("torch.", ""))
+        book[key] = book.get(key, 0) + \
+            k5.LAUNCHES["segment_sum_sorted"] - before
+        return out
+
+    ops.segment_sum_sorted = booked
+    try:
+        yield book
+    finally:
+        ops.segment_sum_sorted = saved
+
+
+@contextlib.contextmanager
+def plain_bags():
+    """The two-tower bags and lookups on their plain version (masked
+    gather + ``index_add``) on the card, for the K5-against-plain check."""
+    from repro_torch.kernels.segment_reduce import ops
+    from repro_torch.models import recsys
+
+    saved = recsys.gather_segment_sum
+    recsys.gather_segment_sum = ops.gather_segment_sum_plain
+    try:
+        yield
+    finally:
+        recsys.gather_segment_sum = saved
+
+
+def recsys_batch(cfg, b: int, seed: int, device, keys=None) -> dict:
+    """One ``RecsysPipeline`` batch of ``b`` rows (seed ``seed``) on the
+    device, restricted to ``keys``."""
+    from repro_torch.data.pipeline import RecsysPipeline
+
+    host = next(RecsysPipeline(b, cfg, seed=seed))
+    return {k: torch.from_numpy(v).to(device) for k, v in host.items()
+            if keys is None or k in keys}
+
+
+def k5_bag_rows(cfg, params, batch, launches: dict, device, reps) -> list:
+    """K5 at train_batch's bag shape, through the sorts the model's calls
+    make: the forward (the user table [V, D] read through the slots of
+    ``batch``'s user bags into B F bags) and the table gradient (a seeded
+    output gradient [B F, D] read through the slots sorted by table row
+    into V rows), each bitwise its plain version on the same arguments,
+    ``K5_REPEATS`` more launches bitwise the first, and timed beside the
+    plain version and the library: ``F.embedding_bag(mode="sum",
+    per_sample_weights=mask)`` (its output within ``RECSYS_LIBRARY_TOL``
+    of the sums of |rows|) and that call's own backward (autograd, the
+    dense table gradient).  Bytes: the distinct table rows the slots read
+    (this batch's), ``order``, ``offsets`` and the output once; for the
+    gradient the output gradient, ``order``, ``offsets`` and the [V, D]
+    gradient once.  ``launches``: phase 5g's K5 launches at each shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.segment_reduce import kernel, ops, ref
+
+    table = params["user_table"].detach()
+    ids = batch["user_ids"]
+    l_ = ids.shape[-1]
+    rows = ids.reshape(-1)
+    e, (vocab, d) = rows.shape[0], table.shape
+    n = e // l_
+    bags = torch.arange(e, dtype=torch.int32, device=device) // l_
+    keys = ops.slot_keys(rows, bags, n, vocab)
+    g = torch.Generator(device=device).manual_seed(25)
+    cot = torch.randn((n, d), generator=g, device=device)
+    mask = (ids.reshape(n, l_) >= 0).float()
+    lib_in = ids.reshape(n, l_).clamp(min=0).long()
+    leaf = table.clone().requires_grad_(True)
+    lib_out = F.embedding_bag(lib_in, leaf, mode="sum",
+                              per_sample_weights=mask)
+    distinct = int(torch.unique(rows[rows >= 0]).shape[0])
+    out = []
+    for direction, s, values, segs in (
+            ("bag", ops.bag_order(rows, keys, n), table, n),
+            ("table_grad", ops.table_order(rows, keys, n, vocab), cot,
+             vocab)):
+        def call():
+            return kernel.segment_sum_sorted(values, s.sorted_ids, segs,
+                                             order=s.order,
+                                             offsets=s.offsets)
+
+        def plain():
+            return ref.segment_sum_sorted_ref(values, s.sorted_ids, segs,
+                                              order=s.order,
+                                              offsets=s.offsets)
+
+        if direction == "bag":
+            def library():
+                return F.embedding_bag(lib_in, table, mode="sum",
+                                       per_sample_weights=mask)
+            read = distinct * d * 4
+        else:
+            def library():
+                return torch.autograd.grad(lib_out, leaf, cot,
+                                           retain_graph=True)[0]
+            read = n * d * 4
+        want, got = plain(), call()
+        repeats = all(same_tensor_bits(call(), got)
+                      for _ in range(K5_REPEATS))
+        lib = library()
+        sync(device)
+        check(same_tensor_bits(got, want),
+              f"5g K5 {direction}: not bitwise its plain version (max abs "
+              f"{float((got - want).abs().max())})")
+        check(repeats, f"5g K5 {direction}: repeated launches differ")
+        if direction == "bag":
+            mag = ops.gather_segment_sum_plain(table.abs(), rows, bags, n)[0]
+        else:
+            mag = ops.gather_segment_sum_plain(
+                cot.abs(), torch.where(keys < n, keys, -1),
+                torch.where(keys < n, rows, vocab), vocab)[0]
+        lib_err = float((lib - got).abs().max())
+        check(bool(((lib - got).abs() <= RECSYS_LIBRARY_TOL * mag +
+                    1e-30).all()),
+              f"5g K5 {direction} against the library: max abs {lib_err}")
+        del want, got, lib, mag
+        clock = Clock(device)
+        k_ms = clock.ms(call, reps)
+        p_ms = clock.ms(plain, 2, warmup=1)
+        lib_ms = clock.ms(library, reps)
+        nbytes = read + 4 * e + 4 * (segs + 1) + segs * d * 4
+        shape = (values.shape[0], e, d, segs, "float32")
+        name = (f"segment_sum_sorted (two-tower bags: table [{vocab}, {d}] "
+                f"f32 through [{e}] slots into {n})" if direction == "bag"
+                else f"segment_sum_sorted (two-tower table gradient: "
+                f"[{n}, {d}] f32 through [{e}] slots into {vocab})")
+        row = kernel_row(name, K5_SOURCE, K5_REPLACES,
+                         launches.get(shape, 0), 0.0, k_ms, p_ms, nbytes,
+                         e * d, lib_ms)
+        row.update(dtype="float32", bitwise=True, repeats=K5_REPEATS,
+                   library="F.embedding_bag" + (" backward" if direction
+                                                == "table_grad" else ""),
+                   library_max_abs_err=lib_err, distinct_rows=distinct)
+        emit({"phase": "recsys_k5", **{k: row[k] for k in (
+            "name", "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_max_abs_err", "bytes", "distinct_rows")}})
+        out.append(row)
+    del leaf, lib_out
+    return out
+
+
+def descent_probe(params, batch, cfg, lr: float) -> float:
+    """The loss on ``batch`` after a plain step of ``lr`` along its own
+    gradient (every leaf, the tables' dense gradients on K5 included);
+    ``params`` are restored bit for bit after."""
+    from repro_torch.models import recsys
+    from repro_torch.optim import tree_leaves
+
+    leaves = tree_leaves(params.requires_grad_(True).tree())
+    grads = torch.autograd.grad(recsys.loss_fn(params, batch, cfg), leaves)
+    with torch.no_grad():
+        saved = [x.clone() for x in leaves]
+        for x, g in zip(leaves, grads):
+            x.sub_(g, alpha=lr)
+        del grads
+        moved = float(recsys.loss_fn(params, batch, cfg))
+        for x, s in zip(leaves, saved):
+            x.copy_(s)
+    return moved
+
+
+def recsys_check(args, cfg, device) -> dict:
+    """Three adamw steps (the cell's step, float32, full-width tables) at
+    ``RECSYS_CHECK_BATCH`` on K5 and the same three on the plain bag
+    (``plain_bags``), from the same seeded weights on the same batches:
+    every loss within ``RECSYS_CHECK_RTOL`` relative; K5 launched 4 times
+    a step on K5, never on the plain bag."""
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.launch import steps
+
+    b = 8 if args.cpu_rehearsal else RECSYS_CHECK_BATCH
+    cell = steps.build_cell(RECSYS_ARCH, "train_batch",
+                            smoke=args.cpu_rehearsal, batch=b, device=device)
+    batches = [recsys_batch(cfg, b, args.seed + 30 + i, device)
+               for i in range(RECSYS_CHECK_STEPS)]
+    out = {"batch": b}
+    for tag, ctx in (("k5", contextlib.nullcontext), ("plain", plain_bags)):
+        params = cell.init_params(args.seed + 3)
+        state = cell.init_opt(params)
+        k5.reset_launches()
+        losses = []
+        with ctx():
+            for i, batch in enumerate(batches):
+                params, state, m = cell.step(params, state, i, batch)
+                losses.append(float(m["loss"]))
+        out[tag] = {"losses": losses,
+                    "k5_launches": k5.LAUNCHES["segment_sum_sorted"]}
+        del params, state
+        free_card(device)
+    rel = max(abs(a - b_) / max(abs(b_), 1e-30)
+              for a, b_ in zip(out["k5"]["losses"], out["plain"]["losses"]))
+    out.update(max_rel_diff=rel, rtol=RECSYS_CHECK_RTOL)
+    check(all(np.isfinite(out["k5"]["losses"])) and rel <= RECSYS_CHECK_RTOL,
+          f"5g K5 losses against the plain bag: {out}")
+    if device.type == "cuda":
+        check(out["k5"]["k5_launches"] == 4 * RECSYS_CHECK_STEPS and
+              out["plain"]["k5_launches"] == 0, f"5g check launches {out}")
+    return out
+
+
+def recsys_main_run(args, root, book) -> dict:
+    """``launch.train.main`` for two-tower retrieval (its default shape,
+    train_batch; the smoke config on the CPU rehearsal),
+    ``RECSYS_MAIN_STEPS`` steps with no snapshot (``--ckpt-every 0``: the
+    tables and their adamw moments would write ~12.3 GB): every logged
+    loss and grad norm finite."""
+    import shutil
+
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.launch import train
+
+    shutil.rmtree(root, ignore_errors=True)
+    log = root / "log.jsonl"
+    argv = ["--arch", RECSYS_ARCH, "--steps", str(RECSYS_MAIN_STEPS),
+            "--ckpt-dir", str(root), "--ckpt-every", "0", "--log", str(log)]
+    if args.cpu_rehearsal:
+        argv += ["--smoke", "--device", "cpu"]
+    t = time.perf_counter()
+    k5.reset_launches()
+    try:
+        with recsys_k5_book(book):
+            train.main(argv)
+        launches = k5.LAUNCHES["segment_sum_sorted"]
+        rows = [json.loads(ln) for ln in log.read_text().splitlines()]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"argv": argv, "losses": [r["loss"] for r in rows],
+           "grad_norms": [r["grad_norm"] for r in rows],
+           "step_seconds": [r["seconds"] for r in rows],
+           "k5_launches": launches, "seconds": time.perf_counter() - t}
+    check(len(rows) == RECSYS_MAIN_STEPS and all(
+        np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+        for r in rows), f"5g launch.train.main: {out}")
+    if not args.cpu_rehearsal:
+        check(launches == 4 * RECSYS_MAIN_STEPS,
+              f"5g launch.train.main: K5 launches {out}")
+    emit({"phase": "recsys_main", **out})
+    return out
+
+
+def phase_recsys(args, device, reps: int) -> tuple[dict, list]:
+    """Phase 5g: two-tower retrieval at its published widths (2,000,000 x
+    256 float32 tables, tower MLPs 1024-512-256, seeded weights; the smoke
+    config on the CPU rehearsal) through ``launch.steps.build_cell`` and
+    ``launch.train``'s data (``data_for``: ``RecsysPipeline``), with K5
+    booked by shape (``recsys_k5_book``) over the main path:
+    train_batch (65,536 users x 8 fields x 16 slots, adamw 1e-3),
+    ``RECSYS_STEPS`` steps, step 0 cold: s a step (median after the
+    first), examples/s, peak bytes, K5 launches a step (4: the user bags
+    and the item lookup, forward and table gradient), the loss on step 0's
+    batch before and after a plain step of ``RECSYS_PROBE_LR`` along its
+    gradient (it must fall: ``descent_probe``) and after step 0's adamw
+    update (reported: that step raises it at this batch); serve_p99
+    (512 rows): ``RECSYS_P99_CALLS`` scoring calls, each synchronized,
+    median and p99 ms on the host clock; serve_bulk (262,144 rows): ms a
+    call and rows/s; retrieval_cand (one query against 1,000,448
+    candidates, top-100): ms a query beside the candidates' bytes over
+    3.35 TB/s, and the top-100 indices equal a host ranking of the same
+    scores; ``launch.train.main`` 3 steps (``recsys_main_run``).  Then the
+    float32 check (``recsys_check``) and K5 at the bag shape
+    (``k5_bag_rows``: the kernels line's two two-tower rows).  With
+    ``--profile`` one training step is traced."""
+    from repro_torch.data.pipeline import Prefetcher
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.launch import steps, train
+    from repro_torch.models import recsys
+
+    t0 = time.perf_counter()
+    free_card(device)
+    rehearsal = args.cpu_rehearsal
+    book = {}
+    cell = steps.build_cell(RECSYS_ARCH, "train_batch", smoke=rehearsal,
+                            device=device)
+    cfg = cell.config
+    b = cell.input_specs()["item_ids"].shape[0]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = cell.init_params(args.seed)
+    opt_state = cell.init_opt(params)
+    data = train.on_device(Prefetcher(train.data_for(cell)), device)
+    batch0 = next(data)
+    sync(device)
+    setup_s = time.perf_counter() - t
+    rows = []
+    with torch.no_grad():
+        before = float(recsys.loss_fn(params, batch0, cfg))
+    descended = descent_probe(params, batch0, cfg, RECSYS_PROBE_LR)
+    free_card(device)
+    batch = batch0
+    for i in range(RECSYS_STEPS):
+        t = time.perf_counter()
+        k5.reset_launches()
+        with recsys_k5_book(book):
+            params, opt_state, m = cell.step(params, opt_state, i, batch)
+            loss = float(m["loss"])
+        rows.append({"step": i, "loss": loss,
+                     "grad_norm": float(m["grad_norm"]),
+                     "seconds": time.perf_counter() - t,
+                     "k5_launches": k5.LAUNCHES["segment_sum_sorted"]})
+        if i == 0:
+            with torch.no_grad():
+                after = float(recsys.loss_fn(params, batch0, cfg))
+        batch = next(data)
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else None)
+    profile = None
+    if args.profile and device.type == "cuda":
+        profile = trace("recsys_train_step", lambda: cell.step(
+            params, opt_state, RECSYS_STEPS, batch))
+    bag_batch = {"user_ids": batch0["user_ids"]}
+    del opt_state, batch, batch0, data
+    free_card(device)
+    serve = recsys_serving(args, params, cfg, book, device)
+    retrieval = recsys_retrieval(args, params, cfg, book, device)
+    del params
+    free_card(device)
+    main_run = recsys_main_run(args, OUT_DIR / "recsys", book)
+    secs = [r["seconds"] for r in rows]
+    med = float(np.median(secs[1:]))
+    run = {"arch": cfg.name, "shape": "train_batch", "batch": b,
+           "dtype": str(cfg.dtype), "embed_dim": cfg.embed_dim,
+           "vocab": [cfg.user_vocab, cfg.item_vocab],
+           "tower_mlp": list(cfg.tower_mlp), "optimizer": "adamw(lr=1e-3)",
+           "setup_s": setup_s, "steps": rows,
+           "step_seconds_median_after_first": med,
+           "examples_per_s": b / med, "peak_bytes": peak,
+           "k5_launches_per_step": [r["k5_launches"] for r in rows],
+           # the loss on step 0's batch: before, after a plain gradient
+           # step of RECSYS_PROBE_LR, after step 0's adamw update
+           "step0_batch_loss": [before, descended, after]}
+    emit({"phase": "recsys_train", **run})
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+              for r in rows), f"5g a loss or grad norm is not finite: {rows}")
+    check(descended < before, f"5g a gradient step did not lower the loss "
+                              f"on its own batch: {[before, descended]}")
+    if device.type == "cuda":
+        check(all(r["k5_launches"] == 4 for r in rows),
+              f"5g K5 launches a step {run['k5_launches_per_step']}, not 4")
+        booked = sum(book.values())
+        launched = sum(run["k5_launches_per_step"]) + \
+            serve["k5_launches"] + retrieval["k5_launches"] + \
+            main_run["k5_launches"]
+        check(booked == launched, f"5g {booked} K5 launches booked by "
+                                  f"shape, {launched} counted")
+    if profile is not None:
+        emit(profile)
+    check_rep = recsys_check(args, cfg, device)
+    # K5 at train_batch's bag shape, on weights of the run's seed
+    params = recsys.init_params(cfg, seed=args.seed, device=device)
+    k5_rows = k5_bag_rows(cfg, params, bag_batch, book, device, reps)
+    del params, bag_batch
+    free_card(device)
+    rep = {"phase": "recsys", "train": run, "serve": serve,
+           "retrieval": retrieval, "main_run": main_run, "check": check_rep,
+           "k5_calls_by_shape": {" ".join(map(str, k)): v
+                                 for k, v in book.items()},
+           "seconds": time.perf_counter() - t0}
+    emit(rep)
+    return rep, k5_rows
+
+
+# serve_bulk's bags checked against K5's plain version this many bags at a
+# time (the plain version gathers every slot's row: 34 GB at once)
+RECSYS_BULK_CHECK_BAGS = 262_144
+
+
+def k5_bag_check(table, ids, device) -> int:
+    """K5 over all of ``ids``' bags (one launch, as the model's forward
+    makes it) bitwise its plain version, computed ``RECSYS_BULK_CHECK_BAGS``
+    bags at a time on the same sorted slots (a bag's sum reads only its own
+    slots, so the pieces are the whole's bits); returns the pieces."""
+    from repro_torch.kernels.segment_reduce import kernel, ops, ref
+
+    l_ = ids.shape[-1]
+    rows = ids.reshape(-1)
+    n = rows.shape[0] // l_
+    bags = torch.arange(rows.shape[0], dtype=torch.int32,
+                        device=device) // l_
+    s = ops.bag_order(rows, ops.slot_keys(rows, bags, n, table.shape[0]), n)
+    got = kernel.segment_sum_sorted(table, s.sorted_ids, n, order=s.order,
+                                    offsets=s.offsets)
+    cuts = s.offsets.cpu().tolist()
+    pieces = 0
+    for c0 in range(0, n, RECSYS_BULK_CHECK_BAGS):
+        c1 = min(n, c0 + RECSYS_BULK_CHECK_BAGS)
+        lo, hi = cuts[c0], cuts[c1]
+        want = ref.segment_sum_sorted_ref(
+            table, s.sorted_ids[lo:hi] - c0, c1 - c0, order=s.order[lo:hi])
+        check(same_tensor_bits(got[c0:c1], want),
+              f"5g serve_bulk: K5 bags {c0}-{c1} not bitwise their plain "
+              f"version")
+        pieces += 1
+    return pieces
+
+
+def recsys_serving(args, params, cfg, book, device) -> dict:
+    """serve_p99 and serve_bulk through their cells' ``step`` (``score``
+    without autograd) on ``params``: the p99 cell's calls one at a time
+    (each synchronized; median and p99 of the host clock), the bulk
+    cell's ms a call and rows/s; every score finite and in [-1, 1]; K5 at
+    serve_bulk's user bags bitwise its plain version (``k5_bag_check``:
+    the kernel's 64-bit row offsets and scratch past 2^31 elements)."""
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.launch import steps
+
+    out = {}
+    k5.reset_launches()
+    for shape, calls in (("serve_p99", RECSYS_P99_CALLS),
+                         ("serve_bulk", RECSYS_BULK_CALLS)):
+        cell = steps.build_cell(RECSYS_ARCH, shape,
+                                smoke=args.cpu_rehearsal, device=device)
+        b = cell.input_specs()["item_ids"].shape[0]
+        batch = recsys_batch(cfg, b, args.seed + 40, device,
+                             cell.input_specs().keys())
+        ms = []
+        with recsys_k5_book(book):
+            for _ in range(3):
+                scores = cell.step(params, batch)
+            sync(device)
+            for _ in range(calls):
+                t = time.perf_counter()
+                cell.step(params, batch)
+                sync(device)
+                ms.append((time.perf_counter() - t) * 1e3)
+        check(scores.shape == (b,) and bool(torch.isfinite(scores).all())
+              and float(scores.abs().max()) <= 1 + 1e-5,
+              f"5g {shape}: scores not finite [B] in [-1, 1]")
+        if shape == "serve_bulk":
+            # E = 33,554,432 slots of 256 columns: E F past 2^31; the
+            # check's own launch is not the serving path's
+            n = k5.LAUNCHES["segment_sum_sorted"]
+            out["serve_bulk_k5_bitwise_pieces"] = k5_bag_check(
+                params["user_table"].detach(), batch["user_ids"], device)
+            k5.LAUNCHES["segment_sum_sorted"] = n
+        out[shape] = {"batch": b, "calls": calls,
+                      "median_ms": float(np.median(ms)),
+                      "p99_ms": float(np.percentile(ms, 99)),
+                      "max_ms": max(ms),
+                      "rows_per_s": b / (float(np.median(ms)) * 1e-3)}
+        del batch, scores
+        free_card(device)
+    out["k5_launches"] = k5.LAUNCHES["segment_sum_sorted"]
+    emit({"phase": "recsys_serve", **out})
+    return out
+
+
+def recsys_retrieval(args, params, cfg, book, device) -> dict:
+    """retrieval_cand through its cell's ``step``: one query against the
+    padded candidate matrix (seeded normal rows), top-100; ms a query
+    (``RECSYS_QUERIES`` calls, each synchronized, host clock) beside its
+    bound, the candidates read once over 3.35 TB/s; the indices equal a
+    host ranking (numpy, stable) of the same scores."""
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys
+
+    cell = steps.build_cell(RECSYS_ARCH, "retrieval_cand",
+                            smoke=args.cpu_rehearsal, device=device)
+    spec = cell.input_specs()
+    batch = recsys_batch(cfg, spec["user_ids"].shape[0], args.seed + 50,
+                         device, spec.keys())
+    g = torch.Generator(device=device).manual_seed(args.seed + 50)
+    batch["cand_emb"] = torch.randn(spec["cand_emb"].shape, generator=g,
+                                    device=device)
+    k5.reset_launches()
+    ms = []
+    with recsys_k5_book(book):
+        values, idx = cell.step(params, batch)
+        for _ in range(RECSYS_QUERIES):
+            t = time.perf_counter()
+            cell.step(params, batch)
+            sync(device)
+            ms.append((time.perf_counter() - t) * 1e3)
+    launches = k5.LAUNCHES["segment_sum_sorted"]
+    with torch.no_grad():
+        u = recsys.user_tower(params, batch["user_ids"],
+                              batch["user_dense"], cfg)
+        scores = (batch["cand_emb"] @ u[0]).float().cpu().numpy()
+    host = np.argsort(-scores, kind="stable")[:idx.shape[0]]
+    same = bool(np.array_equal(idx.cpu().numpy(), host))
+    check(idx.dtype == torch.int32 and idx.shape == (100,) and same and
+          bool(torch.isfinite(values).all()),
+          f"5g retrieval_cand: top-100 differs from the host ranking")
+    cand = batch["cand_emb"]
+    bound_ms = cand.numel() * cand.element_size() / PEAK_BYTES_PER_S * 1e3
+    out = {"candidates": cand.shape[0], "k": idx.shape[0],
+           "median_ms": float(np.median(ms)), "min_ms": min(ms),
+           "p99_ms": float(np.percentile(ms, 99)), "bound_ms": bound_ms,
+           "top_k_equals_host": same, "k5_launches": launches}
+    emit({"phase": "recsys_retrieval", **out})
+    del batch, cand
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 5h: command-r-plus-104b at its published widths, a cut depth
+# --------------------------------------------------------------------------
+
+CR_ARCH = "command-r-plus-104b"
+# 20 of 64 layers in bf16: 20 x 3.146 GB + the 6.29 GB embedding = 69.2
+# GB of weights, with the KV cache and init's float32 temporaries inside
+# the card's 85 GB (24 layers would not be)
+CR_SERVE_LAYERS, CR_CHECK_LAYERS = 20, 2
+CR_DECODE_AT = 127
+
+
+def cr_config(args, layers: int, dtype=torch.bfloat16):
+    """command-r-plus at its published widths cut to ``layers`` layers
+    (the smoke config on the CPU rehearsal)."""
+    from repro_torch.configs import registry
+
+    mod = registry.get_module(CR_ARCH)
+    if args.cpu_rehearsal:
+        return mod.smoke_config(dtype=dtype)
+    return dataclasses.replace(mod.make_config(dtype=dtype), n_layers=layers)
+
+
+def phase_cr_checks(args, device) -> dict:
+    """Phase 5h's float32 check: command-r-plus at its widths on
+    ``CR_CHECK_LAYERS`` layers (the parallel block, LayerNorm, logit_scale
+    0.0625, tied embeddings): prefill logits on K4 against the same model
+    on the plain attention, and the decode logits at p = ``CR_DECODE_AT``
+    against the last logits of a prefill over p + 1 tokens; 1e-3 max abs,
+    as phases 5b and 5d."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.models import transformer as tf
+
+    cfg = cr_config(args, CR_CHECK_LAYERS, dtype=torch.float32)
+    plen = 16 if args.cpu_rehearsal else args.prompt_len
+    p = min(plen, CR_DECODE_AT + 1) - 1
+    free = check_free(device, model_bytes(cfg, 1, plen + 1), "5h f32")
+    params = tf.init_params(cfg, seed=args.seed + 4, device=device)
+    rng = np.random.default_rng(args.seed + 4)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, plen))).to(
+        device)
+    k4.reset_launches()
+    logits, _ = tf.prefill(params, prompt, cfg, max_len=plen + 1)
+    launches = k4.LAUNCHES["flash_attention"]
+    with mock.patch.object(tf, "attention", plain_attention):
+        want, _ = tf.prefill(params, prompt, cfg, max_len=plen + 1)
+    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    _, cache = tf.prefill(params, prompt[:, :p], cfg, max_len=p + 1)
+    dec, _ = tf.decode_step(params, nxt, cache, p, cfg)
+    longer, _ = tf.prefill(params, torch.cat([prompt[:, :p], nxt], 1), cfg,
+                           max_len=p + 1)
+    sync(device)
+    err_k4 = float((logits - want).abs().max())
+    err_dec = float((dec - longer).abs().max())
+    check(bool(torch.isfinite(logits).all()) and logits.shape ==
+          (1, 1, cfg.vocab), "5h prefill logits are not finite [1, 1, V]")
+    check(err_k4 <= 1e-3, f"5h f32 prefill on K4 vs plain attention: "
+                          f"{err_k4}")
+    check(err_dec <= 1e-3, f"5h f32 decode vs prefill over p + 1 at p = "
+                           f"{p}: {err_dec}")
+    if device.type == "cuda":
+        check(launches == cfg.n_layers, f"5h K4 launched {launches} times "
+                                        f"in a prefill of {cfg.n_layers} "
+                                        f"layers")
+    rep = {"phase": "cr_checks", "arch": cfg.name, "dtype": "float32",
+           "layers": cfg.n_layers, "prompt_len": plen, "decode_at": p,
+           "free_bytes_before": free, "k4_launches": launches,
+           "logit_absmax": float(logits.abs().max()),
+           "k4_vs_plain_max_abs": err_k4,
+           "decode_vs_prefill_max_abs": err_dec, "tolerance": 1e-3}
+    emit(rep)
+    del params, cache, logits, want, dec, longer
+    free_card(device)
+    return rep
+
+
+def phase_command_r(args, device) -> tuple[dict, dict]:
+    """Phase 5h: command-r-plus-104b at its published widths (d_model
+    12,288, 96 query heads on 8 KV heads, d_ff 33,792, vocab 256,000,
+    LayerNorm, the parallel block, logit_scale 0.0625, tied embeddings)
+    served in bf16 through ``DecodeServer`` as phase 5 serves tinyllama
+    (``phase_serve``: 4 slots, 4 prompts of 1024 tokens, 32 decode steps),
+    cut to ``CR_SERVE_LAYERS`` of 64 layers; then the float32 check on 2
+    layers (``phase_cr_checks``)."""
+    free_card(device)
+    cfg = cr_config(args, CR_SERVE_LAYERS)
+    served = phase_serve(args, device, cfg, phase="cr_serve")
+    checks = phase_cr_checks(args, device)
+    return served, checks
+
+
+# --------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5251,11 +5905,24 @@ def main(argv=None) -> int:
     attention_bwd = phase_attention_bwd_timing(args, device, args.reps)
     free_card(device)
     gnn, k5_gnn = phase_gnn(args, device, args.reps)
-    rows += [k4_dense, *moe_rows, k4_train, k5_row, k5_gnn, k6_row]
+    free_card(device)
+    recsys, k5_recsys = phase_recsys(args, device, args.reps)
+    free_card(device)
+    cr_served, cr_checks = phase_command_r(args, device)
+    cr = cr_config(args, CR_SERVE_LAYERS)
+    k4_cr = k4_row("flash_attention (command-r-plus prefill)", cr.n_heads,
+                   cr.n_kv_heads, 32 if args.cpu_rehearsal
+                   else args.prompt_len, cr.hd, cr.dtype,
+                   cr_served["k4_launches"], device, args.reps)
+    free_card(device)
+    rows += [k4_dense, *moe_rows, k4_train, k4_cr, k5_row, k5_gnn,
+             *k5_recsys, k6_row]
     detail = {"nvidia_smi": smi, "kernels": rows, "k3": k3_detail,
               "k4_grad": k4_grad, "train": trained,
               "train_check": train_check,
               "attention_bwd": attention_bwd, "gnn": gnn,
+              "recsys": recsys, "cr_serve": cr_served,
+              "cr_checks": cr_checks,
               "serve": served, "lm_checks": lm, "moe_serve": moe_served,
               "moe_checks": moe, "dryrun": dryrun, "k4_vs_plain": k4_check,
               "replicas": replicas, "oracles": oracles,

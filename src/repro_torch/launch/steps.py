@@ -1,5 +1,5 @@
 """Cells: (architecture x input shape) -> step fn + input specs
-(the port of ``repro/launch/steps.py`` for the LM and GNN families).
+(the port of ``repro/launch/steps.py``: the LM, GNN and recsys families).
 
 The train step is the reference's ``_make_train_step``: the gradient of
 the loss (over ``n_micro`` contiguous micro-batches of ``B / n_micro``
@@ -21,10 +21,15 @@ equiformer-v2's ``d_out`` the shape's classes; adamw(1e-3, weight decay
 1e-5); the same input shapes and dtypes (a ``GraphBatch`` of
 :class:`Spec`).
 
+Recsys cells (``_recsys_cell``): train_batch takes adamw(1e-3) through
+the same train step; serve_p99 / serve_bulk score (user, item) rows and
+retrieval_cand ranks one query against ``pad_to(1_000_000, 512)``
+candidates, top-100, both without autograd.  ``batch`` cuts a recsys
+shape's batch as it cuts an LM's.
+
 The reference's shardings (``batch_spec_fn``, ``context``) belong to the
-sharded runtime, and its recsys cells to their model (ROADMAP queue 1
-item 12): ``build_cell`` raises ``NotImplementedError`` for them (through
-``registry.get_module``).  Its ``REPRO_ACCUM_DTYPE`` and
+sharded runtime (ROADMAP), and an unknown architecture raises
+``KeyError`` (``registry.get_module``).  Its ``REPRO_ACCUM_DTYPE`` and
 ``REPRO_GNN_DTYPE`` experiment switches are not ported, and its
 ``REPRO_KV_QUANT`` switch of the decode cell is
 ``dataclasses.replace(cfg, kv_quant=True)`` on a config the caller builds.
@@ -39,8 +44,8 @@ import torch
 from torch.profiler import record_function
 
 from ..configs import registry
-from ..configs.shapes import GraphShape, LMShape
-from ..models import transformer
+from ..configs.shapes import GraphShape, LMShape, RecsysShape
+from ..models import recsys as recsys_model, transformer
 from ..models.gnn import (
     equiformer_v2 as eqv2_model,
     gatedgcn as gatedgcn_model,
@@ -83,8 +88,8 @@ class Spec(NamedTuple):
 class Cell(NamedTuple):
     arch_id: str
     shape_name: str
-    family: str           # lm | gnn_scalar | gnn_geometric
-    mode: str             # train | prefill | decode
+    family: str           # lm | gnn_scalar | gnn_geometric | recsys
+    mode: str             # train | prefill | decode | serve | retrieval
     config: Any
     init_params: Callable             # (seed) -> params on the cell's device
     init_opt: Callable | None         # (params) -> opt_state
@@ -277,12 +282,67 @@ def _gnn_cell(arch_id, mod, shape: GraphShape, smoke: bool, device) -> Cell:
                 _make_train_step(loss, optimizer), specs)
 
 
+# ---------------------------------------------------------------------------
+# RecSys cells
+# ---------------------------------------------------------------------------
+
+def _recsys_cell(arch_id, mod, shape: RecsysShape, smoke: bool,
+                 batch: int | None, device) -> Cell:
+    cfg = mod.smoke_config() if smoke else mod.make_config()
+    b = batch or (8 if smoke else shape.batch)
+    # the reference pads the candidate matrix to tile every mesh
+    nc = 128 if smoke else pad_to(shape.n_candidates, 512)
+    f, l_, nd = cfg.n_user_fields, cfg.bag_len, cfg.n_dense
+    i32, f32 = torch.int32, torch.float32
+
+    def init(seed: int = 0):
+        return recsys_model.init_params(cfg, seed=seed, device=device)
+
+    def specs():
+        out = {"user_ids": Spec((b, f, l_), i32),
+               "user_dense": Spec((b, nd), f32)}
+        if shape.mode == "retrieval":
+            out["cand_emb"] = Spec((nc, cfg.embed_dim), f32)
+            return out
+        out.update(item_ids=Spec((b,), i32), item_dense=Spec((b, nd), f32))
+        if shape.mode == "train":
+            out["item_logq"] = Spec((b,), f32)
+        return out
+
+    if shape.mode == "train":
+        optimizer = adamw(lr=1e-3)
+
+        def loss(params, batch):
+            return recsys_model.loss_fn(params, batch, cfg)
+
+        def init_opt(params):
+            return optimizer.init(params.tree())
+
+        return Cell(arch_id, shape.name, "recsys", "train", cfg, init,
+                    init_opt, _make_train_step(loss, optimizer), specs)
+
+    if shape.mode == "serve":
+        @torch.no_grad()
+        def step(params, batch):
+            return recsys_model.score(params, batch, cfg)
+    else:
+        @torch.no_grad()
+        def step(params, batch):
+            return recsys_model.retrieval_topk(params, batch, cfg, k=100)
+
+    return Cell(arch_id, shape.name, "recsys", shape.mode, cfg, init, None,
+                step, specs)
+
+
 def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
                batch: int | None = None, device="cuda") -> Cell:
     """The ``(arch_id, shape_name)`` cell on ``device`` (the GPU unless the
-    caller asks for the CPU); ``batch`` cuts an LM shape's global batch."""
+    caller asks for the CPU); ``batch`` cuts an LM or recsys shape's
+    batch."""
     mod = registry.get_module(arch_id)
     shape = registry.shapes_for(arch_id)[shape_name]
     if mod.FAMILY == "gnn":
         return _gnn_cell(arch_id, mod, shape, smoke, device)
+    if mod.FAMILY == "recsys":
+        return _recsys_cell(arch_id, mod, shape, smoke, batch, device)
     return _lm_cell(arch_id, mod, shape, smoke, batch, device)

@@ -4,10 +4,11 @@ The port of ``repro/launch/train.py``: a cell (config x shape), the data
 pipeline and the fault-tolerant trainer wired together.  ``--smoke
 --device cpu`` runs the smoke config on the CPU; on one H100 the full
 config of tinyllama-1.1b trains with the global batch cut to fit, and the
-GNNs at their cells' full widths:
+GNNs and two-tower retrieval at their cells' full widths:
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b --batch 8
     python -m repro_torch.launch.train --arch gatedgcn --shape minibatch_lg
+    python -m repro_torch.launch.train --arch two-tower-retrieval
 
 The LM family reads the ``TokenPipeline`` synthetic stream (no corpus is
 in the repository) through a ``Prefetcher``, and each batch moves to the
@@ -20,9 +21,10 @@ inside their ranges (the reference draws every int32 field in ``[0,
 min(size, 50))``, so its labels pass ``n_classes`` and its species
 ``n_species``, and a node may receive nothing: ROADMAP queue 3).  Without
 ``--shape`` a GNN trains on its first shape (the reference's launcher
-finds no ``"train"``-mode GNN shape and stops).  Recsys training is
-ROADMAP queue 1 item 12 (``registry.get_module`` raises
-``NotImplementedError``).
+finds no ``"train"``-mode GNN shape and stops).  Two-tower retrieval
+trains on train_batch by default, on the ``RecsysPipeline`` synthetic
+clickstream (seed 0, as the reference), each batch moved to the device on
+the caller thread.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from ..configs import registry
-from ..data.pipeline import Prefetcher, TokenPipeline
+from ..data.pipeline import Prefetcher, RecsysPipeline, TokenPipeline
 from ..models.gnn.common import GraphBatch
 from ..models.sampler import SampledBlocks, block_shapes
 from ..runtime.trainer import train_loop
@@ -164,12 +166,13 @@ def gnn_batch(cell, seed: int = 0,
 
 def data_for(cell):
     """The cell's batch stream on the host (numpy): the LM family's
-    synthetic tokens, a GNN's one fixed batch again and again."""
+    synthetic tokens, a GNN's one fixed batch again and again, the recsys
+    synthetic clickstream."""
     if cell.family.startswith("gnn"):
         return itertools.repeat(gnn_batch(cell))
-    if cell.family != "lm":
-        raise NotImplementedError(
-            f"{cell.family} training data is ROADMAP queue 1 item 12")
+    if cell.family == "recsys":
+        return RecsysPipeline(cell.input_specs()["item_ids"].shape[0],
+                              cell.config)
     b, s = cell.input_specs()["tokens"].shape
     return TokenPipeline(b, s, cell.config.vocab)
 
@@ -202,11 +205,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--batch", type=int, default=None,
-                    help="cut an LM shape's global batch (train_4k: 256)")
+                    help="cut an LM or recsys shape's global batch "
+                         "(train_4k: 256, train_batch: 65536)")
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(),
                                          "repro_torch_ckpt"))
-    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--ckpt-every", type=int, default=25,
+                    help="steps between snapshots (0: none)")
     ap.add_argument("--log", default=None)
     ap.add_argument("--device", default="cuda")
     return ap

@@ -37,8 +37,10 @@ def train_loop(
 ):
     """Run (or resume) training; returns (params, opt_state, last_step).
 
-    A step's seconds end when its loss has reached the host, which waits
-    for the whole step (the device runs it in issue order)."""
+    A snapshot is saved every ``ckpt_every`` steps and after the last;
+    ``ckpt_every=0`` saves none (but on preemption).  A step's seconds end
+    when its loss has reached the host, which waits for the whole step
+    (the device runs it in issue order)."""
     ckpt = CheckpointManager(ckpt_dir)
     own_guard = guard is None
     guard = guard or PreemptionGuard()
@@ -71,7 +73,8 @@ def train_loop(
                     "seconds": dt,
                 }) + "\n")
                 logf.flush()
-            if (step + 1) % ckpt_every == 0 or step == n_steps - 1:
+            if ckpt_every and ((step + 1) % ckpt_every == 0
+                               or step == n_steps - 1):
                 ckpt.save(step, (params, opt_state))
             if guard.should_stop:
                 ckpt.save(step, (params, opt_state), wait=True)

@@ -685,6 +685,105 @@ def test_gnn_segment_sum_on_k5_matches_plain(cuda, shape, n):
     assert not g_k5[ids == n].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bag_len", [1, 16])
+def test_k5_gathered_bags_and_table_grad_match_plain(cuda, dtype, bag_len):
+    """``gather_segment_sum`` (the embedding bag) on CUDA tensors: one K5
+    launch forward (the slots sorted by bag, the table read through them)
+    and one for the dense table gradient (the slots sorted by table row,
+    the output gradient read through them), each bitwise K5's plain
+    version on the same sorted arguments; against the plain bag (masked
+    gather + ``index_add``, in float32) within 1e-5 (f32) or 2^-8 (bf16:
+    K5 sums in float32 and rounds once) of the sums of |rows|
+    (``index_add``'s atomics add in another order); the counts equal.
+    Pads (-1), rows past the table (>= V: dropped like pads, forward and
+    backward), an all-pad bag, a hot table row read by a quarter of the
+    slots (a segment of the gradient longer than ``CHUNK^2``) and rows no
+    slot reads (zero gradient, written)."""
+    from repro_torch.kernels.segment_reduce import kernel as k5, ops
+
+    g = torch.Generator(device="cpu").manual_seed(bag_len)
+    vocab, n_bags, d = 5000, 20000 // bag_len, 64
+    rows = torch.randint(-1, vocab // 2, (n_bags * bag_len,), generator=g)
+    rows[torch.rand(rows.shape, generator=g) < 0.25] = 7
+    rows[torch.rand(rows.shape, generator=g) < 0.02] = vocab + 3
+    rows[-1] = 2 ** 31 - 1
+    rows[:bag_len] = -1
+    rows = rows.to(torch.int32).to(cuda)
+    bags = (torch.arange(rows.shape[0], dtype=torch.int32) //
+            bag_len).to(cuda)
+    table = torch.randn((vocab, d), generator=g).to(cuda, dtype)
+    cot = torch.randn((n_bags, d), generator=g).to(cuda, dtype)
+    out = {}
+    for tag, fn, dt in (("k5", ops.gather_segment_sum, dtype),
+                        ("plain", ops.gather_segment_sum_plain,
+                         torch.float32)):
+        t = table.to(dt).requires_grad_(True)
+        n0 = k5.LAUNCHES["segment_sum_sorted"]
+        sums, counts = fn(t, rows, bags, n_bags)
+        fwd = k5.LAUNCHES["segment_sum_sorted"] - n0
+        (grad,) = torch.autograd.grad(sums, (t,), cot.to(dt))
+        out[tag] = (sums.detach(), counts, grad,
+                    fwd, k5.LAUNCHES["segment_sum_sorted"] - n0 - fwd)
+    (sums, counts, grad, fwd, bwd), plain = out["k5"], out["plain"]
+    assert (fwd, bwd) == (1, 1) and plain[3:] == (0, 0)
+    keys = ops.slot_keys(rows, bags, n_bags, vocab)
+    s = ops.bag_order(rows, keys, n_bags)
+    want = k5.ref.segment_sum_sorted_ref(table, s.sorted_ids, n_bags,
+                                         order=s.order, offsets=s.offsets)
+    s = ops.table_order(rows, keys, n_bags, vocab)
+    want_grad = k5.ref.segment_sum_sorted_ref(
+        cot, s.sorted_ids, vocab, order=s.order, offsets=s.offsets)
+    assert torch.equal(_k5_bits(sums), _k5_bits(want))
+    assert torch.equal(_k5_bits(grad), _k5_bits(want_grad))
+    assert torch.equal(counts, plain[1])
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    mag, _ = ops.gather_segment_sum_plain(table.float().abs(), rows, bags,
+                                          n_bags)
+    assert bool(((sums.float() - plain[0]).abs()
+                 <= tol * mag + 1e-30).all())
+    gmag = torch.zeros((vocab, d), device=cuda).index_add_(
+        0, torch.where(keys < n_bags, rows, 0).long(),
+        cot.float().abs()[keys.clamp(max=n_bags - 1).long()]
+        * (keys < n_bags)[:, None])
+    assert bool(((grad.float() - plain[2]).abs()
+                 <= tol * gmag + 1e-30).all())
+    assert not sums[0].any() and not grad[vocab // 2:].any()
+
+
+def test_two_tower_bags_run_k5_on_the_card(cuda):
+    """The two-tower loss on CUDA tensors (smoke widths) launches K5 for
+    the user bags and the item lookup, forward and for both tables'
+    gradients (four launches), and matches the same loss and gradients on
+    the CPU within 1e-5 abs + 1e-4 of the leaf's largest magnitude."""
+    from repro_torch.data.pipeline import RecsysPipeline
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys
+
+    cell = steps.build_cell("two-tower-retrieval", "train_batch",
+                            smoke=True, batch=64, device="cpu")
+    host = next(RecsysPipeline(64, cell.config, seed=1))
+    res = {}
+    for dev in ("cpu", cuda):
+        params = cell.init_params(0).to(dev).requires_grad_(True)
+        tree = params.tree()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        n0 = k5.LAUNCHES["segment_sum_sorted"]
+        loss = recsys.loss_fn(params, batch, cell.config)
+        leaves = [tree["user_table"], tree["item_table"],
+                  tree["user_mlp"][0]["w"]]
+        grads = torch.autograd.grad(loss, leaves)
+        res[str(dev)] = (loss.detach().cpu(), [x.cpu() for x in grads],
+                         k5.LAUNCHES["segment_sum_sorted"] - n0)
+    (l0, g0, n_cpu), (l1, g1, n_gpu) = res["cpu"], res[str(cuda)]
+    assert (n_cpu, n_gpu) == (0, 4)
+    assert abs(float(l0) - float(l1)) <= 1e-5
+    for a, b in zip(g0, g1):
+        assert torch.allclose(b, a, rtol=0,
+                              atol=1e-5 + 1e-4 * float(a.abs().max()))
+
+
 def test_gnn_segments_sorted_once_serve_several_sums_on_k5(cuda):
     """``common.segments`` sorts the ids once on the card; each sum over it
     is one K5 launch that reads the values where they lie: no

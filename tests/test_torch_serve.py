@@ -1,4 +1,6 @@
-"""The port's ``DecodeServer`` against the JAX package's (CPU, float32).
+"""The port's ``DecodeServer`` against the JAX package's (CPU, float32):
+tinyllama-1.1b and command-r-plus-104b (the parallel block, LayerNorm,
+logit_scale) at their smoke configs.
 
 Same weights (the reference's init, carried by ``params_from_numpy``), two
 slots with equal-length prompts (the reference's ``step`` shares one
@@ -11,20 +13,21 @@ import jax
 import numpy as np
 import pytest
 
+from repro.configs import command_r_plus_104b as jcmdr
 from repro.configs import phi3_5_moe_42b as jphi
 from repro.configs import tinyllama_1_1b as jtiny
 from repro.launch import serve as jserve
 from repro.models import transformer as jtf
-from repro_torch.configs import phi3_5_moe_42b, tinyllama_1_1b
+from repro_torch.configs import (command_r_plus_104b, phi3_5_moe_42b,
+                                 tinyllama_1_1b)
 from repro_torch.launch import serve
 from repro_torch.models import transformer as tf
 from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 
-@pytest.fixture(scope="module")
-def servers():
-    jcfg = jtiny.smoke_config()
-    cfg = tinyllama_1_1b.smoke_config()
+def _servers(jmod, mod):
+    jcfg = jmod.smoke_config()
+    cfg = mod.smoke_config()
     jp = jtf.init_params(jax.random.PRNGKey(0), jcfg)
     tp = tf.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), cfg,
                               device="cpu")
@@ -32,8 +35,20 @@ def servers():
             serve.DecodeServer(cfg, tp, batch_slots=2, max_len=24))
 
 
+@pytest.fixture(scope="module")
+def servers():
+    return _servers(jtiny, tinyllama_1_1b)
+
+
 def test_greedy_tokens_match_reference(servers):
-    js, ts = servers
+    _greedy_tokens_match(*servers)
+
+
+def test_command_r_plus_greedy_tokens_match_reference():
+    _greedy_tokens_match(*_servers(jcmdr, command_r_plus_104b))
+
+
+def _greedy_tokens_match(js, ts):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 256, size=6).astype(np.int32)
                for _ in range(2)]

@@ -1,7 +1,9 @@
 """The port's training path against the JAX package's (CPU, float32):
-``loss_fn`` and every parameter's gradient on the four smoke LMs, remat
-on and off, ``_make_train_step`` at ``n_micro`` 1, 2 and 4, the cells and
-the ``repro_torch.launch.train`` CLI.
+``loss_fn`` and every parameter's gradient on the five smoke LMs, remat
+on and off, ``_make_train_step`` at ``n_micro`` 1, 2 and 4, the cells
+(every architecture's train cell builds; command-r-plus's smoke train
+cell takes the reference cell's step) and the ``repro_torch.launch.train``
+CLI.
 
 Weights come from the reference's ``init_params`` (norm scales and qkv
 biases redrawn with numpy so their gradients count) and reach the port
@@ -23,7 +25,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import command_r_plus_104b as jcmdr
 from repro.configs import grok_1_314b as jgrok
+from repro.configs import registry as jregistry
 from repro.configs import phi3_5_moe_42b as jphi
 from repro.configs import qwen2_7b as jqwen, tinyllama_1_1b as jtiny
 from repro.launch import steps as jsteps
@@ -39,7 +43,8 @@ ROOT = Path(__file__).resolve().parents[1]
 LOSS_TOL = 1e-5
 GRAD_ATOL, GRAD_RTOL_OF_MAX = 2e-5, 1e-4
 ARCHS = [("tinyllama-1.1b", jtiny), ("qwen2-7b", jqwen),
-         ("grok-1-314b", jgrok), ("phi3.5-moe-42b-a6.6b", jphi)]
+         ("grok-1-314b", jgrok), ("phi3.5-moe-42b-a6.6b", jphi),
+         ("command-r-plus-104b", jcmdr)]
 
 
 def _params(jmod, seed=0):
@@ -223,10 +228,77 @@ def test_prefill_and_decode_cells():
 @pytest.mark.parametrize("arch", ["two-tower-retrieval",
                                   "command-r-plus-104b"])
 def test_unported_families_raise_naming_item_12(arch):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        steps.build_cell(arch, "train_4k", smoke=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        registry.shapes_for(arch)
+    """The two architectures this test once found unported now build: the
+    train cell of each (smoke, CPU) runs one step to a finite loss, and an
+    unknown architecture still raises ``KeyError``."""
+    shape = next(iter(registry.shapes_for(arch)))
+    cell = steps.build_cell(arch, shape, smoke=True, device="cpu")
+    assert (cell.mode, cell.family) == ("train", jsteps.build_cell(
+        arch, shape, smoke=True).family)
+    params = cell.init_params(0)
+    batch = next(train.on_device(train.data_for(cell), "cpu"))
+    _, _, m = cell.step(params, cell.init_opt(params), 0, batch)
+    assert np.isfinite(float(m["loss"]))
+    with pytest.raises(KeyError):
+        registry.shapes_for(arch + "-no-such")
+
+
+@pytest.mark.parametrize("arch", sorted(jregistry.ARCHS))
+def test_every_reference_arch_builds_its_train_cell(arch):
+    """Every architecture of the reference's registry is the port's, and
+    its train shape's cell builds (smoke, CPU) with the reference cell's
+    family, mode and input specs."""
+    assert arch in registry.ARCHS
+    assert registry.shapes_for(arch).keys() == \
+        jregistry.shapes_for(arch).keys()
+    shape = next(iter(registry.shapes_for(arch)))      # each family's train
+    cell = steps.build_cell(arch, shape, smoke=True, device="cpu")
+    jcell = jsteps.build_cell(arch, shape, smoke=True)
+    assert (cell.family, cell.mode) == (jcell.family, jcell.mode)
+    assert cell.mode == "train" and cell.init_opt is not None
+    spec, jspec = cell.input_specs(), jcell.input_specs()
+    if not isinstance(spec, dict):                      # a GraphBatch
+        spec = spec.fields()
+        jspec = {k: getattr(jspec, k) for k in spec}
+    assert spec.keys() == jspec.keys()
+    for k, v in spec.items():
+        assert v.shape == jspec[k].shape, k
+
+
+def test_unknown_arch_raises_key_error():
+    for fn in (registry.get_module, registry.shapes_for):
+        with pytest.raises(KeyError, match="unknown arch"):
+            fn("no-such-arch")
+    with pytest.raises(KeyError):
+        steps.build_cell("no-such-arch", "train_4k", smoke=True,
+                         device="cpu")
+
+
+def test_command_r_plus_train_cell_matches_reference():
+    """One step of command-r-plus's smoke train_4k cell (adafactor 1e-3,
+    clip 1.0, the parallel block, LayerNorm, logit_scale, tied embeddings)
+    against the reference cell's step on the same weights and batch: loss
+    within LOSS_TOL, grad norm 1e-4 relative, the parameters after it as
+    ``test_train_step_matches_reference``."""
+    jcell = jsteps.build_cell("command-r-plus-104b", "train_4k", smoke=True)
+    cell = steps.build_cell("command-r-plus-104b", "train_4k", smoke=True,
+                            device="cpu")
+    _, cfg, jp, tree = _params(jcmdr, seed=7)
+    rng = np.random.default_rng(8)
+    shape = cell.input_specs()["tokens"].shape
+    assert shape == jcell.input_specs()["tokens"].shape
+    b = {k: rng.integers(0, cfg.vocab, shape).astype(np.int32)
+         for k in ("tokens", "labels")}
+    jp2, _, jm = jax.jit(jcell.step)(jp, jcell.init_opt(jp), 0,
+                                     {k: jnp.asarray(v) for k, v in
+                                      b.items()})
+    tp = tf.params_from_numpy(tree, cfg, device="cpu")
+    tp, _, m = cell.step(tp, cell.init_opt(tp), 0,
+                         {k: torch.from_numpy(v) for k, v in b.items()})
+    assert abs(float(m["loss"]) - float(jm["loss"])) <= LOSS_TOL
+    assert abs(float(m["grad_norm"]) - float(jm["grad_norm"])) <= \
+        1e-4 * float(jm["grad_norm"])
+    _close_tree(tp.tree(), jp2, "params")
 
 
 def test_train_cli_runs_and_resumes(tmp_path, capsys):

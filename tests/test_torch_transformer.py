@@ -1,6 +1,8 @@
 """The port's LM (``repro_torch.models.transformer``) against the JAX
-package's at the smoke configurations (CPU, float32): the dense LMs and
-the MoE LMs (grok-1, phi3.5-moe), and the int8 KV cache.
+package's at the smoke configurations (CPU, float32): the dense LMs
+(command-r-plus-104b's parallel block, LayerNorm, logit_scale and tied
+embeddings among them) and the MoE LMs (grok-1, phi3.5-moe), the int8 KV
+cache, and the registry against the reference's.
 
 Weights come from the reference's ``init_params``, with every norm scale
 and qkv bias (zero at init) redrawn with numpy so those paths count, and
@@ -17,7 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import command_r_plus_104b as jcmdr
 from repro.configs import grok_1_314b as jgrok
+from repro.configs import registry as jregistry
 from repro.configs import phi3_5_moe_42b as jphi
 from repro.configs import qwen2_7b as jqwen, tinyllama_1_1b as jtiny
 from repro.models import transformer as jtf
@@ -27,7 +31,8 @@ from torch_jax_cleanup import free_jax_executables  # noqa: F401 (autouse)
 
 TOL = 1e-4
 ARCHS = [("tinyllama-1.1b", jtiny), ("qwen2-7b", jqwen),
-         ("grok-1-314b", jgrok), ("phi3.5-moe-42b-a6.6b", jphi)]
+         ("grok-1-314b", jgrok), ("phi3.5-moe-42b-a6.6b", jphi),
+         ("command-r-plus-104b", jcmdr)]
 
 
 def _params(jmod, seed=0):
@@ -76,8 +81,18 @@ def test_configs_mirror_the_reference():
 
 
 def test_registry_names_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_module("command-r-plus-104b")
+    """Nothing is left unported: the registry holds the reference's
+    architectures (in its order, each of its family), ``cells()`` yields
+    the reference's (arch, shape, reason) triples with and without the
+    skipped ones, and an unknown architecture raises ``KeyError``."""
+    assert list(registry.ARCHS) == list(jregistry.ARCHS)
+    assert not hasattr(registry, "NOT_PORTED")
+    for arch, mod in registry.ARCHS.items():
+        assert mod.FAMILY == jregistry.ARCHS[arch].FAMILY
+    for skipped in (False, True):
+        assert list(registry.cells(skipped)) == list(
+            jregistry.cells(skipped))
+    assert registry.SKIPPED_CELLS == jregistry.SKIPPED_CELLS
     with pytest.raises(KeyError):
         registry.get_module("no-such-arch")
 
