@@ -311,6 +311,20 @@ kernels line and the final result line):
    attention, decode at p = 127 against a prefill over p + 1 (1e-3); then
    K4 at its prefill shape (q [1, 96, 1024, 128], k/v 8 heads, bf16,
    causal) held and timed beside SDPA (its kernels-line row).
+5i. the sharded LM (``phase_sharded``: ``dist/`` on DTensor, K4 on each
+   rank's local heads): a world of one on NCCL, mesh (1, 1), where
+   tinyllama-1.1b's bf16 train step on 2 x 4096 tokens (full depth) and
+   phi3.5-moe's bf16 prefill and 4 decode steps (2 layers, the MoE plan)
+   are bitwise the unsharded path's; then four gloo ranks on the card,
+   mesh (2, 2): tinyllama-1.1b f32 on 2 layers, one step on 4 x 1024
+   tokens within 2e-5 (loss) and 1e-5 (params) of the world of one, K4
+   at the rank's local shape held against its plain version,
+   phi3.5-moe f32 on 2 layers with the world of one's kept rows and
+   logits within 2e-5; the pipeline of 22 bf16 layers in 2 stages bitwise
+   the sequential stages; ``compressed_psum_mean`` on the step's
+   gradients; ``ElasticScaler`` restoring the four-rank snapshot onto 2
+   ranks bitwise.  Two K4 rows (the rank's shape, the world of one's
+   step), at most 150 s.
 
 With ``--profile``, each trace also gives K1's, K2's, K4's and K5's
 device time and their share of the busy and the wall time (K5's level
@@ -320,7 +334,7 @@ the engine's ``repro_torch.*`` ranges (relax, outbox_merge, receive,
 counters, poll, exchange, the phase-2 combines).
 
 With ``--cpu-rehearsal`` the same phases run on the CPU on the kernels'
-plain versions at tiny sizes (the serving phases, 4h, 5e-5h on the smoke
+plain versions at tiny sizes (the serving phases, 4h, 5e-5i on the smoke
 configs and shapes).
 Any failed check raises, so the script exits nonzero and prints no result.
 Without a CUDA device it exits 2 before doing anything.
@@ -4004,7 +4018,8 @@ def k4_row(name: str, hq: int, hkv: int, s: int, d: int, dtype, launches,
         name, "src/repro_torch/kernels/flash_attention/csrc/"
         "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:89",
         launches, err, k_ms, p_ms, nbytes, flops, lib_ms,
-        peak_ops=PEAK_BF16_OPS_PER_S)
+        peak_ops=PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16
+        else PEAK_F32_OPS_PER_S)
     emit({"phase": "k4_timing", "name": name, "shape": [b, hq, s, d],
           "kv_heads": hkv, "dtype": str(dtype), "causal": True,
           "softcap": softcap, "max_abs_err": err,
@@ -4620,19 +4635,37 @@ def phase_dryrun(args, device) -> dict:
     scale = args.dry_scale
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = {"phase": "dryrun", "scale": scale, "runs": []}
+    # the three runs at once: each builds its own cell on the host (a few
+    # GB of device memory each); the walls are each process's, overlapped
+    t = time.perf_counter()
+    (OUT_DIR / "dryrun").mkdir(parents=True, exist_ok=True)
+    procs, logs = [], []
     for cells, sweep in DRYRUN_CELLS:
         where = OUT_DIR / "dryrun" / f"{cells}-{sweep}"
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun_diffusion",
                "--scale", str(scale), "--sweep", sweep, "--device",
                device.type, "--seed", str(args.seed), "--out-dir",
                str(where)] + (["--multi-pod"] if cells == 512 else [])
-        t = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
-                              env=env, timeout=600)
+        logs.append(open(OUT_DIR / "dryrun" / f"{cells}-{sweep}.log", "w+"))
+        procs.append(subprocess.Popen(cmd, stdout=logs[-1],
+                                      stderr=subprocess.STDOUT, text=True,
+                                      cwd=ROOT, env=env))
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:          # a run that failed or hung stops here
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (cells, sweep), proc, log in zip(DRYRUN_CELLS, procs, logs):
         wall = time.perf_counter() - t
+        where = OUT_DIR / "dryrun" / f"{cells}-{sweep}"
+        log.seek(0)
+        text = log.read()
+        log.close()
         check(proc.returncode == 0, f"3l: the dry-run at {cells} cells "
-              f"({sweep}) failed:\n{proc.stdout[-2000:]}\n"
-              f"{proc.stderr[-3000:]}")
+              f"({sweep}) failed:\n{text[-4000:]}")
         rep = json.loads((where / f"diffusion_sssp_s{scale}_{cells}cells"
                                   f".json").read_text())
         np_ = rep["per_cell_vertices"]
@@ -4650,7 +4683,7 @@ def phase_dryrun(args, device) -> dict:
             check(rep["device"] == torch.cuda.get_device_name(0),
                   f"3l: the dry-run ran on {rep['device']}")
         line = {k: v for k, v in rep.items() if k != "calls"}
-        line.update(phase="dryrun_run", process_wall_s=wall)
+        line.update(phase="dryrun_run", wall_since_start_s=wall)
         emit(line)
         out["runs"].append(line)
 
@@ -5725,6 +5758,690 @@ def phase_command_r(args, device) -> tuple[dict, dict]:
 
 # --------------------------------------------------------------------------
 
+
+# --------------------------------------------------------------------------
+# phase 5i: the sharded LM (dist/, torch.distributed, K4 per shard)
+# --------------------------------------------------------------------------
+
+SHARD_RANKS, SHARD_MESH = 4, (2, 2)
+SHARD_LAYERS, SHARD_MICRO = 2, 4
+# the MoE layer alone at this capacity factor drops rows on random inputs
+LAYER_CAPACITY = 0.25
+
+
+def shard_config(args, arch: str, layers, dtype):
+    """``arch`` at its published widths cut to ``layers`` layers (None:
+    all) in ``dtype``; the smoke config on the CPU rehearsal."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    mod = registry.get_module(arch)
+    cfg = (mod.smoke_config(dtype=dtype) if args.cpu_rehearsal
+           else mod.make_config(dtype=dtype))
+    return dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
+
+
+def shard_tokens(args, cfg, b: int, s: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(
+        np.int32))
+
+
+@contextlib.contextmanager
+def recording_kept():
+    """``moe.kept_rows`` wrapped to keep each call's (expert ids [T, k],
+    the [T, k] mask of the rows the capacity keeps): the sharded MoE layer
+    decides its drops with it, on the whole batch's routing."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    kept, real = [], moe.kept_rows
+
+    def recorded(expert_idx, cfg):
+        out = real(expert_idx, cfg)
+        kept.append((expert_idx, out))
+        return out
+
+    with mock.patch.object(moe, "kept_rows", recorded):
+        yield kept
+
+
+@contextlib.contextmanager
+def recording_k4():
+    """The K4 wrapper as ``ops.attention`` calls it, wrapped to keep each
+    launch's q/k/v shapes and the first launch's inputs (references: no
+    device work, no launch)."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ops
+
+    calls, real = [], ops.flash_attention
+
+    def recorded(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape),
+                      (q.detach(), k.detach(), v.detach(), kw)
+                      if not calls else None))
+        return real(q, k, v, **kw)
+
+    with mock.patch.object(ops, "flash_attention", recorded):
+        yield calls
+
+
+@contextlib.contextmanager
+def recording_comms():
+    """A dispatch mode that books the collectives run inside it by op
+    (``_c10d_functional::*``, DTensor's, and ``c10d::*``, the explicit
+    ones): {op: [calls, bytes of their tensor arguments]}.  Every op
+    passes through Python while it is on, so a step under it runs
+    slower."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    book: dict = {}
+
+    class Book(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func._schema.name
+            if name.split("::")[0] in ("_c10d_functional", "c10d") and \
+                    "wait" not in name and "wrap" not in name:
+                nbytes = sum(t.numel() * t.element_size() for t in
+                             tree_leaves((args, kwargs))
+                             if isinstance(t, torch.Tensor))
+                row = book.setdefault(name, [0, 0])
+                row[0] += 1
+                row[1] += nbytes
+            return func(*args, **(kwargs or {}))
+
+    with Book():
+        yield book
+
+
+def grads_of_step():
+    """``launch.steps.clip_by_global_norm`` wrapped to keep the train
+    step's gradients (the tree it clips), in the list yielded."""
+    from unittest import mock
+
+    from repro_torch.launch import steps
+
+    seen, real = [], steps.clip_by_global_norm
+
+    def recorded(tree, max_norm):
+        seen.append(tree)
+        return real(tree, max_norm)
+
+    return mock.patch.object(steps, "clip_by_global_norm", recorded), seen
+
+
+def full_tree(tree) -> dict:
+    """{leaf name: the global tensor} of a tree of DTensors (a
+    collective)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint.manager import flatten
+
+    return {k: (v.full_tensor() if isinstance(v, DTensor) else v).detach()
+            for k, v in flatten(tree).items()}
+
+
+def _tiny_step(args, device, mesh, layers, dtype, b: int, s: int):
+    """(loss, params, opt state, the cell, K4 launches, gradients) of one
+    sharded train step of tinyllama-1.1b (``train_4k``, batch cut to b x
+    s, adafactor) on ``mesh`` with seeded weights."""
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.launch import steps
+
+    cfg = shard_config(args, "tinyllama-1.1b", layers, dtype)
+    cell = steps.build_cell("tinyllama-1.1b", "train_4k", batch=b,
+                            device=device, config=cfg)
+    params = cell.init_params(args.seed + 9)
+    params = steps.place(params, cell.param_shardings(mesh, params))
+    opt = cell.init_opt(params)
+    toks = shard_tokens(args, cfg, b, s + 1, args.seed + 9).to(device)
+    batch = steps.place({"tokens": toks[:, :-1], "labels": toks[:, 1:]},
+                        cell.batch_spec_fn(mesh))
+    patch, grads = grads_of_step()
+    sync(device)
+    k4.reset_launches()
+    with patch, cell.context(mesh):
+        params, opt, m = cell.step(params, opt, 0, batch)
+    sync(device)
+    return (m["loss"], params, opt, cell, k4.LAUNCHES["flash_attention"],
+            grads[0])
+
+
+def _moe_prefill(args, device, mesh, dtype, b: int, s: int, decode: int,
+                 sharded: bool, layer: bool = False):
+    """phi3.5-moe at 2 layers: a prefill of b x s tokens, then ``decode``
+    greedy steps, under the cell's context (the MoE plan) with the
+    parameters placed when ``sharded``; -> (each step's logits, the
+    (expert ids, kept mask) of the sharded MoE layer's calls).  With
+    ``layer``, also (the output, the routing) of layer 0's MoE layer alone
+    through ``moe_apply`` on a seeded [b s, d] input the same on every
+    rank, at capacity factor ``LAYER_CAPACITY`` (so that it drops rows):
+    the drops of one input, where the model's later layers see inputs
+    that differ in their last bits between meshes."""
+    from functools import partial
+
+    from repro_torch.dist.sharding import distribute, moe_apply
+    from repro_torch.launch import steps
+    from repro_torch.models import moe, transformer as tf
+
+    cfg = shard_config(args, "phi3.5-moe-42b-a6.6b", SHARD_LAYERS, dtype)
+    cell = steps.build_cell("phi3.5-moe-42b-a6.6b", "prefill_32k",
+                            batch=b, device=device, config=cfg)
+    params = cell.init_params(args.seed + 10)
+    toks = shard_tokens(args, cfg, b, s, args.seed + 10).to(device)
+    ctx = contextlib.nullcontext
+    if sharded:
+        params = steps.place(params, cell.param_shardings(mesh, params))
+        toks = steps.place({"tokens": toks},
+                           cell.batch_spec_fn(mesh))["tokens"]
+        ctx = functools.partial(cell.context, mesh)
+    out = []
+    with ctx(), recording_kept() as kept, torch.no_grad():
+        logits, cache = tf.prefill(params, toks, cfg, max_len=s + decode)
+        for i in range(decode + 1):
+            full = logits.full_tensor() if sharded else logits
+            out.append(full.float())
+            if i == decode:
+                break
+            nxt = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+                torch.int32)
+            logits, cache = tf.decode_step(params, nxt, cache, s + i, cfg)
+    one = None
+    if layer:
+        g = torch.Generator(device="cpu").manual_seed(args.seed + 12)
+        x = torch.randn((b * s, cfg.d_model), generator=g).to(device, dtype)
+        p0 = params.layer_params()[0]["moe"]
+        if sharded:
+            from torch.distributed.tensor import Replicate
+            x = distribute(x, mesh, [Replicate()] * mesh.ndim)
+        mcfg = dataclasses.replace(cfg.moe, capacity_factor=LAYER_CAPACITY)
+        with ctx(), recording_kept() as one_kept, torch.no_grad():
+            y, _ = moe_apply(partial(moe.moe_ffn, cfg=mcfg), p0, x)
+        one = ((y.full_tensor() if sharded else y).float(), one_kept)
+    sync(device)
+    del params, cache
+    return out, kept, one
+
+
+def _explained(got, want) -> bool:
+    """Whether every kept row of ``got`` that ``want`` does not keep (and
+    the reverse) is in the group of an expert some token is routed to
+    differently in the two (expert ids, kept mask) pairs: a drop the
+    routing explains, not the capacity."""
+    diff = _pairs(got) ^ _pairs(want)
+    a, b = got[0].cpu(), want[0].cpu()
+    moved = (torch.sort(a, -1)[0] != torch.sort(b, -1)[0]).any(-1)
+    experts = set(a[moved].flatten().tolist()) | set(
+        b[moved].flatten().tolist())
+    return all(e in experts for _, e in diff)
+
+
+def _pairs(routed) -> set:
+    """The (token, expert) rows a (expert ids, kept mask) pair keeps."""
+    idx, mask = (t.cpu() for t in routed)
+    tok = torch.arange(idx.shape[0])[:, None].expand_as(idx)
+    return set(zip(tok[mask].tolist(), idx[mask].tolist()))
+
+
+def sharded_rank(rank: int, ranks: int, out_dir: str, rehearsal: bool,
+                 seed: int, device: str) -> None:
+    """One of phase 5i's four ``gloo`` ranks on the one card
+    (``torch.multiprocessing`` spawns it; see :func:`phase_sharded`).
+    Rank 0 writes ``ranks.json``."""
+    import datetime
+    import faulthandler
+
+    import torch.distributed as dist
+
+    faulthandler.enable(all_threads=True)   # a crash names its line
+    sys.path.insert(0, str(ROOT / "src"))
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out = Path(out_dir)
+    dist.init_process_group("gloo", init_method=f"file://{out / 'store'}",
+                            rank=rank, world_size=ranks,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        args = argparse.Namespace(cpu_rehearsal=rehearsal, seed=seed)
+        try:
+            rep = _sharded_rank(args, rank, out, torch.device(device))
+        except Exception:
+            import traceback
+            rep = {"error": traceback.format_exc()}
+        reps = [None] * ranks
+        dist.all_gather_object(reps, rep)
+        if rank == 0:
+            (out / "ranks.json").write_text(json.dumps(reps))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_rank(args, rank: int, out: Path, device) -> dict:
+    """One rank's checks (b)-(e) of :func:`phase_sharded`, its report;
+    progress marks on stderr name how far a rank that dies got."""
+    import hashlib
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint.manager import CheckpointManager, flatten
+    from repro_torch.dist import compressed_dp
+    from repro_torch.dist.pipeline import bubble_fraction, make_pipeline_fn
+    from repro_torch.dist.rules import param_sharding
+    from repro_torch.kernels.flash_attention import kernel as k4, ref as k4_ref
+    from repro_torch.launch.mesh import lm_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.fault_tolerance import ElasticScaler
+
+    rep = {"rank": rank}
+    mesh = lm_mesh(SHARD_MESH, device)
+    # the parent writes the references of (a) first
+    deadline = time.time() + 900
+    while not (out / "go").exists():
+        if time.time() > deadline:
+            raise TimeoutError("5i: no references from the world of one")
+        time.sleep(0.2)
+    print(f"5i rank {rank}: step", file=sys.stderr, flush=True)
+    b, s = (4, 64) if args.cpu_rehearsal else (4, 1024)
+    t = time.perf_counter()
+    with recording_k4() as k4_calls, recording_comms() as comms:
+        loss, params, opt, cell, launches, grads = _tiny_step(
+            args, device, mesh, SHARD_LAYERS, torch.float32, b, s)
+    rep["step_s"] = time.perf_counter() - t     # with the book on
+    rep["step_comms"] = comms
+    rep["loss"] = float(loss.full_tensor())
+    rep["k4_launches"] = launches
+    rep["k4_shapes"] = sorted({(q, kv) for q, kv, _ in k4_calls})
+    q, k, v, kw = k4_calls[0][2]
+    got = k4.flash_attention(q, k, v, **kw)     # read after the counts
+    err, ok = k4_err(got, k4_ref.flash_attention_ref(q, k, v, **kw),
+                     q, k, v, **kw)
+    rep["k4_err"], rep["k4_ok"] = err, bool(ok)
+    del got, q, k, v, k4_calls
+    want = torch.load(out / "expect.pt", map_location=device)
+    now = full_tree(params.tree())
+    rep["param_err"] = max(
+        float(((now[n].float() - w.float()).abs()
+               / (1 + w.float().abs())).max()) for n, w in
+        want["params"].items())
+    rep["loss_rel"] = abs(rep["loss"] - float(want["loss"])) / abs(
+        float(want["loss"]))
+    del want
+
+    # (d) compressed_psum_mean over the four ranks on the step's gradients
+    print(f"5i rank {rank}: compressed", file=sys.stderr, flush=True)
+    t = time.perf_counter()
+    contrib = {n: g.to_local().float() for n, g in flatten(grads).items()}
+    err0 = compressed_dp.init_error_state(contrib)
+    mean, new_err = compressed_dp.compressed_psum_mean(
+        contrib, err0, dist.group.WORLD, SHARD_RANKS)
+    half, ulp, digest = 0.0, 0.0, hashlib.blake2b(digest_size=16)
+    same_err = True
+    for n, g in contrib.items():
+        exact = g.clone()
+        dist.all_reduce(exact)
+        exact /= SHARD_RANKS
+        qq, scale, ne = compressed_dp._compress_leaf(g, err0[n],
+                                                     dist.group.WORLD)
+        half = max(half, float((mean[n] - exact).abs().max() / (scale / 2)))
+        back = qq.float() * scale + ne
+        gf = g + err0[n]
+        spacing = torch.nextafter(gf.abs(), torch.tensor(
+            float("inf"), device=gf.device)) - gf.abs()
+        ulp = max(ulp, float(((back - gf).abs() / spacing).max()))
+        digest.update(mean[n].cpu().numpy().tobytes())
+        same_err = same_err and bool(torch.equal(ne, new_err[n]))
+    rep["cdp_s"] = time.perf_counter() - t
+    rep["cdp_err_over_half_scale"] = half
+    rep["cdp_roundtrip_ulps"] = ulp
+    rep["cdp_mean_digest"] = digest.hexdigest()
+    rep["cdp_err_state_same"] = same_err
+    rep["cdp_bytes"] = sum(g.numel() for g in contrib.values())
+    del contrib, err0, mean, new_err, grads
+
+    # (e) save on the four-rank mesh, restore onto ranks 0 and 1
+    print(f"5i rank {rank}: elastic", file=sys.stderr, flush=True)
+    t = time.perf_counter()
+    saved = {"params": params.tree(), "opt": opt}
+    global_ = full_tree(saved)
+    mgr = CheckpointManager(str(out / "ckpt"))
+    mgr.save(0, saved, wait=True)
+    dist.barrier()
+    tree, small, step = ElasticScaler(mgr).rescale(
+        saved, lambda m, tr: param_sharding(tr, m, "lm"), world=[0, 1])
+    if tree is not None:
+        back = full_tree(tree)
+        rep["elastic_same"] = sorted(back) == sorted(global_) and all(
+            torch.equal(back[n], global_[n]) for n in global_)
+        rep["elastic_mesh"] = list(small.shape)
+        rep["elastic_split"] = any(
+            p.is_shard() for p in tree["params"]["embed"].placements)
+        del back
+    rep["elastic_s"] = time.perf_counter() - t
+    rep["elastic_leaves"] = len(global_)
+    del saved, global_, tree, params, opt
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(out / "ckpt", ignore_errors=True)
+    free_card(device)
+
+    # (b) phi3.5-moe at 2 layers in f32 under the plan
+    print(f"5i rank {rank}: moe", file=sys.stderr, flush=True)
+    t = time.perf_counter()
+    logits, kept, one = _moe_prefill(args, device, mesh, torch.float32, b,
+                                     s, 0, sharded=True, layer=True)
+    want = torch.load(out / "moe_expect.pt", map_location=device)
+    rep["moe_s"] = time.perf_counter() - t
+    rep["moe_logit_err"] = float(((logits[0] - want["logits"]).abs()
+                                  / (1 + want["logits"].abs())).max())
+    rep["moe_kept_same"] = len(kept) == len(want["kept"]) and all(
+        torch.equal(a[1], w[1]) for a, w in zip(kept, want["kept"]))
+    rep["moe_routes_same"] = len(kept) == len(want["kept"]) and all(
+        torch.equal(a[0], w[0]) for a, w in zip(kept, want["kept"]))
+    rep["moe_kept_diff"] = [
+        {"tokens_routed_differently": int((torch.sort(a[0], -1)[0] != torch.sort(
+            w[0], -1)[0]).any(-1).sum()),
+         "kept_pairs_differing": len(_pairs(a) ^ _pairs(w))}
+        for a, w in zip(kept, want["kept"])]
+    rep["moe_dropped"] = [int((~m).sum()) for _, m in kept]
+    rep["moe_explained"] = all(_explained(a, w) for a, w in
+                               zip(kept, want["kept"]))
+    rep["layer_kept_same"] = len(one[1]) == len(want["layer_kept"]) == 1 \
+        and all(torch.equal(a[0], w[0]) and torch.equal(a[1], w[1])
+                for a, w in zip(one[1], want["layer_kept"]))
+    rep["layer_dropped"] = int((~one[1][0][1]).sum())
+    rep["layer_err"] = float(((one[0] - want["layer_y"]).abs()
+                              / (1 + want["layer_y"].abs())).max())
+    del logits, kept, want
+    free_card(device)
+
+    # (c) the pipeline: 22 layers in two stages of 11 on each pod pair
+    print(f"5i rank {rank}: pipeline", file=sys.stderr, flush=True)
+    t = time.perf_counter()
+    pods = init_device_mesh(device.type, (2, 2), mesh_dim_names=("pod", "x"))
+    stage = pods.get_local_rank(0)
+    cfg = shard_config(args, "tinyllama-1.1b", None, torch.bfloat16)
+    per = cfg.n_layers // 2
+    params = tf.init_params(cfg, seed=args.seed + 11, device=device)
+    toks = shard_tokens(args, cfg, SHARD_MICRO, s, args.seed + 11).to(device)
+    pos = torch.arange(s, device=device)
+
+    def stage_fn(w, x):
+        for i in range(per):
+            x, _, _ = tf._layer_apply(cfg, _layer_at(w, i), x, pos)
+        return x
+
+    with torch.no_grad():
+        xs = torch.stack([tf._embed(params, toks[i:i + 1], cfg)
+                          for i in range(SHARD_MICRO)])
+        layers = params.tree()["layers"]
+        ws = _tree_slice(layers, stage * per, (stage + 1) * per)
+        fn = make_pipeline_fn(pods, stage_fn, 2, SHARD_MICRO, axis="pod")
+        ys = fn(ws, xs)
+        sync(device)
+        rep["pipe_s"] = time.perf_counter() - t
+        if rank == 0:
+            seq = torch.stack([
+                stage_fn(_tree_slice(layers, per, 2 * per, squeeze=True),
+                         stage_fn(_tree_slice(layers, 0, per, squeeze=True),
+                                  x))
+                for x in xs])
+            rep["pipe_bitwise"] = bool(torch.equal(ys, seq))
+            rep["pipe_shape"] = list(ys.shape)
+    rep["bubble_fraction"] = bubble_fraction(SHARD_MICRO, 2)
+    return rep
+
+
+def _tree_slice(tree, lo: int, hi: int, squeeze: bool = False):
+    """The layers [lo, hi) of a stacked layer tree, as one stage's
+    ``[1, n, ...]`` block (``[n, ...]`` with ``squeeze``)."""
+    if isinstance(tree, dict):
+        return {k: _tree_slice(v, lo, hi, squeeze) for k, v in tree.items()}
+    return tree[lo:hi] if squeeze else tree[lo:hi][None]
+
+
+def _layer_at(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer_at(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def phase_sharded(args, device, reps: int) -> tuple[dict, list]:
+    """Phase 5i: the sharded LM through ``dist/`` on ``torch.distributed``
+    (DTensor on a named ``DeviceMesh``; K4 on each rank's local heads).
+
+    (a) A world of one on NCCL, mesh (data 1, model 1): tinyllama-1.1b in
+    bf16 at full width and depth, one ``train_4k`` step on 2 x 4096 tokens
+    (the cell's batch cut) under ``cell.context(mesh)`` with the params
+    placed by ``param_shardings``: loss and every parameter bitwise the
+    unsharded step's, K4 launched as often; phi3.5-moe in bf16 at full
+    width and 2 layers, a prefill of 4 x 1024 tokens and 4 greedy decode
+    steps under the MoE plan, each step's logits bitwise the unsharded
+    path's.  Then the references of (b): the same configurations in f32
+    on the world of one (saved under ``chiprun_out/sharded_ranks``).
+    (b) Four ``gloo`` ranks on the card (NCCL refuses two ranks on one
+    GPU), mesh (data 2, model 2): tinyllama-1.1b at full width, 2 layers,
+    f32, 4 x 1024 tokens, one step with the cell's adafactor: every rank's
+    loss the same and within 2e-5 relative of the world of one's, every
+    parameter within 1e-5 of it (max abs, scaled by 1 + |p|); K4 launches
+    at the rank's local shape (q [2, 16, 1024, 64], 2 KV heads) and one
+    launch is held against its plain version (``k4_err``).  phi3.5-moe at
+    2 layers in f32 under the plan: the kept rows of every MoE call equal
+    the world of one's, the prefill logits within 2e-5.  (c) The pipeline
+    on each 2-rank ``pod`` group: tinyllama-1.1b's 22 bf16 layers in 2
+    stages of 11 over 4 micro-batches of 1 x 1024, ``ys`` bitwise the
+    sequential stages on rank 0.  (d) ``compressed_psum_mean`` over the
+    four ranks on (b)'s gradients (each rank's local shards): the mean
+    bitwise the same on every rank, within scale / 2 of the exact mean,
+    q * scale + err within 1 ulp of g.  (e) (b)'s params and adafactor
+    state saved from the four-rank mesh and restored by
+    ``ElasticScaler.rescale`` onto ranks 0 and 1 (mesh (1, 2)), every
+    leaf bitwise the saved global tensor.  Returns (the report, two K4
+    rows: the per-rank shape of (b) and the world of one's step).  The
+    ranks start with the phase and wait for (a)'s references."""
+    import shutil
+
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "5i: a process group is already up")
+    # every record of the phase names the card it was taken on
+    smi = "cpu rehearsal" if device.type != "cuda" else subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out = {"phase": "sharded", "nvidia_smi": smi}
+    shard_dir = OUT_DIR / "sharded_ranks"
+    shutil.rmtree(shard_dir, ignore_errors=True)
+    shard_dir.mkdir(parents=True)
+    # the ranks start now (imports, the card, their gloo mesh) and wait for
+    # the references (a) leaves, then run (b)-(e)
+    spawned = torch.multiprocessing.spawn(
+        sharded_rank, args=(SHARD_RANKS, str(shard_dir), args.cpu_rehearsal,
+                            args.seed, device.type),
+        nprocs=SHARD_RANKS, join=False)
+    try:
+        out.update(_sharded_one(args, device, shard_dir))
+        out["a_s"] = time.perf_counter() - t_phase
+        (shard_dir / "go").write_text("go")
+        t = time.perf_counter()
+        while not spawned.join():
+            pass
+        out["ranks_s"] = time.perf_counter() - t
+        ranks = json.loads((shard_dir / "ranks.json").read_text())
+    except BaseException:
+        for p in spawned.processes:      # no rank outlives a failure
+            if p.is_alive():
+                p.terminate()
+        raise
+    finally:
+        shutil.rmtree(shard_dir, ignore_errors=True)
+    b, s = (4, 64) if args.cpu_rehearsal else (4, 1024)
+    b1, s1 = (2, 64) if args.cpu_rehearsal else (2, 4096)
+    cfg = shard_config(args, "tinyllama-1.1b", None, torch.bfloat16)
+    emit({"phase": "sharded_ranks", "nvidia_smi": smi, "ranks": ranks})
+    for r in ranks:
+        check("error" not in r, f"5i: rank failed: {r.get('error')}")
+    r0 = ranks[0]
+    losses = {r["loss"] for r in ranks}
+    check(len(losses) == 1, f"5i (b): the ranks' losses differ: {losses}")
+    check(r0["loss_rel"] <= 2e-5, f"5i (b): loss {r0['loss']} is "
+                                  f"{r0['loss_rel']} relative off the "
+                                  f"world of one's")
+    check(r0["param_err"] <= 1e-5, f"5i (b): params after the step are "
+                                   f"{r0['param_err']} off the world of one")
+    rcfg = shard_config(args, "tinyllama-1.1b", SHARD_LAYERS, torch.float32)
+    hq, hkv = rcfg.n_heads // 2, rcfg.n_kv_heads // 2
+    local_q = [b // 2, hq, s, rcfg.hd]
+    for r in ranks:
+        check((r["k4_launches"] > 0 or device.type != "cuda") and
+              r["k4_ok"],
+              f"5i (b): rank {r['rank']}: K4 launched {r['k4_launches']} "
+              f"times, its check {r['k4_err']}")
+        check([list(q) for q, _ in r["k4_shapes"]] == [local_q] and
+              all(kv[1] == hkv for _, kv in r["k4_shapes"]),
+              f"5i (b): rank {r['rank']}'s K4 shapes {r['k4_shapes']}")
+        check(r["layer_kept_same"] and r["layer_err"] <= 2e-5 and (
+            r["layer_dropped"] > 0 or args.cpu_rehearsal),
+              f"5i (b): rank {r['rank']}: the MoE layer's routing and kept "
+              f"rows equal {r['layer_kept_same']}, outputs off by "
+              f"{r['layer_err']}")
+        check(r["moe_explained"] and r["moe_logit_err"] <= 2e-5 and all(
+            d["tokens_routed_differently"] <= 4 for d in r["moe_kept_diff"]),
+              f"5i (b): rank {r['rank']}: the model's kept rows "
+              f"{r['moe_kept_diff']} (explained by routing "
+              f"{r['moe_explained']}), logits off by {r['moe_logit_err']}")
+        check(r["cdp_err_over_half_scale"] <= 1.0 + 1e-4 and
+              r["cdp_roundtrip_ulps"] <= 1.0 and r["cdp_err_state_same"],
+              f"5i (d): rank {r['rank']}: mean off by "
+              f"{r['cdp_err_over_half_scale']} half-scales, round trip "
+              f"{r['cdp_roundtrip_ulps']} ulps")
+    check(len({r["cdp_mean_digest"] for r in ranks}) == 1,
+          "5i (d): the compressed means differ between ranks")
+    check(r0["pipe_bitwise"], "5i (c): the pipeline's ys differ from the "
+                              "sequential stages")
+    for r in ranks[:2]:
+        check(r["elastic_same"] and r["elastic_mesh"] == [1, 2] and
+              (r["elastic_split"] or args.cpu_rehearsal),
+              f"5i (e): rank {r['rank']}'s restore: bitwise "
+              f"{r['elastic_same']}, mesh {r['elastic_mesh']}")
+    out["ranks"] = ranks
+    out["bubble_fraction"] = r0["bubble_fraction"]
+    emit({**{k: v for k, v in out.items() if k != "ranks"},
+          "rank0": r0})
+    rows = [
+        k4_row(f"flash_attention (5i rank of 4: tinyllama-1.1b f32, q "
+               f"{local_q}, {hkv} kv heads)", hq, hkv, s, rcfg.hd,
+               torch.float32, r0["k4_launches"], device, reps, b=b // 2),
+        k4_row(f"flash_attention (5i world of one: tinyllama-1.1b bf16, "
+               f"B {b1}, S {s1})", cfg.n_heads, cfg.n_kv_heads, s1, cfg.hd,
+               torch.bfloat16, out["one_k4_launches"], device, reps, b=b1)]
+    out["seconds"] = time.perf_counter() - t_phase
+    check(args.cpu_rehearsal or out["seconds"] <= 150,
+          f"5i took {out['seconds']:.1f} s, over its 150 s")
+    emit({"phase": "sharded_time", "nvidia_smi": smi,
+          "seconds": out["seconds"],
+          "a_s": out["a_s"], "ranks_s": out["ranks_s"]})
+    return out, rows
+
+
+def _sharded_one(args, device, shard_dir: Path) -> dict:
+    """Phase 5i (a) on a world of one, and the references of (b) saved
+    under ``shard_dir``; -> its report."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import kernel as k4
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import lm_mesh
+
+    out = {}
+    mesh = lm_mesh((1, 1), device)
+    out["one_backend"] = dist.get_backend()
+    b1, s1 = (2, 64) if args.cpu_rehearsal else (2, 4096)
+    try:
+        # (a) tinyllama bf16, full depth: unsharded, then sharded
+        cfg = shard_config(args, "tinyllama-1.1b", None, torch.bfloat16)
+        cell = steps.build_cell("tinyllama-1.1b", "train_4k", batch=b1,
+                                device=device, config=cfg)
+        params = cell.init_params(args.seed + 9)
+        opt = cell.init_opt(params)
+        toks = shard_tokens(args, cfg, b1, s1 + 1, args.seed + 9).to(device)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        sync(device)
+        k4.reset_launches()
+        params, opt, m = cell.step(params, opt, 0, batch)
+        sync(device)
+        plain_launches = k4.LAUNCHES["flash_attention"]
+        want = {n: v.detach().clone() for n, v in full_tree(
+            params.tree()).items()}
+        want_loss = m["loss"].detach().clone()
+        del params, opt
+        free_card(device)
+        t = time.perf_counter()
+        loss, params, _, _, one_launches, _ = _tiny_step(
+            args, device, mesh, None, torch.bfloat16, b1, s1)
+        out["one_step_s"] = time.perf_counter() - t
+        now = full_tree(params.tree())
+        same = torch.equal(loss.full_tensor(), want_loss) and all(
+            torch.equal(now[n], w) for n, w in want.items())
+        check(same, "5i (a): the sharded tinyllama step on a world of one "
+                    "differs from the unsharded step")
+        check(one_launches == plain_launches and (
+            one_launches > 0 or device.type != "cuda"),
+              f"5i (a): K4 launched {one_launches} times sharded, "
+              f"{plain_launches} unsharded")
+        out.update(one_loss=float(want_loss), one_k4_launches=one_launches,
+                   one_params_bitwise=True)
+        del params, now, want
+        free_card(device)
+        # (a) phi3.5-moe bf16, 2 layers: prefill + 4 decode steps
+        b2, s2 = (4, 32) if args.cpu_rehearsal else (4, 1024)
+        plain, _, _ = _moe_prefill(args, device, mesh, torch.bfloat16, b2,
+                                   s2, 4, sharded=False)
+        free_card(device)
+        shard, kept, _ = _moe_prefill(args, device, mesh, torch.bfloat16,
+                                      b2, s2, 4, sharded=True)
+        check(len(plain) == len(shard) == 5 and all(
+            torch.equal(a, c) for a, c in zip(plain, shard)),
+            "5i (a): phi3.5-moe's sharded prefill/decode on a world of one "
+            "differs from the unsharded path")
+        check(len(kept) == 2 * 5, f"5i (a): {len(kept)} MoE calls took "
+                                  f"the sharded layer, not 10")
+        out["one_moe_bitwise"] = True
+        out["one_moe_dropped"] = [int((~m).sum()) for _, m in kept]
+        del plain, shard, kept
+        free_card(device)
+        # the references of (b), in f32 on the world of one
+        b, s = (4, 64) if args.cpu_rehearsal else (4, 1024)
+        loss, params, _, _, _, _ = _tiny_step(
+            args, device, mesh, SHARD_LAYERS, torch.float32, b, s)
+        torch.save({"loss": loss.full_tensor().cpu(),
+                    "params": {n: v.cpu() for n, v in
+                               full_tree(params.tree()).items()}},
+                   shard_dir / "expect.pt")
+        del params
+        free_card(device)
+        logits, kept, one = _moe_prefill(args, device, mesh, torch.float32,
+                                         b, s, 0, sharded=True, layer=True)
+        torch.save({"logits": logits[0].cpu(),
+                    "kept": [(e.cpu(), m.cpu()) for e, m in kept],
+                    "layer_y": one[0].cpu(),
+                    "layer_kept": [(e.cpu(), m.cpu()) for e, m in one[1]]},
+                   shard_dir / "moe_expect.pt")
+        out["moe_dropped_one"] = [int((~m).sum()) for _, m in kept]
+        del logits, kept
+    finally:
+        dist.destroy_process_group()
+    free_card(device)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -5915,14 +6632,16 @@ def main(argv=None) -> int:
                    else args.prompt_len, cr.hd, cr.dtype,
                    cr_served["k4_launches"], device, args.reps)
     free_card(device)
-    rows += [k4_dense, *moe_rows, k4_train, k4_cr, k5_row, k5_gnn,
-             *k5_recsys, k6_row]
+    sharded, k4_sharded = phase_sharded(args, device, args.reps)
+    free_card(device)
+    rows += [k4_dense, *moe_rows, k4_train, k4_cr, *k4_sharded, k5_row,
+             k5_gnn, *k5_recsys, k6_row]
     detail = {"nvidia_smi": smi, "kernels": rows, "k3": k3_detail,
               "k4_grad": k4_grad, "train": trained,
               "train_check": train_check,
               "attention_bwd": attention_bwd, "gnn": gnn,
               "recsys": recsys, "cr_serve": cr_served,
-              "cr_checks": cr_checks,
+              "cr_checks": cr_checks, "sharded": sharded,
               "serve": served, "lm_checks": lm, "moe_serve": moe_served,
               "moe_checks": moe, "dryrun": dryrun, "k4_vs_plain": k4_check,
               "replicas": replicas, "oracles": oracles,

@@ -25,6 +25,12 @@
   propagates.
 * **Retention**: the last ``keep`` snapshots stay, older ones are pruned.
 
+* **Sharded trees**: a DTensor leaf is saved as its global tensor
+  (``full_tensor``, a collective: every rank of its mesh calls ``save``),
+  and only global rank 0 writes a tree that holds one;
+  ``restore(..., shardings=)`` places each leaf on a new mesh
+  (``dist.sharding.distribute``), the elastic rescale's path.
+
 bfloat16 leaves are written as the reference writes them, byte for byte:
 the raw 2-byte bits in a ``.npy`` whose header names ``<V2`` (numpy reads
 it back as ``|V2``), manifest dtype ``"bfloat16"``, the digest of those
@@ -43,8 +49,11 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..core import chaos
+from ..dist.sharding import distribute
 
 __all__ = ["CheckpointManager", "flatten"]
 
@@ -86,6 +95,8 @@ def _to_host(name: str, leaf) -> tuple[np.ndarray, str]:
     if not isinstance(leaf, torch.Tensor):
         arr = np.array(leaf)
         return arr, str(arr.dtype)
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach()
     if t.dtype == torch.bfloat16:
         arr = t.view(torch.int16).cpu().numpy().copy().view(_BF16_BITS)
@@ -137,8 +148,11 @@ class CheckpointManager:
         once the host copies are taken (the files are written in the
         background)."""
         self.wait()
-        host = {name: _to_host(name, leaf)
-                for name, leaf in flatten(tree).items()}
+        leaves = flatten(tree)
+        host = {name: _to_host(name, leaf) for name, leaf in leaves.items()}
+        if dist.is_initialized() and dist.get_rank() != 0 and any(
+                isinstance(leaf, DTensor) for leaf in leaves.values()):
+            return          # rank 0 writes the gathered tree
 
         def _write():
             try:
@@ -253,7 +267,7 @@ class CheckpointManager:
         return self._load_with_fallback(step, verify)
 
     def restore(self, target=None, step: int | None = None, device="cuda",
-                verify: bool = True):
+                verify: bool = True, shardings=None):
         """Load a snapshot, with :meth:`restore_flat`'s fallback.  Returns
         ``(tree, step)``.
 
@@ -263,12 +277,42 @@ class CheckpointManager:
         by its name onto the device of the target's leaf (a tensor; an
         array stays on the host); a module is loaded in place and
         returned.  A missing name raises ``KeyError``,
-        another shape ``ValueError``."""
+        another shape ``ValueError``.
+
+        ``shardings``: a tree matching ``target``'s leaves of
+        ``dist.rules.NamedSharding`` (the new mesh's layout) for a tree of
+        tensors: each leaf is read onto the mesh's device type and each
+        rank of the mesh keeps its block (``dist.sharding.distribute``)."""
         arrays, step = self.restore_flat(step, verify)
         if target is None:
             return {name: _to_tensor(arr, device)
                     for name, arr in arrays.items()}, step
+        if shardings is not None:
+            return _place(target, shardings, arrays, ()), step
         return _fill(target, arrays, ()), step
+
+
+def _place(node, shardings, arrays: dict, prefix: tuple):
+    """``node``'s structure with each leaf read from ``arrays`` by name
+    and distributed by the matching sharding of ``shardings``."""
+    if isinstance(node, torch.nn.Module):
+        raise TypeError("restore(..., shardings=) fills a tree of tensors "
+                        "(a module's tree()), not a module")
+    items = _items(node)
+    if items is None:
+        name = _path_str(prefix)
+        arr = arrays[name]
+        if tuple(arr.shape) != tuple(node.shape):
+            raise ValueError(f"checkpoint leaf {name}: shape "
+                             f"{tuple(arr.shape)} for {tuple(node.shape)}")
+        sh = shardings
+        return distribute(_to_tensor(arr, sh.mesh.device_type), sh.mesh,
+                          sh.placements)
+    if isinstance(node, dict):
+        return {k: _place(c, shardings[k], arrays, prefix + (k,))
+                for k, c in items}
+    return type(node)(_place(c, shardings[k], arrays, prefix + (k,))
+                      for k, c in items)
 
 
 def _fill(node, arrays: dict, prefix: tuple):

@@ -6,10 +6,12 @@ parameters at rest: serializable and inspectable, the contract between
 the code that lays out cells and a sharding layer.  The mesh is a
 :class:`torch.distributed.device_mesh.DeviceMesh`.
 
-On one card the transformer calls ``moe_ffn`` directly: the reference's
-``dist/sharding.py::moe_apply`` runs ``fn(params, x)`` whenever no plan is
-bound, so it is not ported, as ``logical_constraint`` (a no-op on one
-device) is not.
+``dist/sharding.py::moe_apply`` reads it: under a plan it pins the expert
+weights to their ``d_ff`` split over ``model_axis`` and the tokens to
+``data_axes``, and ``models/moe.py::moe_ffn`` runs them with the routing
+of the whole batch; without one it runs ``fn(params, x)``.  The
+transformer's MoE layers call ``moe_apply``; ``launch/steps.py`` binds the
+plan for an MoE LM's cells (``cell.context(mesh)``).
 """
 
 from __future__ import annotations

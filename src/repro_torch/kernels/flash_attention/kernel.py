@@ -23,6 +23,7 @@ import ctypes
 from pathlib import Path
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import _build
 from . import ref
@@ -58,7 +59,12 @@ def flash_attention(q, k, v, causal: bool = True, softcap: float = 0.0,
     """K4: q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] -> [B, Hq, Sq, D] in q's
     dtype.  Key ``j`` is seen by query ``i`` iff ``j < kv_len`` (default
     ``Skv``) and, when causal, ``j <= i + q_offset``.  CPU tensors take
-    ``ref.flash_attention_ref``."""
+    ``ref.flash_attention_ref``.  A DTensor raises ``TypeError``: K4 runs
+    on a rank's local heads, which ``ops.attention`` hands it."""
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention takes local tensors; a DTensor "
+                        "goes through ops.attention, which runs K4 on "
+                        "each rank's local heads")
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        softcap=softcap, kv_len=kv_len,

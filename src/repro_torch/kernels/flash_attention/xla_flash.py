@@ -9,14 +9,25 @@ walks the same blocks once more for ``dq``, ``dk`` and ``dv``.  Live
 memory is O(Sq * chunk) a (batch, head) in both passes: no S x S score
 tensor.  GQA, the causal diagonal at ``skv - sq``, a ``kv_len`` mask and
 the logit softcap (grok-1) are supported.  The reference's sharding pins
-(``_pin``) are dropped: the port runs on one device.
+(``_pin``) stand at its points: on DTensors they lay q, k, v, the output
+and the gradients out [batch, heads]; on plain tensors (a rank's local
+heads, which ``ops.attention`` hands these functions) and outside a
+sharding context they do nothing.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...dist.sharding import logical_constraint
+
 __all__ = ["mea_fwd", "mea_bwd"]
+
+
+def _pin(x, *names):
+    """Anchor the layout so forward and backward agree ([batch, heads]):
+    a seq-split cotangent must not meet head-split attention tensors."""
+    return logical_constraint(x, *names)
 
 _NEG = float("-inf")
 
@@ -52,6 +63,9 @@ def mea_fwd(q, k, v, causal: bool = True, softcap: float = 0.0,
     """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] -> (out [B, Hq, Sq, D] in
     q's dtype, lse [B, Hkv, G, Sq] f32; -inf on a fully masked row).
     Raises ``ValueError`` unless ``chunk`` divides ``Skv``."""
+    q = _pin(q, "batch", "heads", None, None)
+    k = _pin(k, "batch", "kv_heads", None, None)
+    v = _pin(v, "batch", "kv_heads", None, None)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -89,6 +103,8 @@ def mea_bwd(q, k, v, out, lse, dout, causal: bool = True,
     from :func:`mea_fwd`'s ``(out, lse)`` and the cotangent ``dout``.
     ``delta = sum(out * dout)`` reads ``out`` as given (the reference
     passes the recomputed one, in q's dtype)."""
+    dout = _pin(dout, "batch", "heads", None, None)
+    out = _pin(out, "batch", "heads", None, None)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -119,6 +135,9 @@ def mea_bwd(q, k, v, out, lse, dout, causal: bool = True,
             ds = ds * dcap
         dq = dq + torch.einsum("bhgqk,bhkd->bhgqd", ds, kb) * scale
         dks.append(torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale)
-    return (dq.reshape(b, hq, sq, d).to(q.dtype),
-            torch.cat(dks, dim=2).to(k.dtype),
-            torch.cat(dvs, dim=2).to(v.dtype))
+    return (_pin(dq.reshape(b, hq, sq, d).to(q.dtype), "batch", "heads",
+                 None, None),
+            _pin(torch.cat(dks, dim=2).to(k.dtype), "batch", "kv_heads",
+                 None, None),
+            _pin(torch.cat(dvs, dim=2).to(v.dtype), "batch", "kv_heads",
+                 None, None))

@@ -27,10 +27,20 @@ retrieval_cand ranks one query against ``pad_to(1_000_000, 512)``
 candidates, top-100, both without autograd.  ``batch`` cuts a recsys
 shape's batch as it cuts an LM's.
 
-The reference's shardings (``batch_spec_fn``, ``context``) belong to the
-sharded runtime (ROADMAP), and an unknown architecture raises
-``KeyError`` (``registry.get_module``).  Its ``REPRO_ACCUM_DTYPE`` and
-``REPRO_GNN_DTYPE`` experiment switches are not ported, and its
+Shardings, as the reference's: ``cell.batch_spec_fn(mesh)`` gives a
+:class:`~repro_torch.dist.rules.NamedSharding` for each input,
+``cell.param_shardings(mesh, params)`` one for each parameter leaf
+(``dist.rules.param_sharding``) and ``cell.context(mesh)`` the
+``sharding_context`` of the family's rules, with the MoE plan for an MoE
+LM.  They are pure functions of the mesh (a ``DeviceMesh`` or an
+``AbstractMesh``) for every family.  :func:`place` distributes a tree by
+them.  The LM cells run sharded: ``with cell.context(mesh):
+cell.step(params, ...)`` on DTensor parameters and batch; the train step
+then brings each gradient and update to its parameter's layout.
+
+An unknown architecture raises ``KeyError`` (``registry.get_module``).
+The reference's ``REPRO_ACCUM_DTYPE`` and ``REPRO_GNN_DTYPE`` experiment
+switches are not ported, and its
 ``REPRO_KV_QUANT`` switch of the decode cell is
 ``dataclasses.replace(cfg, kv_quant=True)`` on a config the caller builds.
 """
@@ -45,6 +55,10 @@ from torch.profiler import record_function
 
 from ..configs import registry
 from ..configs.shapes import GraphShape, LMShape, RecsysShape
+from ..dist import rules as dist_rules
+from ..dist.moe_parallel import make_moe_plan
+from ..dist.rules import NamedSharding
+from ..dist.sharding import distribute, sharding_context
 from ..models import recsys as recsys_model, transformer
 from ..models.gnn import (
     equiformer_v2 as eqv2_model,
@@ -54,9 +68,10 @@ from ..models.gnn import (
 )
 from ..models.gnn.common import GraphBatch
 from ..models.sampler import block_shapes
-from ..optim import adafactor, adamw, clip_by_global_norm, tree_map
+from ..optim import (adafactor, adamw, clip_by_global_norm, laid_out_as,
+                     tree_map)
 
-__all__ = ["Cell", "Spec", "build_cell", "pad_to"]
+__all__ = ["Cell", "Spec", "build_cell", "pad_to", "place"]
 
 _GNN_MODELS = {
     "equiformer-v2": eqv2_model,
@@ -95,6 +110,50 @@ class Cell(NamedTuple):
     init_opt: Callable | None         # (params) -> opt_state
     step: Callable                    # see mode-specific signatures
     input_specs: Callable             # () -> dict (LM) or GraphBatch of Spec
+    batch_spec_fn: Callable           # (mesh) -> the inputs' NamedShardings
+    context: Callable                 # (mesh) -> sharding_context manager
+
+    def param_shardings(self, mesh, params):
+        """A NamedSharding for each leaf of ``params`` (a tree, or a
+        module with ``tree()``)."""
+        tree = params.tree() if hasattr(params, "tree") else params
+        return dist_rules.param_sharding(tree, mesh, self.family)
+
+
+def place(tree, shardings):
+    """Each leaf of ``tree`` (nested dicts and lists of tensors, the same
+    on every rank) as a DTensor laid out by the matching
+    :class:`NamedSharding` (``dist.sharding.distribute``: each rank keeps
+    its block, no collective).  A module's parameters (``tree()``) are
+    replaced in place one at a time, so a whole leaf is freed as soon as
+    its DTensor exists, and the module is returned."""
+    def put(leaf, sh):
+        return distribute(leaf, sh.mesh, sh.placements)
+
+    if not hasattr(tree, "tree"):
+        return tree_map(put, tree, shardings)
+
+    def swap(module, sh):
+        for key in list(sh):
+            if isinstance(sh[key], dict):
+                swap(getattr(module, key), sh[key])
+            else:
+                module.register_parameter(key, torch.nn.Parameter(
+                    put(getattr(module, key), sh[key]),
+                    requires_grad=False))
+    swap(tree, shardings)
+    return tree
+
+
+def _ctx_factory(family):
+    def make(mesh, moe=False):
+        rules = dist_rules.logical_rules(mesh, family)
+        plan = None
+        if moe:
+            plan = make_moe_plan(mesh, data_axes=dist_rules.data_axes(mesh),
+                                 model_axis="model", fsdp_axis="data")
+        return sharding_context(mesh, rules, plan)
+    return make
 
 
 def _make_train_step(loss_fn, optimizer, n_micro: int = 1):
@@ -112,7 +171,10 @@ def _make_train_step(loss_fn, optimizer, n_micro: int = 1):
             leaves = []
             tree_map(leaves.append, tree)
             grads = iter(torch.autograd.grad(loss, leaves))
-        return loss, tree_map(lambda _: next(grads), tree)
+            # a DTensor gradient may come back partial: its parameter's
+            # layout sums it
+            grads = tree_map(lambda p: laid_out_as(next(grads), p), tree)
+        return loss, grads
 
     def step(params, opt_state, step_no, batch):
         tree = params.requires_grad_(True).tree()
@@ -139,19 +201,28 @@ def _make_train_step(loss_fn, optimizer, n_micro: int = 1):
             grads, gnorm = clip_by_global_norm(grads, 1.0)
             updates, opt_state = optimizer.update(grads, opt_state, tree,
                                                   step_no)
-            tree_map(lambda p, u: p.add_(u), tree, updates)
+            tree_map(lambda p, u: p.add_(laid_out_as(u, p)), tree, updates)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
     return step
 
 
 def _lm_cell(arch_id, mod, shape: LMShape, smoke: bool, batch: int | None,
-             device) -> Cell:
-    cfg = mod.smoke_config() if smoke else mod.make_config()
+             device, config=None) -> Cell:
+    cfg = config or (mod.smoke_config() if smoke else mod.make_config())
     b, s = (2, 64) if smoke else (shape.global_batch, shape.seq_len)
     b = batch or b
 
     def init(seed: int = 0):
         return transformer.init_params(cfg, seed=seed, device=device)
+
+    is_moe = cfg.moe is not None
+    ctx = _ctx_factory("lm")
+
+    def context(mesh):
+        return ctx(mesh, is_moe)
+
+    def tokens_spec(mesh):
+        return NamedSharding(mesh, (dist_rules.data_axes(mesh), None))
 
     if shape.mode == "train":
         optimizer = adafactor(lr=1e-3)
@@ -170,8 +241,12 @@ def _lm_cell(arch_id, mod, shape: LMShape, smoke: bool, batch: int | None,
         def init_opt(params):
             return optimizer.init(params.tree())
 
+        def batch_specs(mesh):
+            return {"tokens": tokens_spec(mesh),
+                    "labels": tokens_spec(mesh)}
+
         return Cell(arch_id, shape.name, "lm", "train", cfg, init, init_opt,
-                    step, specs)
+                    step, specs, batch_specs, context)
 
     if shape.mode == "prefill":
         def step(params, batch):
@@ -181,8 +256,11 @@ def _lm_cell(arch_id, mod, shape: LMShape, smoke: bool, batch: int | None,
         def specs():
             return {"tokens": Spec((b, s), torch.int32)}
 
+        def batch_specs(mesh):
+            return {"tokens": tokens_spec(mesh)}
+
         return Cell(arch_id, shape.name, "lm", "prefill", cfg, init, None,
-                    step, specs)
+                    step, specs, batch_specs, context)
 
     # decode: one new token against a seq_len KV cache
     def step(params, batch):
@@ -196,8 +274,16 @@ def _lm_cell(arch_id, mod, shape: LMShape, smoke: bool, batch: int | None,
                           for k, v in cache.items()},
                 "cache_len": Spec((), torch.int32)}
 
+    def batch_specs(mesh):
+        da = dist_rules.data_axes(mesh)
+        # the cache: batch over data, its positions over the model axis
+        cache = NamedSharding(mesh, (None, da, None, "model", None))
+        return {"token": NamedSharding(mesh, (da, None)),
+                "cache": {k: cache for k in specs()["cache"]},
+                "cache_len": NamedSharding(mesh, ())}
+
     return Cell(arch_id, shape.name, "lm", "decode", cfg, init, None, step,
-                specs)
+                specs, batch_specs, context)
 
 
 # ---------------------------------------------------------------------------
@@ -270,6 +356,29 @@ def _gnn_cell(arch_id, mod, shape: GraphShape, smoke: bool, device) -> Cell:
         return GraphBatch(n_nodes=n, n_graphs=n_graphs, labels=labels,
                           **base)
 
+    def batch_specs(mesh):
+        r = dist_rules.logical_rules(mesh, family)
+        node_sh = NamedSharding(mesh, (r["nodes"],))
+        node2 = NamedSharding(mesh, (r["nodes"], None))
+        rep = NamedSharding(mesh, ())
+        by_key = {"senders": NamedSharding(mesh, (r["edges"],)),
+                  "receivers": NamedSharding(mesh, (r["edges"],)),
+                  "edge_mask": NamedSharding(mesh, (r["edges"],)),
+                  "edges": NamedSharding(mesh, (r["edges"], None)),
+                  "node_mask": node_sh, "species": node_sh,
+                  "graph_ids": node_sh, "nodes": node2, "positions": node2}
+        def pick(key, spec):
+            if key == "labels":
+                return (node2 if len(spec.shape) == 2 else node_sh
+                        if spec.shape[0] == n else rep)
+            return by_key.get(key, rep)
+
+        batch = specs()
+        return dataclasses.replace(batch, **{
+            f.name: pick(f.name, getattr(batch, f.name))
+            for f in dataclasses.fields(batch)
+            if isinstance(getattr(batch, f.name), Spec)})
+
     optimizer = adamw(lr=1e-3, weight_decay=1e-5)
 
     def loss(params, batch):
@@ -278,8 +387,10 @@ def _gnn_cell(arch_id, mod, shape: GraphShape, smoke: bool, device) -> Cell:
     def init_opt(params):
         return optimizer.init(params.tree())
 
+    ctx = _ctx_factory(family)
     return Cell(arch_id, shape.name, family, "train", cfg, init, init_opt,
-                _make_train_step(loss, optimizer), specs)
+                _make_train_step(loss, optimizer), specs, batch_specs,
+                lambda mesh: ctx(mesh, False))
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +420,26 @@ def _recsys_cell(arch_id, mod, shape: RecsysShape, smoke: bool,
             out["item_logq"] = Spec((b,), f32)
         return out
 
+    ctx = _ctx_factory("recsys")
+
+    def context(mesh):
+        return ctx(mesh, False)
+
+    def batch_specs(mesh):
+        da = dist_rules.data_axes(mesh)
+        if shape.mode == "retrieval":
+            return {"user_ids": NamedSharding(mesh, (None, None, None)),
+                    "user_dense": NamedSharding(mesh, (None, None)),
+                    "cand_emb": NamedSharding(mesh,
+                                              (da + ("model",), None))}
+        out = {"user_ids": NamedSharding(mesh, (da, None, None)),
+               "user_dense": NamedSharding(mesh, (da, None)),
+               "item_ids": NamedSharding(mesh, (da,)),
+               "item_dense": NamedSharding(mesh, (da, None))}
+        if shape.mode == "train":
+            out["item_logq"] = NamedSharding(mesh, (da,))
+        return out
+
     if shape.mode == "train":
         optimizer = adamw(lr=1e-3)
 
@@ -319,7 +450,8 @@ def _recsys_cell(arch_id, mod, shape: RecsysShape, smoke: bool,
             return optimizer.init(params.tree())
 
         return Cell(arch_id, shape.name, "recsys", "train", cfg, init,
-                    init_opt, _make_train_step(loss, optimizer), specs)
+                    init_opt, _make_train_step(loss, optimizer), specs,
+                    batch_specs, context)
 
     if shape.mode == "serve":
         @torch.no_grad()
@@ -331,18 +463,18 @@ def _recsys_cell(arch_id, mod, shape: RecsysShape, smoke: bool,
             return recsys_model.retrieval_topk(params, batch, cfg, k=100)
 
     return Cell(arch_id, shape.name, "recsys", shape.mode, cfg, init, None,
-                step, specs)
+                step, specs, batch_specs, context)
 
 
 def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
-               batch: int | None = None, device="cuda") -> Cell:
+               batch: int | None = None, device="cuda", config=None) -> Cell:
     """The ``(arch_id, shape_name)`` cell on ``device`` (the GPU unless the
     caller asks for the CPU); ``batch`` cuts an LM or recsys shape's
-    batch."""
+    batch; ``config`` replaces an LM's config (a cut depth or dtype)."""
     mod = registry.get_module(arch_id)
     shape = registry.shapes_for(arch_id)[shape_name]
     if mod.FAMILY == "gnn":
         return _gnn_cell(arch_id, mod, shape, smoke, device)
     if mod.FAMILY == "recsys":
         return _recsys_cell(arch_id, mod, shape, smoke, batch, device)
-    return _lm_cell(arch_id, mod, shape, smoke, batch, device)
+    return _lm_cell(arch_id, mod, shape, smoke, batch, device, config)

@@ -12,6 +12,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 __all__ = [
     "dense_init",
@@ -86,6 +87,13 @@ def apply_rope(x, positions, theta: float = 10000.0):
         angles = angles.reshape((b,) + (1,) * (x.dim() - 3)
                                 + angles.shape[1:])
     cos, sin = torch.cos(angles), torch.sin(angles)
+    if isinstance(x, DTensor):
+        # the tables are the same on every rank; as DTensors they also
+        # meet the sharded gradient in the backward
+        from torch.distributed.tensor import Replicate
+        rep = [Replicate()] * x.device_mesh.ndim
+        cos, sin = (DTensor.from_local(t, x.device_mesh, rep,
+                                       run_check=False) for t in (cos, sin))
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -95,7 +103,19 @@ def cross_entropy(logits, labels, z_loss: float = 0.0):
     """Mean token cross entropy; logits [..., V] (f32 math), labels int."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if isinstance(logits, DTensor):
+        # a gather on a vocab-sharded DTensor has no sound strategy: sum
+        # the label's logit out of each shard (zeros elsewhere, so the
+        # sum is the logit exactly)
+        from torch.distributed.tensor import Replicate
+        vocab = DTensor.from_local(
+            torch.arange(logits.shape[-1], device=logits.device),
+            logits.device_mesh, [Replicate()] * logits.device_mesh.ndim,
+            run_check=False)
+        hit = vocab == labels[..., None].long()
+        ll = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     loss = (lse - ll).mean()
     if z_loss:
         loss = loss + z_loss * lse.square().mean()

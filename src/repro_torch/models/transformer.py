@@ -30,18 +30,33 @@ runs under ``torch.utils.checkpoint`` (non-reentrant;
 The int8 KV cache (``kv_quant``) holds int8 values and float32 scales per
 position and head, ``{k, v, k_scale, v_scale}``; ``prefill`` still
 returns the unquantized cache, which ``kv_quantize`` turns into one, as in
-the reference.  Sharded execution is not ported (``logical_constraint``
-and ``moe_apply`` do nothing on one device and are dropped).
+the reference.
+
+Sharded: the reference's ``logical_constraint`` and ``moe_apply`` calls
+stand at the same points (``dist/sharding.py``).  With the parameters
+DTensors (placed by ``launch/steps.py``'s ``Cell.param_shardings``) and
+the tokens a DTensor (``Cell.batch_spec_fn``), under ``cell.context(mesh)``
+every function here runs the global computation on the ranks' shards:
+the constraints redistribute the activations, attention runs K4 on each
+rank's local heads, ``moe_ffn`` routes the whole batch, and the embedding
+is looked up on each rank's vocab block (``_lookup``).  The
+int8 cache runs unsharded.  With no context and plain tensors every path
+is what it was.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from ..dist.sharding import (current_context, logical_constraint,
+                             moe_apply, shard_index, sharding_context)
 from ..kernels.flash_attention.ops import attention, decode_attention
 from .common import (
     ACTIVATIONS,
@@ -56,7 +71,8 @@ from .moe import MoEConfig, init_moe, moe_ffn, router_aux_loss
 
 __all__ = ["TransformerConfig", "Transformer", "init_params", "forward",
            "prefill", "decode_step", "init_cache", "params_from_numpy",
-           "params_to_numpy", "loss_fn", "kv_quantize", "kv_dequantize"]
+           "params_to_numpy", "param_shapes", "loss_fn", "kv_quantize",
+           "kv_dequantize"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,6 +258,24 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     return Transformer(tree)
 
 
+def param_shapes(cfg: TransformerConfig) -> dict:
+    """The parameter tree as meta tensors (shapes and dtypes, no storage:
+    ``jax.eval_shape`` of the reference's ``init_params``)."""
+    def meta(*shape, dtype=cfg.dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    tree = {"embed": meta(cfg.vocab, cfg.d_model),
+            "layers": _map(lambda t: meta(cfg.n_layers, *t.shape,
+                                          dtype=t.dtype),
+                           _layer_tree(None, cfg)),
+            "final_norm": {"scale": meta(cfg.d_model)}}
+    if cfg.norm == "layernorm":
+        tree["final_norm"]["bias"] = meta(cfg.d_model)
+    if not cfg.tie_embeddings:
+        tree["unembed"] = meta(cfg.d_model, cfg.vocab)
+    return tree
+
+
 def params_from_numpy(tree: dict, cfg: TransformerConfig,
                       device="cuda") -> Transformer:
     """The JAX package's params tree (leaves as numpy arrays, layers
@@ -280,7 +314,9 @@ def _norm(cfg, x, p):
 
 def _ffn_dense(cfg, p, x):
     act = ACTIVATIONS[cfg.act]
-    return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    h = act(x @ p["w_gate"]) * (x @ p["w_up"])
+    h = logical_constraint(h, "batch", "seq", "ffn")
+    return h @ p["w_down"]
 
 
 def _ffn(cfg, p, x):
@@ -290,7 +326,8 @@ def _ffn(cfg, p, x):
     if cfg.moe is None:
         return _ffn_dense(cfg, p["mlp"], x), None
     b, s, d = x.shape
-    y, aux = moe_ffn(p["moe"], x.reshape(b * s, d), cfg.moe)
+    y, aux = moe_apply(partial(moe_ffn, cfg=cfg.moe), p["moe"],
+                       x.reshape(b * s, d))
     return y.reshape(b, s, d), aux
 
 
@@ -311,12 +348,38 @@ def kv_dequantize(q, s, dtype):
 def _write_cache(cache, at: int, new) -> None:
     """Write ``new`` [B, Hkv, S, X] into ``cache`` at position ``at``, in
     place (JAX's ``dynamic_update_slice`` on a donated buffer does the
-    same)."""
+    same).  A DTensor cache is written shard by shard: each rank writes
+    the positions its block holds."""
     s = new.shape[2]
     if at + s > cache.shape[2]:
         raise ValueError(f"cache of {cache.shape[2]} positions is full at "
                          f"{at} + {s}")
+    if isinstance(cache, DTensor):
+        _write_cache_sharded(cache, at, new)
+        return
     cache[:, :, at:at + s] = new.to(cache.dtype)
+
+
+def _write_cache_sharded(cache, at: int, new) -> None:
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    if not isinstance(new, DTensor) or new.device_mesh != mesh:
+        raise TypeError("a DTensor cache takes a DTensor on its mesh")
+    if any(p.is_partial() or (p.is_shard() and p.dim == 3)
+           for p in cache.placements):
+        raise ValueError(f"a cache laid out {cache.placements}")
+    seq_dims = [i for i, p in enumerate(cache.placements) if p == Shard(2)]
+    want = tuple(Replicate() if i in seq_dims else p
+                 for i, p in enumerate(cache.placements))
+    local = new.redistribute(mesh, want).to_local()
+    block = cache.to_local()
+    m = block.shape[2]
+    first = shard_index(mesh, seq_dims) * m
+    lo, hi = max(at, first), min(at + new.shape[2], first + m)
+    if lo < hi:
+        block[:, :, lo - first:hi - first] = \
+            local[:, :, lo - at:hi - at].to(block.dtype)
 
 
 def _attention_block(cfg, p, h, positions, kv_cache=None, cache_len=None):
@@ -333,12 +396,17 @@ def _attention_block(cfg, p, h, positions, kv_cache=None, cache_len=None):
         v = v + p["bv"][None, :, None, :]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = logical_constraint(q, "batch", "heads", "seq", None)
+    k = logical_constraint(k, "batch", "kv_heads", "seq", None)
+    v = logical_constraint(v, "batch", "kv_heads", "seq", None)
     if kv_cache is None:
         o = attention(q, k, v, causal=True, softcap=cfg.attn_softcap)
         new_kv = (k, v)
     elif len(kv_cache) == 4:
         # int8 cache: quantize the new rows, attend to the dequantized cache
         ck, cv, cks, cvs = kv_cache
+        if isinstance(ck, DTensor):
+            raise ValueError("the int8 KV cache runs unsharded")
         qk, sk = kv_quantize(k)
         qv, sv = kv_quantize(v)
         for cache, new in ((ck, qk), (cv, qv), (cks, sk), (cvs, sv)):
@@ -355,7 +423,7 @@ def _attention_block(cfg, p, h, positions, kv_cache=None, cache_len=None):
                              softcap=cfg.attn_softcap)
         new_kv = kv_cache
     out = torch.einsum("bhsk,hkd->bsd", o.to(h.dtype), p["wo"])
-    return out, new_kv
+    return logical_constraint(out, "batch", "seq", "embed"), new_kv
 
 
 def _layer_apply(cfg, p, x, positions, kv_cache=None, cache_len=None):
@@ -366,10 +434,13 @@ def _layer_apply(cfg, p, x, positions, kv_cache=None, cache_len=None):
                                         kv_cache, cache_len)
     if cfg.parallel_block:
         ff_out, aux = _ffn(cfg, p, h)
-        return x + attn_out + ff_out, new_kv, aux
-    x = x + attn_out
-    ff_out, aux = _ffn(cfg, p, _norm(cfg, x, p["ln2"]))
-    return x + ff_out, new_kv, aux
+        x = x + attn_out + ff_out
+    else:
+        x = x + attn_out
+        ff_out, aux = _ffn(cfg, p, _norm(cfg, x, p["ln2"]))
+        x = x + ff_out
+    x = logical_constraint(x, "batch", "seq", "embed")
+    return x, new_kv, aux
 
 
 def _unembed(params, cfg, x):
@@ -381,6 +452,59 @@ def _softcap_logits(cfg, logits):
     if cfg.logit_softcap:
         return cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def _embed(params, tokens, cfg):
+    """The scaled embedding rows of ``tokens``, laid out (batch, seq,
+    embed); a DTensor table is looked up per rank (:func:`_lookup`)."""
+    table = params["embed"]
+    rows = (_lookup(table, tokens) if isinstance(table, DTensor)
+            else table[tokens.long()])
+    x = rows.to(cfg.dtype) * cfg.emb_scale
+    return logical_constraint(x, "batch", "seq", "embed")
+
+
+def _lookup(table, tokens):
+    """``table[tokens]`` for a DTensor table (rows split over some mesh
+    dims, or replicated) and DTensor tokens (split over others), on each
+    rank's own blocks: a rank gathers its tokens' rows from its vocab
+    block, zero where another block holds them, and the rows are partial
+    sums over the vocab dims (DTensor's masked lookup, written out: its
+    strategies differ between torch versions).  A replicated table is
+    indexed as the unsharded path indexes it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    if not isinstance(tokens, DTensor) or \
+            tokens.device_mesh != table.device_mesh:
+        raise TypeError("a DTensor embedding takes DTensor tokens on its "
+                        "mesh")
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements) if p.is_shard()]
+    tok = [i for i, p in enumerate(tokens.placements) if p.is_shard()]
+    if any(p != Shard(0) for i, p in enumerate(table.placements)
+           if i in vocab) or any(p != Shard(0) for i, p in
+                                 enumerate(tokens.placements) if i in tok):
+        raise ValueError(f"an embedding table laid out {table.placements} "
+                         f"with tokens {tokens.placements}")
+    if set(vocab) & set(tok):
+        raise ValueError("tokens and vocab split over the same mesh dim")
+    n = mesh.ndim
+    local = table.to_local(grad_placements=[
+        Shard(0) if i in vocab else Partial() if i in tok else Replicate()
+        for i in range(n)])
+    ids = tokens.to_local().long()
+    if vocab:
+        ids = ids - shard_index(mesh, vocab) * local.shape[0]
+        inside = (ids >= 0) & (ids < local.shape[0])
+        rows = torch.where(inside[..., None], local[ids.clamp(
+            0, local.shape[0] - 1)], 0)
+    else:
+        rows = local[ids]
+    return DTensor.from_local(
+        rows, mesh, [Partial() if i in vocab else p
+                     for i, p in enumerate(tokens.placements)],
+        shape=(*tokens.shape, table.shape[1]),
+        stride=(*(st * table.shape[1] for st in tokens.stride()), 1))
 
 
 def _block(cfg, p, x, positions):
@@ -414,14 +538,23 @@ def _layer_fn(cfg):
     from torch.utils.checkpoint import checkpoint
 
     kw = {"context_fn": _save_dots} if cfg.remat_policy == "dots" else {}
-    return lambda *a: checkpoint(_block, *a, use_reentrant=False, **kw)
+    ctx = current_context()
+    if ctx is None:
+        return lambda *a: checkpoint(_block, *a, use_reentrant=False, **kw)
+
+    def block(*a):
+        # the backward recomputes on the autograd engine's device thread,
+        # which has no sharding context of its own: bind the forward's
+        with sharding_context(ctx["mesh"], ctx["rules"], ctx["plan"]):
+            return _block(*a)
+    return lambda *a: checkpoint(block, *a, use_reentrant=False, **kw)
 
 
 def forward(params: Transformer, tokens, cfg: TransformerConfig):
     """Training/prefill forward.  tokens [B, S] -> (logits [B, S, V],
     aux): aux is the MoE router statistics averaged over the layers, None
     for a dense FFN.  Differentiable when the parameters require grad."""
-    x = params["embed"][tokens.long()].to(cfg.dtype) * cfg.emb_scale
+    x = _embed(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)
     layer = _layer_fn(cfg)
     auxs = []
@@ -430,6 +563,7 @@ def forward(params: Transformer, tokens, cfg: TransformerConfig):
         auxs.append(aux)
     x = _norm(cfg, x, params["final_norm"])
     logits = _softcap_logits(cfg, _unembed(params, cfg, x))
+    logits = logical_constraint(logits, "batch", "seq", "vocab")
     if cfg.moe is None:
         return logits, None
     return logits, {k: torch.stack([a[k] for a in auxs]).mean(0)
@@ -471,8 +605,10 @@ def prefill(params: Transformer, tokens, cfg: TransformerConfig,
     the reference.  No ``logit_softcap``, as in the reference's prefill
     (its ``decode_step`` and ``forward`` apply it)."""
     b, s = tokens.shape
-    x = params["embed"][tokens.long()].to(cfg.dtype) * cfg.emb_scale
+    x = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=x.device)
+    if isinstance(x, DTensor):
+        return _prefill_sharded(params, x, positions, cfg, max_len)
     cache = init_cache(dataclasses.replace(cfg, kv_quant=False), b, max_len,
                        device=x.device)
     for i, p in enumerate(params.layer_params()):
@@ -483,13 +619,43 @@ def prefill(params: Transformer, tokens, cfg: TransformerConfig,
     return _unembed(params, cfg, x), cache
 
 
+def _prefill_sharded(params, x, positions, cfg, max_len: int):
+    """``prefill`` on DTensors: each layer's k/v padded to ``max_len``
+    positions and stacked, as the reference's scan does, in the layout
+    attention left them ([batch, kv_heads]).  The padding and the stack
+    run on each rank's blocks (the positions are not split)."""
+    from torch.distributed.tensor import Shard
+
+    ks, vs = [], []
+    pad = max_len - x.shape[1]
+    for p in params.layer_params():
+        x, (k, v), _ = _layer_apply(cfg, p, x, positions)
+        ks.append(k)
+        vs.append(v)
+    x = _norm(cfg, x[:, -1:, :], params["final_norm"])
+
+    def stacked(ts):
+        t = ts[0]
+        if any(q.is_partial() or (q.is_shard() and q.dim >= 2)
+               for q in t.placements):
+            raise ValueError(f"a KV block laid out {t.placements}")
+        local = torch.stack([F.pad(u.to_local(), (0, 0, 0, pad))
+                             for u in ts])
+        shape = (len(ts), *t.shape[:2], max_len, t.shape[3])
+        return DTensor.from_local(
+            local, t.device_mesh, [Shard(q.dim + 1) if q.is_shard() else q
+                                   for q in t.placements],
+            shape=shape, stride=torch.empty(shape, device="meta").stride())
+    return _unembed(params, cfg, x), {"k": stacked(ks), "v": stacked(vs)}
+
+
 @torch.no_grad()
 def decode_step(params: Transformer, token, cache: dict, cache_len: int,
                 cfg: TransformerConfig):
     """One-token decode.  token [B, 1]; cache leaves [L, B, Hkv, M, hd]
     (with ``kv_quant`` the int8 cache of :func:`init_cache`), updated in
     place at position ``cache_len``.  Returns (logits [B, 1, V], cache)."""
-    x = params["embed"][token.long()].to(cfg.dtype) * cfg.emb_scale
+    x = _embed(params, token, cfg)
     positions = torch.full((token.shape[0], 1), int(cache_len),
                            dtype=torch.int32, device=x.device)
     names = ("k", "v", "k_scale", "v_scale") if cfg.kv_quant else ("k", "v")

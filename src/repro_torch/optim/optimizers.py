@@ -11,6 +11,12 @@ Adafactor factors a stacked norm scale and clips each update by its RMS
 over all L layers, as JAX does on its scanned parameters.  The update
 math is elementwise tensor code with reductions: plain PyTorch, as it is
 plain XLA in the reference.
+
+DTensor leaves (a sharded model): the states are DTensors laid out as
+their parameters (an Adafactor row or column moment drops the reduced
+dim's split), every reduction is DTensor's, so Adafactor's factored
+moments, its update clipping and the global norm are the whole tensor's,
+not a shard's, and each update comes back in its parameter's layout.
 """
 
 from __future__ import annotations
@@ -20,12 +26,13 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 __all__ = [
     "Optimizer", "adamw", "adafactor", "sgd", "cosine_schedule",
     "linear_warmup", "clip_by_global_norm", "global_norm",
     "compress_int8", "decompress_int8", "GradAccumulator", "tree_map",
-    "tree_leaves",
+    "tree_leaves", "zeros_f32", "laid_out_as",
 ]
 
 
@@ -56,6 +63,36 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, list):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def zeros_f32(p, drop: int | None = None):
+    """float32 zeros shaped as ``p`` or, with ``drop``, as ``p`` without
+    that dim; for a DTensor ``p`` a DTensor laid out as ``p`` (a split of
+    the dropped dim becomes a replica)."""
+    shape = tuple(p.shape)
+    if drop is not None:
+        drop %= len(shape)
+        shape = shape[:drop] + shape[drop + 1:]
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard, zeros
+
+    pl = []
+    for q in p.placements:
+        if drop is not None and q.is_shard() and q.dim >= drop:
+            q = Replicate() if q.dim == drop else Shard(q.dim - 1)
+        pl.append(q)
+    return zeros(shape, dtype=torch.float32, device_mesh=p.device_mesh,
+                 placements=pl)
+
+
+def laid_out_as(x, like):
+    """``x`` redistributed to the layout of ``like`` when both are
+    DTensors (a reduction may leave a partial or a replica); else ``x``."""
+    if isinstance(x, DTensor) and isinstance(like, DTensor) and \
+            tuple(x.placements) != tuple(like.placements):
+        return x.redistribute(like.device_mesh, like.placements)
+    return x
 
 
 def global_norm(tree):
@@ -97,9 +134,8 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0):
     lr_fn = _lr_fn(lr)
 
     def init(params):
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
+        return {"mu": tree_map(zeros_f32, params),
+                "nu": tree_map(zeros_f32, params)}
 
     def update(grads, state, params, step):
         t = float(step) + 1.0
@@ -113,7 +149,7 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0):
             u = (m / (1 - b1 ** t)) / (torch.sqrt(v / (1 - b2 ** t)) + eps)
             if weight_decay:
                 u = u + weight_decay * p.float()
-            return (-lr_t * u).to(p.dtype)
+            return laid_out_as((-lr_t * u).to(p.dtype), p)
 
         return tree_map(upd, params, mu, nu), {"mu": mu, "nu": nu}
 
@@ -128,11 +164,9 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0):
 
     def init(params):
         def st(p):
-            z = dict(dtype=torch.float32, device=p.device)
             if p.dim() >= 2:
-                return {"vr": torch.zeros(p.shape[:-1], **z),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
-            return {"v": torch.zeros(p.shape, **z)}
+                return {"vr": zeros_f32(p, -1), "vc": zeros_f32(p, -2)}
+            return {"v": zeros_f32(p)}
         return tree_map(st, params)
 
     def update(grads, state, params, step):
@@ -150,14 +184,15 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0):
                          / torch.clamp(vr.mean(-1)[..., None, None],
                                        min=eps))
                 u = gf * torch.rsqrt(denom + eps)
-                new_s = {"vr": vr, "vc": vc}
+                new_s = {"vr": laid_out_as(vr, s["vr"]),
+                         "vc": laid_out_as(vc, s["vc"])}
             else:
                 v = beta * s["v"] + (1 - beta) * g2
                 u = gf * torch.rsqrt(v + eps)
                 new_s = {"v": v}
             rms = torch.sqrt(u.square().mean() + 1e-12)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            return (-lr_t * u).to(p.dtype), new_s
+            return laid_out_as((-lr_t * u).to(p.dtype), p), new_s
 
         out = tree_map(upd, params, grads, state)   # (update, state) leaves
         return tree_map(lambda o: o[0], out), tree_map(lambda o: o[1], out)
@@ -169,8 +204,7 @@ def sgd(lr=1e-2, momentum=0.9, nesterov=False):
     lr_fn = _lr_fn(lr)
 
     def init(params):
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device), params)
+        return tree_map(zeros_f32, params)
 
     def update(grads, state, params, step):
         lr_t = lr_fn(step)
@@ -208,8 +242,7 @@ class GradAccumulator:
     n_micro: int
 
     def init(self, params):
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device), params)
+        return tree_map(zeros_f32, params)
 
     def add(self, acc, grads):
         return tree_map(lambda a, g: a + g.float() / self.n_micro, acc,

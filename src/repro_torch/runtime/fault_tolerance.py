@@ -9,10 +9,9 @@
   loop polls; the loop snapshots and exits cleanly (spot/preemptible-safe).
 * :func:`largest_mesh_shape` — the elastic down-scaling policy: the largest
   (data, model) mesh on the surviving devices.
-
-The reference's ``ElasticScaler`` restores a checkpoint onto a new sharded
-mesh; it comes with the sharded runtime (``dist/``, ROADMAP queue 1 item
-12).
+* :class:`ElasticScaler` — rebuilds that mesh over the surviving ranks and
+  restores a checkpoint onto it, each leaf distributed by a sharding
+  function (``CheckpointManager.restore(..., shardings=)``).
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ import threading
 import time
 
 __all__ = ["HeartbeatMonitor", "StragglerMonitor", "PreemptionGuard",
-           "largest_mesh_shape"]
+           "largest_mesh_shape", "ElasticScaler"]
 
 
 class HeartbeatMonitor:
@@ -139,3 +138,42 @@ def largest_mesh_shape(n_devices: int, model_parallel: int = 16):
     while mp > 1 and n_devices % mp != 0:
         mp //= 2
     return (max(1, n_devices // mp), mp)
+
+
+class ElasticScaler:
+    """Rebuild the mesh and restore a checkpoint after a membership
+    change."""
+
+    def __init__(self, checkpoint_manager, axis_names=("data", "model")):
+        self.ckpt = checkpoint_manager
+        self.axis_names = axis_names
+
+    def rescale(self, target, sharding_fn, world=None, step=None):
+        """Restore ``target``'s structure onto the largest mesh of the
+        surviving ranks.  Returns ``(tree, mesh, step)``.
+
+        world: the surviving global ranks (default: every rank of the
+        default process group); every rank of the group calls
+        ``rescale`` (the mesh's groups are made collectively), and a rank
+        outside the new mesh gets ``(None, mesh, step)``.
+        sharding_fn(mesh, target) -> a tree of ``NamedSharding`` matching
+        ``target``'s leaves (e.g. ``Cell.param_shardings``).  The mesh's
+        device type is that of ``target``'s tensors."""
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from ..checkpoint.manager import flatten
+
+        world = (list(world) if world is not None
+                 else list(range(dist.get_world_size())))
+        shape = largest_mesh_shape(len(world))
+        ranks = torch.tensor(world[: shape[0] * shape[1]]).reshape(shape)
+        leaf = next(iter(flatten(target).values()))
+        mesh = DeviceMesh(leaf.device.type, ranks,
+                          mesh_dim_names=self.axis_names)
+        if dist.get_rank() not in ranks.flatten().tolist():
+            return None, mesh, step
+        tree, step = self.ckpt.restore(target, step=step,
+                                       shardings=sharding_fn(mesh, target))
+        return tree, mesh, step

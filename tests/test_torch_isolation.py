@@ -71,7 +71,9 @@ def test_the_port_has_modules():
                 "models/gnn/gatedgcn.py", "models/gnn/meshgraphnet.py",
                 "models/gnn/mace.py", "models/gnn/equiformer_v2.py",
                 "configs/gatedgcn.py", "configs/meshgraphnet.py",
-                "configs/mace.py", "configs/equiformer_v2.py"):
+                "configs/mace.py", "configs/equiformer_v2.py",
+                "dist/rules.py", "dist/sharding.py", "dist/pipeline.py",
+                "dist/compressed_dp.py"):
         assert mod in names
 
 
@@ -145,6 +147,28 @@ def test_dryrun_and_mesh_default_to_the_card():
 
     assert dryrun_diffusion.parser().parse_args([]).device == "cuda"
     for fn in (dryrun_diffusion.build_cell, dryrun_diffusion.dry_run,
-               mesh.make_production_mesh):
+               mesh.make_production_mesh, mesh.lm_mesh):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn.__qualname__
+
+
+def test_sharding_modules_import_no_jax():
+    """The sharding layer (``dist/``, the mesh helper, ``ElasticScaler``)
+    imports neither ``jax`` nor ``repro``: checked here in a fresh
+    interpreter, where importing them must leave both unloaded."""
+    import subprocess
+    import sys
+
+    prog = ("import sys\n"
+            "import repro_torch.dist.rules, repro_torch.dist.sharding\n"
+            "import repro_torch.dist.pipeline, repro_torch.dist.compressed_dp\n"
+            "import repro_torch.dist.moe_parallel, repro_torch.launch.mesh\n"
+            "import repro_torch.runtime.fault_tolerance\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
