@@ -325,6 +325,22 @@ kernels line and the final result line):
    gradients; ``ElasticScaler`` restoring the four-rank snapshot onto 2
    ranks bitwise.  Two K4 rows (the rank's shape, the world of one's
    step), at most 150 s.
+5j. the sharded GNN and two-tower families and the model dry-run
+   (``phase_sharded_models``): four gloo ranks on the card, mesh (2, 2):
+   mace and equiformer-v2 on molecule (f32, ``spmd_edges``, 16 channel
+   groups, the batch laid out by receiver block), gatedgcn on
+   full_graph_sm and the two-tower model at B 8,192 (tables split by rows)
+   one adamw step each against the unsharded step: loss within 2e-5,
+   gradients within 1e-4, parameters within 3e-6 where |g| >= 1e-4 (2 lr
+   below: adamw's first update divides by |g| + 1e-8); K5 launched, its
+   first launch bitwise its plain version on the rank's inputs.  Then
+   ``repro_torch.launch.dryrun`` on one rank of 256 (dry group) in
+   subprocesses: mace x ogb_products and equiformer-v2 x minibatch_lg
+   (while the ranks run), grok-1-314b and command-r-plus-104b (64 layers)
+   x train_4k: bytes, FLOPs, collectives, or the rank's out-of-memory
+   error (a finding; any other failure fails the phase).  K5 and K4 held
+   against their plain versions on those ranks' kept inputs; three
+   kernels-line rows at the ranks' shapes.
 
 With ``--profile``, each trace also gives K1's, K2's, K4's and K5's
 device time and their share of the busy and the wall time (K5's level
@@ -334,7 +350,7 @@ the engine's ``repro_torch.*`` ranges (relax, outbox_merge, receive,
 counters, poll, exchange, the phase-2 combines).
 
 With ``--cpu-rehearsal`` the same phases run on the CPU on the kernels'
-plain versions at tiny sizes (the serving phases, 4h, 5e-5i on the smoke
+plain versions at tiny sizes (the serving phases, 4h, 5e-5j on the smoke
 configs and shapes).
 Any failed check raises, so the script exits nonzero and prints no result.
 Without a CUDA device it exits 2 before doing anything.
@@ -343,6 +359,7 @@ Without a CUDA device it exits 2 before doing anything.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -5205,7 +5222,8 @@ def recsys_batch(cfg, b: int, seed: int, device, keys=None) -> dict:
             if keys is None or k in keys}
 
 
-def k5_bag_rows(cfg, params, batch, launches: dict, device, reps) -> list:
+def k5_bag_rows(cfg, params, batch, launches: dict, device, reps,
+                tag: str | None = None) -> list:
     """K5 at train_batch's bag shape, through the sorts the model's calls
     make: the forward (the user table [V, D] read through the slots of
     ``batch``'s user bags into B F bags) and the table gradient (a seeded
@@ -5294,6 +5312,8 @@ def k5_bag_rows(cfg, params, batch, launches: dict, device, reps) -> list:
                 f"f32 through [{e}] slots into {n})" if direction == "bag"
                 else f"segment_sum_sorted (two-tower table gradient: "
                 f"[{n}, {d}] f32 through [{e}] slots into {vocab})")
+        if tag:
+            name = name.replace("(two-tower", f"({tag}: two-tower")
         row = kernel_row(name, K5_SOURCE, K5_REPLACES,
                          launches.get(shape, 0), 0.0, k_ms, p_ms, nbytes,
                          e * d, lib_ms)
@@ -5809,33 +5829,13 @@ def recording_kept():
 
 
 @contextlib.contextmanager
-def recording_k4():
-    """The K4 wrapper as ``ops.attention`` calls it, wrapped to keep each
-    launch's q/k/v shapes and the first launch's inputs (references: no
-    device work, no launch)."""
-    from unittest import mock
-
-    from repro_torch.kernels.flash_attention import ops
-
-    calls, real = [], ops.flash_attention
-
-    def recorded(q, k, v, **kw):
-        calls.append((tuple(q.shape), tuple(k.shape),
-                      (q.detach(), k.detach(), v.detach(), kw)
-                      if not calls else None))
-        return real(q, k, v, **kw)
-
-    with mock.patch.object(ops, "flash_attention", recorded):
-        yield calls
-
-
-@contextlib.contextmanager
 def recording_comms():
     """A dispatch mode that books the collectives run inside it by op
     (``_c10d_functional::*``, DTensor's, and ``c10d::*``, the explicit
-    ones): {op: [calls, bytes of their tensor arguments]}.  Every op
-    passes through Python while it is on, so a step under it runs
-    slower."""
+    ones): {op: [calls, bytes of their tensor arguments]}.  A collective
+    DTensor runs inside an op's dispatch in C++ is not seen, so the book
+    is a floor (``repro_torch.dist.comms.BookedGroup``, a process group,
+    sees them all)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
 
@@ -5856,6 +5856,24 @@ def recording_comms():
 
     with Book():
         yield book
+
+
+def grads_on_host():
+    """:func:`grads_of_step` keeping host copies of the rank's blocks (the
+    card keeps only what the step itself holds)."""
+    from unittest import mock
+
+    from repro_torch.launch import steps
+    from repro_torch.optim import tree_map
+
+    seen, real = [], steps.clip_by_global_norm
+
+    def recorded(tree, max_norm):
+        seen.append(tree_map(lambda g: (g.to_local() if hasattr(
+            g, "to_local") else g).detach().cpu(), tree))
+        return real(tree, max_norm)
+
+    return mock.patch.object(steps, "clip_by_global_norm", recorded), seen
 
 
 def grads_of_step():
@@ -6050,20 +6068,25 @@ def _sharded_rank(args, rank: int, out: Path, device) -> dict:
     print(f"5i rank {rank}: step", file=sys.stderr, flush=True)
     b, s = (4, 64) if args.cpu_rehearsal else (4, 1024)
     t = time.perf_counter()
-    with recording_k4() as k4_calls, recording_comms() as comms:
+    with k4.recording() as k4_calls, recording_comms() as comms:
         loss, params, opt, cell, launches, grads = _tiny_step(
             args, device, mesh, SHARD_LAYERS, torch.float32, b, s)
     rep["step_s"] = time.perf_counter() - t     # with the book on
     rep["step_comms"] = comms
     rep["loss"] = float(loss.full_tensor())
     rep["k4_launches"] = launches
-    rep["k4_shapes"] = sorted({(q, kv) for q, kv, _ in k4_calls})
-    q, k, v, kw = k4_calls[0][2]
-    got = k4.flash_attention(q, k, v, **kw)     # read after the counts
-    err, ok = k4_err(got, k4_ref.flash_attention_ref(q, k, v, **kw),
-                     q, k, v, **kw)
-    rep["k4_err"], rep["k4_ok"] = err, bool(ok)
-    del got, q, k, v, k4_calls
+    # each launch's local q [B, Hq, Sq, D] and its kv heads
+    rep["k4_shapes"] = sorted({(sh[:3] + (sh[4],), sh[7])
+                               for sh, _ in k4_calls})
+    rep["k4_err"], rep["k4_ok"] = None, not k4_calls   # no launch: the CPU
+    if k4_calls:
+        (q, k, v), kw = k4_calls[0][1]
+        got = k4.flash_attention(q, k, v, **kw)     # read after the counts
+        err, ok = k4_err(got, k4_ref.flash_attention_ref(q, k, v, **kw),
+                         q, k, v, **kw)
+        rep["k4_err"], rep["k4_ok"] = err, bool(ok)
+        del got, q, k, v
+    del k4_calls
     want = torch.load(out / "expect.pt", map_location=device)
     now = full_tree(params.tree())
     rep["param_err"] = max(
@@ -6304,8 +6327,9 @@ def phase_sharded(args, device, reps: int) -> tuple[dict, list]:
               r["k4_ok"],
               f"5i (b): rank {r['rank']}: K4 launched {r['k4_launches']} "
               f"times, its check {r['k4_err']}")
-        check([list(q) for q, _ in r["k4_shapes"]] == [local_q] and
-              all(kv[1] == hkv for _, kv in r["k4_shapes"]),
+        check(device.type != "cuda" or (
+            [list(q) for q, _ in r["k4_shapes"]] == [local_q] and
+            all(kv == hkv for _, kv in r["k4_shapes"])),
               f"5i (b): rank {r['rank']}'s K4 shapes {r['k4_shapes']}")
         check(r["layer_kept_same"] and r["layer_err"] <= 2e-5 and (
             r["layer_dropped"] > 0 or args.cpu_rehearsal),
@@ -6440,6 +6464,476 @@ def _sharded_one(args, device, shard_dir: Path) -> dict:
         dist.destroy_process_group()
     free_card(device)
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 5j: the sharded GNN and two-tower families, the model dry-run
+# --------------------------------------------------------------------------
+
+SM_RANKS, SM_MESH = 4, (2, 2)
+SM_CASES = ("mace", "equiformer-v2", "gatedgcn", "two-tower-retrieval")
+SM_TT_BATCH, SM_GROUPS = 8192, 16
+# the gradients as the CPU tests hold the reference's (1e-4, scaled)
+SM_LOSS_TOL, SM_PARAM_TOL, SM_GRAD_TOL = 2e-5, 3e-6, 1e-4
+# adamw's first update is lr g / (|g| + 1e-8): a gradient error dg moves it
+# by lr 1e-8 dg / g^2, under 3e-6 for |g| >= 1e-4 and dg up to 3e-3, but
+# by up to lr where g nears 0: below this floor the parameters are held
+# to 2 lr
+SM_G_FLOOR, SM_NOISY_TOL = 1e-4, 2e-3
+# the dry-run's cells, one rank of 256: the GNNs run while the ranks do
+# (a few GB of the card), the LMs after them (up to all of it)
+DRY_GNN = ("mace:ogb_products", "equiformer-v2:minibatch_lg")
+DRY_LM = ("grok-1-314b:train_4k", "command-r-plus-104b:train_4k")
+
+
+def sm_cell(args, arch: str, device):
+    """(cell, batch on ``device``) of a 5j case at its published widths:
+    mace and equiformer-v2 on molecule in float32 with ``spmd_edges`` and
+    ``channel_groups`` 16 forced on (as the large cells set them; 4 at
+    the rehearsal's smoke widths), the batch laid out by receiver block
+    for the mesh's data shards; gatedgcn on full_graph_sm; the two-tower
+    model's train_batch cut to ``SM_TT_BATCH`` rows."""
+    import dataclasses
+
+    from repro_torch.launch import steps, train
+
+    smoke = args.cpu_rehearsal
+    if arch == "two-tower-retrieval":
+        b = 8 if smoke else SM_TT_BATCH
+        cell = steps.build_cell(arch, "train_batch", smoke=smoke, batch=b,
+                                device=device)
+        return cell, recsys_batch(cell.config, b, args.seed + 20, device)
+    shape = "molecule" if arch != "gatedgcn" else "full_graph_sm"
+    cell = steps.build_cell(arch, shape, smoke=smoke, device=device)
+    if arch != "gatedgcn":
+        cfg = dataclasses.replace(cell.config, spmd_edges=True,
+                                  channel_groups=4 if smoke else SM_GROUPS,
+                                  dtype=torch.float32)
+        cell = steps.build_cell(arch, shape, smoke=smoke, device=device,
+                                config=cfg)
+    host = train.gnn_batch(cell, args.seed + 21, data_shards=SM_MESH[0])
+    return cell, host.map(lambda a: torch.from_numpy(a).to(device))
+
+
+def k5_held(args_kw) -> tuple[bool, float]:
+    """K5 on a recorded launch's inputs against its plain version: (bitwise,
+    max abs difference)."""
+    from repro_torch.kernels.segment_reduce import kernel, ref
+
+    (values, ids, n), kw = args_kw
+    got = kernel.segment_sum_sorted(values, ids, n, **kw)
+    want = ref.segment_sum_sorted_ref(values, ids, n, **kw)
+    return (same_tensor_bits(got, want),
+            float((got.float() - want.float()).abs().max()))
+
+
+def _sm_place(cell, mesh, params, batch):
+    from repro_torch.launch import steps
+    from repro_torch.models.gnn.common import GraphBatch
+
+    params = steps.place(params, cell.param_shardings(mesh, params))
+    specs = cell.batch_spec_fn(mesh)
+    if isinstance(batch, GraphBatch):
+        return params, dataclasses.replace(batch, **{
+            k: steps.distribute(v, mesh, getattr(specs, k).placements)
+            for k, v in batch.fields().items()})
+    return params, steps.place(batch, {k: specs[k] for k in batch})
+
+
+def sm_rank(rank: int, ranks: int, out_dir: str, rehearsal: bool,
+            seed: int, device: str) -> None:
+    """One of phase 5j's four ``gloo`` ranks on the one card
+    (``torch.multiprocessing`` spawns it; see :func:`phase_sharded_models`).
+    Rank 0 writes ``ranks.json``."""
+    import datetime
+    import faulthandler
+
+    import torch.distributed as dist
+
+    faulthandler.enable(all_threads=True)
+    sys.path.insert(0, str(ROOT / "src"))
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out = Path(out_dir)
+    dist.init_process_group("gloo", init_method=f"file://{out / 'store'}",
+                            rank=rank, world_size=ranks,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        args = argparse.Namespace(cpu_rehearsal=rehearsal, seed=seed)
+        try:
+            rep = _sm_rank(args, rank, out, torch.device(device))
+        except Exception:
+            import traceback
+            rep = {"error": traceback.format_exc()}
+        reps = [None] * ranks
+        dist.all_gather_object(reps, rep)
+        if rank == 0:
+            (out / "ranks.json").write_text(json.dumps(reps))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sm_rank(args, rank: int, out: Path, device) -> dict:
+    """One rank's steps of :func:`phase_sharded_models` (b): each case's
+    step on the (2, 2) mesh, its loss and its parameters' blocks against
+    the world of one's, K5's launches, the first held against its plain
+    version on the rank's own inputs."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro_torch.checkpoint.manager import flatten
+    from repro_torch.kernels.segment_reduce import kernel as k5
+    from repro_torch.launch.mesh import lm_mesh
+
+    mesh = lm_mesh(SM_MESH, device)
+    deadline = time.time() + 900
+    while not (out / "go").exists():
+        if time.time() > deadline:
+            raise TimeoutError("5j: no references from the world of one")
+        time.sleep(0.2)
+    rep = {"rank": rank}
+    for arch in SM_CASES:
+        print(f"5j rank {rank}: {arch}", file=sys.stderr, flush=True)
+        t = time.perf_counter()
+        cell, batch = sm_cell(args, arch, device)
+        params, batch = _sm_place(cell, mesh, cell.init_params(args.seed + 22),
+                                  batch)
+        opt = cell.init_opt(params)
+        sync(device)
+        k5.reset_launches()
+        t_step = time.perf_counter()
+        patch, seen = grads_on_host()
+        with k5.recording() as calls, patch, cell.context(mesh):
+            params, opt, m = cell.step(params, opt, 0, batch)
+        sync(device)
+        row = {"step_s": time.perf_counter() - t_step,
+               "k5_launches": k5.LAUNCHES["segment_sum_sorted"],
+               "k5_by_shape": [[list(c), n] for c, n in sorted(
+                   collections.Counter(c for c, _ in calls).items())],
+               "loss": float(m["loss"].to_local())}
+        if calls:
+            row["k5_bitwise"], row["k5_err"] = k5_held(calls[0][1])
+        del calls
+        want = torch.load(out / f"expect_{arch}.pt", mmap=True)
+        row["loss_rel"] = abs(row["loss"] - float(want["loss"])) / abs(
+            float(want["loss"]))
+        errs = {"grad_err": 0.0, "param_err": 0.0, "noisy_param_err": 0.0}
+        noisy, worst = 0, None
+        grads = flatten(seen[0])
+        with torch.no_grad():
+            for name, p in flatten(params.tree()).items():
+                shape, off = compute_local_shape_and_global_offset(
+                    p.shape, p.device_mesh, p.placements)
+                at = tuple(slice(o, o + n) for o, n in zip(off, shape))
+                w = want["params"][name][at].to(device).float()
+                gw = want["grads"][name][at].to(device).float()
+                g = grads[name].to(device).float()
+                d = (p.to_local().float() - w).abs() / (1 + w.abs())
+                calm = gw.abs() >= SM_G_FLOOR
+                noisy += int((~calm).sum())
+                for key, v in (
+                        ("grad_err", (g - gw).abs() / (1 + gw.abs())),
+                        ("param_err", torch.where(calm, d, 0.0)),
+                        ("noisy_param_err", torch.where(calm, 0.0, d))):
+                    if v.numel() and float(v.max()) > errs[key]:
+                        errs[key] = float(v.max())
+                        if key == "param_err":
+                            worst = name
+        row.update(errs, param_worst=worst, noisy_params=noisy)
+        del seen, grads
+        if arch == "two-tower-retrieval":
+            row["table_placements"] = str(params.tree()[
+                "user_table"].placements)
+        row["s"] = time.perf_counter() - t
+        rep[arch] = row
+        del params, opt, batch, want
+        free_card(device)
+    return rep
+
+
+def _sm_one(args, device, shard_dir: Path) -> dict:
+    """Phase 5j (a): each case's unsharded step (the world of one's: no
+    mesh, the one path a world of one takes) on the same seeded weights
+    and batch, saved for the ranks."""
+    from repro_torch.checkpoint.manager import flatten
+    from repro_torch.kernels.segment_reduce import kernel as k5
+
+    out = {}
+    for arch in SM_CASES:
+        cell, batch = sm_cell(args, arch, device)
+        params = cell.init_params(args.seed + 22)
+        opt = cell.init_opt(params)
+        sync(device)
+        k5.reset_launches()
+        t = time.perf_counter()
+        patch, seen = grads_on_host()
+        with patch:
+            params, opt, m = cell.step(params, opt, 0, batch)
+        sync(device)
+        out[arch] = {"loss": float(m["loss"]), "s": time.perf_counter() - t,
+                     "k5_launches": k5.LAUNCHES["segment_sum_sorted"]}
+        check(bool(np.isfinite(out[arch]["loss"])),
+              f"5j (a): {arch}'s loss {out[arch]['loss']}")
+        torch.save({"loss": m["loss"].detach().cpu(),
+                    "params": {n: v.detach().cpu() for n, v in
+                               flatten(params.tree()).items()},
+                    "grads": flatten(seen[0])},
+                   shard_dir / f"expect_{arch}.pt")
+        del params, opt, batch, seen
+        free_card(device)
+    return out
+
+
+def _dry_models(args, device, cells, keep: Path, log: Path):
+    """``python -m repro_torch.launch.dryrun`` on ``cells`` (one rank of
+    256, each cell its own dry group), artifacts and the first K4/K5
+    inputs under ``keep``; the process (not waited for)."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "REPRO_ART_DIR": str(keep)}
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+           device.type, "--continue-on-error", "--seed", str(args.seed),
+           "--cells", ",".join(cells), "--keep-inputs", str(keep / "inputs")]
+    if args.cpu_rehearsal:
+        cmd += ["--smoke", "--world", "4"]
+    return subprocess.Popen(cmd, stdout=open(log, "w"),
+                            stderr=subprocess.STDOUT, text=True, cwd=ROOT,
+                            env=env)
+
+
+def _dry_wait(proc, timeout: float = 600) -> None:
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _dry_report(cells, keep: Path, mesh: str, smi: str) -> dict:
+    """Each cell's artifact, checked: it ran, or its rank did not fit the
+    card (a finding, its error kept)."""
+    out = {}
+    for c in cells:
+        arch, shape = c.split(":")
+        rep = json.loads((keep / f"{arch}__{shape}__{mesh}.json")
+                         .read_text())
+        check(rep["ok"] or rep.get("oom"),
+              f"5j: the dry-run of {c} failed: {rep.get('error')}\n"
+              f"{rep.get('traceback', '')[-3000:]}")
+        line = {k: rep.get(k) for k in (
+            "arch", "shape", "mesh", "world", "ok", "oom", "error", "memory",
+            "cost", "collectives", "step_seconds", "launches", "k4_shapes",
+            "k5_shapes", "loss", "before_error")}
+        emit({"phase": "dryrun_models", "nvidia_smi": smi, **line})
+        out[c] = line
+    return out
+
+
+def phase_sharded_models(args, device, reps: int) -> tuple[dict, list]:
+    """Phase 5j (:func:`_sharded_models`); its directory under
+    ``chiprun_out`` (the world of one's parameters, the dry-run's kept
+    inputs) is removed after it, passed or not."""
+    import shutil
+
+    try:
+        return _sharded_models(args, device, reps)
+    finally:
+        for f in (OUT_DIR / "sharded_models").glob("expect_*.pt"):
+            f.unlink()
+        shutil.rmtree(OUT_DIR / "sharded_models" / "dryrun" / "inputs",
+                      ignore_errors=True)
+
+
+def _sharded_models(args, device, reps: int) -> tuple[dict, list]:
+    """Phase 5j: the sharded GNN and two-tower families and the model
+    dry-run.
+
+    (a) The world of one: each case of :func:`sm_cell` (mace and
+    equiformer-v2 on molecule in f32 with ``spmd_edges`` and 16 channel
+    groups, on a batch laid out by receiver block; gatedgcn on
+    full_graph_sm; the two-tower model at B 8,192) one adamw step
+    unsharded, saved under ``chiprun_out/sharded_models``.  (b) Four
+    ``gloo`` ranks on the card, mesh (data 2, model 2): each case's step
+    under ``cell.context(mesh)`` on the placed weights and batch (the
+    two-tower tables split by rows over ``model``): every rank's loss
+    within 2e-5 relative and every parameter block within 3e-6 (max abs,
+    scaled by 1 + |p|) of the world of one's; K5 launched, its first
+    launch bitwise its plain version on the rank's own inputs.  (c) The
+    model dry-run (``repro_torch.launch.dryrun``), one rank of 256 of a
+    dry group, in subprocesses: mace on ogb_products and equiformer-v2 on
+    minibatch_lg (while (b) runs), then grok-1-314b and
+    command-r-plus-104b (64 layers) train_4k: each artifact's bytes,
+    FLOPs and collectives printed; a rank that does not fit the card is a
+    finding (its error printed), any other failure fails the phase.
+    Then K5 on mace's rank's first launch and K4 on command-r's, each held
+    against its plain version on those inputs, and three kernels-line
+    rows at the ranks' shapes: K5 at mace ogb_products's rank, K5 at a
+    two-tower rank's row block (forward and table gradient), K4 at
+    command-r-plus-104b's rank (6 of 96 query heads, one KV head)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "5j: a process group is already up")
+    smi = "cpu rehearsal" if device.type != "cuda" else subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out = {"phase": "sharded_models", "nvidia_smi": smi}
+    shard_dir = OUT_DIR / "sharded_models"
+    shutil.rmtree(shard_dir, ignore_errors=True)
+    shard_dir.mkdir(parents=True)
+    keep = shard_dir / "dryrun"
+    keep.mkdir()
+    mesh = "2x2" if args.cpu_rehearsal else "16x16"
+    dry_gnn = _dry_models(args, device, DRY_GNN, keep, keep / "gnn.log")
+    spawned = torch.multiprocessing.spawn(
+        sm_rank, args=(SM_RANKS, str(shard_dir), args.cpu_rehearsal,
+                       args.seed, device.type),
+        nprocs=SM_RANKS, join=False)
+    try:
+        out["one"] = _sm_one(args, device, shard_dir)
+        out["a_s"] = time.perf_counter() - t_phase
+        (shard_dir / "go").write_text("go")
+        t = time.perf_counter()
+        while not spawned.join():
+            pass
+        out["ranks_s"] = time.perf_counter() - t
+        ranks = json.loads((shard_dir / "ranks.json").read_text())
+        _dry_wait(dry_gnn)
+        out["dry_gnn_s"] = time.perf_counter() - t_phase
+        t = time.perf_counter()
+        free_card(device)
+        dry_lm = _dry_models(args, device, DRY_LM, keep, keep / "lm.log")
+        _dry_wait(dry_lm)
+        out["dry_lm_s"] = time.perf_counter() - t
+    except BaseException:
+        for p in spawned.processes:
+            if p.is_alive():
+                p.terminate()
+        if dry_gnn.poll() is None:
+            dry_gnn.kill()
+        raise
+    emit({"phase": "sharded_models_ranks", "nvidia_smi": smi,
+          "ranks": ranks})
+    out["ranks"] = ranks
+    out["dry"] = _dry_report(DRY_GNN + DRY_LM, keep, mesh, smi)
+    out["dry_logs"] = {log: (keep / log).read_text()[-2000:]
+                       for log in ("gnn.log", "lm.log")}
+    for r in ranks:
+        check("error" not in r, f"5j: rank failed: {r.get('error')}")
+        for arch in SM_CASES:
+            row = r[arch]
+            check(row["loss_rel"] <= SM_LOSS_TOL,
+                  f"5j (b): rank {r['rank']} {arch}: loss {row['loss']} is "
+                  f"{row['loss_rel']} relative off the world of one's")
+            check(row["grad_err"] <= SM_GRAD_TOL,
+                  f"5j (b): rank {r['rank']} {arch}: gradients "
+                  f"{row['grad_err']} off the world of one's")
+            check(row["param_err"] <= SM_PARAM_TOL and
+                  row["noisy_param_err"] <= SM_NOISY_TOL,
+                  f"5j (b): rank {r['rank']} {arch}: params after the step "
+                  f"{row['param_err']} off the world of one's "
+                  f"({row['noisy_param_err']} where |g| < {SM_G_FLOOR}: "
+                  f"{row['noisy_params']} values)")
+            check((row["k5_launches"] > 0 and row["k5_bitwise"]) or
+                  device.type != "cuda",
+                  f"5j (b): rank {r['rank']} {arch}: K5 launched "
+                  f"{row['k5_launches']} times, bitwise {row.get('k5_bitwise')}")
+        tt = r["two-tower-retrieval"]
+        check(args.cpu_rehearsal or "Shard(dim=0)" in tt["table_placements"],
+              f"5j (b): the two-tower table is laid out "
+              f"{tt['table_placements']}")
+    # the kernels on the dry-run ranks' own inputs, then their rows
+    rows = []
+    if device.type == "cuda":
+        from repro_torch.kernels.flash_attention import kernel as k4, \
+            ref as k4_ref
+
+        mace_in = keep / "inputs" / "mace__ogb_products" / "k5.pt"
+        got = torch.load(mace_in, map_location=device)
+        (values, ids, n), kw = got["args"], got["kw"]
+        ok, err = k5_held(((values, ids, n), kw))
+        check(ok, f"5j: K5 on mace ogb_products's rank inputs: max abs "
+                  f"{err} from its plain version")
+        # each value row's segment (the launch reads row order[i] as the
+        # stream's row i, of segment ids[i]; rows it does not read drop)
+        flat_ids = torch.full((values.shape[0],), -1, dtype=ids.dtype,
+                              device=device)
+        flat_ids[kw["order"].long()] = ids
+        # the dry-run's launches at this shape
+        launches = dict((tuple(k), n) for k, n in out["dry"][DRY_GNN[0]][
+            "k5_shapes"]).get((values.shape[0], ids.shape[0],
+                               values.shape[1], n), 0)
+        rows.append(k5_row(
+            f"segment_sum_sorted (5j dry-run rank of 256: mace ogb_products "
+            f"[{values.shape[0]}, {values.shape[1]}] "
+            f"{str(values.dtype).replace('torch.', '')} into {n})",
+            values, flat_ids, n, launches, device, reps))
+        del got, values, ids, flat_ids
+        cr_in = keep / "inputs" / "command-r-plus-104b__train_4k" / "k4.pt"
+        dcr = out["dry"][DRY_LM[1]]
+        # the launches of the step, or of its part that ran before the
+        # rank ran out of the card (then not a step's count: the row says)
+        partial = "" if dcr["ok"] else (
+            "; launches of the part of the step that ran before the rank "
+            "ran out of the card")
+        dcr = dcr if dcr["ok"] else dcr.get("before_error") or {}
+        if cr_in.exists():
+            got = torch.load(cr_in, map_location=device)
+            (q, k, v), kw = got["args"], got["kw"]
+            err, ok = k4_err(k4.flash_attention(q, k, v, **kw),
+                             k4_ref.flash_attention_ref(q, k, v, **kw),
+                             q, k, v, **kw)
+            check(ok, f"5j: K4 on command-r's rank inputs {list(q.shape)}: "
+                      f"{err}")
+            out["cr_k4"] = {"q": list(q.shape), "kv": list(k.shape),
+                            "err": err}
+            b, hq, s, d = q.shape
+            rows.append(k4_row(
+                f"flash_attention (5j dry-run rank of 256: command-r-plus-104b "
+                f"train_4k, q {list(q.shape)}, {k.shape[1]} kv head{partial})",
+                hq,
+                k.shape[1], s, d, q.dtype,
+                (dcr.get("launches") or {}).get("flash_attention", 0),
+                device, reps, b=b))
+            del got, q, k, v
+        free_card(device)
+        rows += sm_tt_rows(args, device, ranks, reps)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "sharded_models_time", "nvidia_smi": smi,
+          **{k: out[k] for k in ("seconds", "a_s", "ranks_s", "dry_gnn_s",
+                                  "dry_lm_s")}})
+    return out, rows
+
+
+def sm_tt_rows(args, device, ranks, reps) -> list:
+    """K5 at a two-tower rank's row block of (2, 2): the user table's
+    block [V / 2, D] read through the rank's bags (B / 2 users, their ids
+    made local: those of the other block drop like pads) and the table
+    gradient into the block: :func:`k5_bag_rows`'s two rows there, their
+    launches the ranks' at those shapes."""
+    cell, batch = sm_cell(args, "two-tower-retrieval", device)
+    cfg = cell.config
+    v_loc = cfg.user_vocab // SM_MESH[1]
+    b_loc = batch["user_ids"].shape[0] // SM_MESH[0]
+    gen = torch.Generator(device=device).manual_seed(args.seed + 23)
+    table = torch.randn((v_loc, cfg.embed_dim), generator=gen,
+                        device=device).mul_(0.01)
+    ids = batch["user_ids"][:b_loc]
+    local = torch.where((ids >= 0) & (ids < v_loc), ids, -1)
+    # rank 0's launches by (value rows, slots, columns, segments, dtype)
+    launches = {tuple(k): n for k, n in
+                ranks[0]["two-tower-retrieval"]["k5_by_shape"]}
+    rows = k5_bag_rows(cfg, {"user_table": table}, {"user_ids": local},
+                       launches, device, reps,
+                       tag="5j rank of (2, 2), its row block")
+    del table, batch, ids, local
+    return rows
 
 
 def main(argv=None) -> int:
@@ -6634,14 +7128,17 @@ def main(argv=None) -> int:
     free_card(device)
     sharded, k4_sharded = phase_sharded(args, device, args.reps)
     free_card(device)
+    sharded_models, sm_rows = phase_sharded_models(args, device, args.reps)
+    free_card(device)
     rows += [k4_dense, *moe_rows, k4_train, k4_cr, *k4_sharded, k5_row,
-             k5_gnn, *k5_recsys, k6_row]
+             k5_gnn, *k5_recsys, *sm_rows, k6_row]
     detail = {"nvidia_smi": smi, "kernels": rows, "k3": k3_detail,
               "k4_grad": k4_grad, "train": trained,
               "train_check": train_check,
               "attention_bwd": attention_bwd, "gnn": gnn,
               "recsys": recsys, "cr_serve": cr_served,
               "cr_checks": cr_checks, "sharded": sharded,
+              "sharded_models": sharded_models,
               "serve": served, "lm_checks": lm, "moe_serve": moe_served,
               "moe_checks": moe, "dryrun": dryrun, "k4_vs_plain": k4_check,
               "replicas": replicas, "oracles": oracles,

@@ -16,6 +16,7 @@ Importing this module runs nothing; building without ``nvcc`` raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -165,3 +166,29 @@ def raise_on(name: str, err: int) -> None:
     """Raise if a launch returned a nonzero ``cudaError_t``."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
+class Launches(list):
+    """The launches a kernel wrapper records while :func:`recording` is
+    on: one ``(shape, arguments)`` a launch, ``arguments`` the first
+    launch's ``(args, kwargs)`` when ``keep`` (references, no copy) and
+    None otherwise."""
+
+    def __init__(self, keep: bool):
+        super().__init__()
+        self.keep = keep
+
+    def add(self, shape: tuple, args: tuple, kwargs: dict) -> None:
+        self.append((shape, (args, kwargs) if self.keep and not self
+                     else None))
+
+
+@contextlib.contextmanager
+def recording(module, keep: bool = True):
+    """Record ``module``'s launches (its ``RECORDED``, a :class:`Launches`
+    while inside): yields the list."""
+    saved, module.RECORDED = module.RECORDED, Launches(keep)
+    try:
+        yield module.RECORDED
+    finally:
+        module.RECORDED = saved

@@ -14,12 +14,16 @@ on shared-memory tiles and never round through TF32 or bf16.
 Dispatch follows the tensors' device: CPU tensors take
 ``ref.flash_attention_ref``; CUDA tensors launch the kernel (built at first
 use, see ``kernels/_build.py``) or raise — there is no fallback.  The
-wrapper adds one to :data:`LAUNCHES` where it launches the kernel.
+wrapper adds one to :data:`LAUNCHES` where it launches the kernel, and
+inside :func:`recording` appends the launch's (B, Hq, Sq, kv_len, D,
+causal, q_offset, Hkv) and the first launch's arguments to
+:data:`RECORDED`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import sys
 from pathlib import Path
 
 import torch
@@ -29,7 +33,7 @@ from .. import _build
 from . import ref
 
 __all__ = ["flash_attention", "build", "LAUNCHES", "reset_launches",
-           "KERNEL_SOURCES", "HEAD_DIMS"]
+           "KERNEL_SOURCES", "HEAD_DIMS", "RECORDED", "recording"]
 
 HEAD_DIMS = (64, 128)      # the kernel's template instances
 
@@ -37,6 +41,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 KERNEL_SOURCES = {"flash_attention": [_CSRC / "flash_attention.cu"]}
 
 LAUNCHES = {"flash_attention": 0}
+RECORDED: _build.Launches | None = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SYMBOLS = {"flash_attention": {
@@ -47,6 +52,11 @@ _FNS: dict = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def recording(keep: bool = True):
+    """Record the launches made inside (``_build.recording``)."""
+    return _build.recording(sys.modules[__name__], keep)
 
 
 def build() -> None:
@@ -105,4 +115,9 @@ def flash_attention(q, k, v, causal: bool = True, softcap: float = 0.0,
              int(q.dtype == torch.bfloat16), _build.stream())
     _build.raise_on("flash_attention", err)
     LAUNCHES["flash_attention"] += 1
+    if RECORDED is not None:
+        RECORDED.add((b, hq, sq, kv_len, d, bool(causal), int(q_offset),
+                      hkv),
+                     (q, k, v), {"causal": causal, "softcap": softcap,
+                                 "kv_len": kv_len, "q_offset": q_offset})
     return out

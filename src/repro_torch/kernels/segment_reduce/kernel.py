@@ -12,7 +12,8 @@ Dispatch follows the tensors' device: CPU tensors take
 ``ref.segment_sum_sorted_ref``; CUDA tensors launch the kernel (built at
 first use) or raise.  The wrapper adds one to :data:`LAUNCHES` where it
 launches the kernel (one call runs max(1, ceil(log_CHUNK E)) device
-kernels).
+kernels), and inside :func:`recording` appends the launch's (value rows,
+E, F, N, dtype) and the first launch's arguments to :data:`RECORDED`.
 
 Summation order, the same on both: for each (segment, column), the rows
 in groups of ``CHUNK`` from the segment's first row, each a left fold in
@@ -26,6 +27,7 @@ give the same bits.
 from __future__ import annotations
 
 import ctypes
+import sys
 from pathlib import Path
 
 import torch
@@ -35,12 +37,13 @@ from . import ref
 from .ref import CHUNK
 
 __all__ = ["segment_sum_sorted", "build", "LAUNCHES", "reset_launches",
-           "KERNEL_SOURCES", "CHUNK"]
+           "KERNEL_SOURCES", "CHUNK", "RECORDED", "recording"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 KERNEL_SOURCES = {"segment_sum_sorted": [_CSRC / "segment_sum_sorted.cu"]}
 
 LAUNCHES = {"segment_sum_sorted": 0}
+RECORDED: _build.Launches | None = None
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SYMBOLS = {"segment_sum_sorted": {
@@ -52,6 +55,11 @@ _FNS: dict = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def recording(keep: bool = True):
+    """Record the launches made inside (``_build.recording``)."""
+    return _build.recording(sys.modules[__name__], keep)
 
 
 def build() -> None:
@@ -128,4 +136,9 @@ def segment_sum_sorted(values, seg_ids, num_segments: int, *, order=None,
              _build.stream())
     _build.raise_on("segment_sum_sorted", err)
     LAUNCHES["segment_sum_sorted"] += 1
+    if RECORDED is not None:
+        RECORDED.add((values.shape[0], e, f, int(num_segments),
+                      str(values.dtype).replace("torch.", "")),
+                     (values, seg_ids, num_segments),
+                     {"order": order, "offsets": offsets})
     return out

@@ -3,7 +3,8 @@
 
 The train step is the reference's ``_make_train_step``: the gradient of
 the loss (over ``n_micro`` contiguous micro-batches of ``B / n_micro``
-rows, accumulated in float32 when ``n_micro <= 2`` and in bfloat16
+rows, each rank's rows of a sharded batch staying on it: ``_micro``;
+accumulated in float32 when ``n_micro <= 2`` and in bfloat16
 otherwise), clipped to a global norm of 1.0, one optimizer update, then
 ``p + u`` in place.  The optimizer sees the reference's leaves: the
 model's parameters are its tree (an LM's layer leaves one ``[L, ...]``
@@ -14,12 +15,12 @@ includes the clip and ``p + u``).
 
 GNN cells (``_gnn_cell``) make the reference's config choices: the input
 width and classes from the shape, ``edge_chunks`` and ``remat=(mode ==
-"full")`` for the geometric models, ``channel_groups=16`` and bfloat16
-above 100,000 nodes (the reference also sets ``spmd_edges=True`` there, a
-``shard_map`` option the port does not have: the models' docstrings),
-equiformer-v2's ``d_out`` the shape's classes; adamw(1e-3, weight decay
-1e-5); the same input shapes and dtypes (a ``GraphBatch`` of
-:class:`Spec`).
+"full")`` for the geometric models, ``channel_groups=16``,
+``spmd_edges=True`` and bfloat16 above 100,000 nodes (the per-rank
+programs of ``models/gnn/mace.py`` and ``equiformer_v2.py`` under a
+sharding context), equiformer-v2's ``d_out`` the shape's classes;
+adamw(1e-3, weight decay 1e-5); the same input shapes and dtypes (a
+``GraphBatch`` of :class:`Spec`).
 
 Recsys cells (``_recsys_cell``): train_batch takes adamw(1e-3) through
 the same train step; serve_p99 / serve_bulk score (user, item) rows and
@@ -33,10 +34,13 @@ Shardings, as the reference's: ``cell.batch_spec_fn(mesh)`` gives a
 (``dist.rules.param_sharding``) and ``cell.context(mesh)`` the
 ``sharding_context`` of the family's rules, with the MoE plan for an MoE
 LM.  They are pure functions of the mesh (a ``DeviceMesh`` or an
-``AbstractMesh``) for every family.  :func:`place` distributes a tree by
-them.  The LM cells run sharded: ``with cell.context(mesh):
-cell.step(params, ...)`` on DTensor parameters and batch; the train step
-then brings each gradient and update to its parameter's layout.
+``AbstractMesh``) for every family, and ``cell.param_shapes()`` gives the
+parameter tree as meta tensors (no storage), so every cell's per-rank
+shapes come without allocating (:func:`rank_shapes`).  :func:`place`
+distributes a tree by them.  Every family runs sharded: ``with
+cell.context(mesh): cell.step(params, ...)`` on DTensor parameters and
+batch; the train step then brings each gradient and update to its
+parameter's layout.
 
 An unknown architecture raises ``KeyError`` (``registry.get_module``).
 The reference's ``REPRO_ACCUM_DTYPE`` and ``REPRO_GNN_DTYPE`` experiment
@@ -71,7 +75,8 @@ from ..models.sampler import block_shapes
 from ..optim import (adafactor, adamw, clip_by_global_norm, laid_out_as,
                      tree_map)
 
-__all__ = ["Cell", "Spec", "build_cell", "pad_to", "place"]
+__all__ = ["Cell", "Spec", "build_cell", "pad_to", "place", "rank_shapes",
+           "local_shape"]
 
 _GNN_MODELS = {
     "equiformer-v2": eqv2_model,
@@ -112,6 +117,7 @@ class Cell(NamedTuple):
     input_specs: Callable             # () -> dict (LM) or GraphBatch of Spec
     batch_spec_fn: Callable           # (mesh) -> the inputs' NamedShardings
     context: Callable                 # (mesh) -> sharding_context manager
+    param_shapes: Callable            # () -> the params tree, meta tensors
 
     def param_shardings(self, mesh, params):
         """A NamedSharding for each leaf of ``params`` (a tree, or a
@@ -134,8 +140,12 @@ def place(tree, shardings):
         return tree_map(put, tree, shardings)
 
     def swap(module, sh):
+        if isinstance(sh, list):                 # a layer list
+            for sub, s in zip(module, sh):
+                swap(sub, s)
+            return
         for key in list(sh):
-            if isinstance(sh[key], dict):
+            if isinstance(sh[key], (dict, list)):
                 swap(getattr(module, key), sh[key])
             else:
                 module.register_parameter(key, torch.nn.Parameter(
@@ -154,6 +164,41 @@ def _ctx_factory(family):
                                  model_axis="model", fsdp_axis="data")
         return sharding_context(mesh, rules, plan)
     return make
+
+
+def _whole(x):
+    """A DTensor metric summed or gathered to every rank (a loss may come
+    back partial over the data axes); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(x, DTensor) and any(not p.is_replicate()
+                                      for p in x.placements):
+        return x.redistribute(x.device_mesh,
+                              [Replicate()] * x.device_mesh.ndim)
+    return x
+
+
+def _micro(x, i: int, n: int):
+    """Micro-batch ``i`` of ``n`` of a batch leaf: rows ``[i m, (i+1) m)``
+    of a plain tensor; of a DTensor whose rows are split over the mesh,
+    rows ``[i m', (i+1) m')`` of every rank's block (its rows stay on its
+    rank: slicing the global rows would gather the batch whole on every
+    rank).  The micro-batches group the rows otherwise than the
+    reference's reshape does; their mean gradient is the batch's."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor) or not any(
+            p.is_shard() and p.dim == 0 for p in x.placements):
+        m = x.shape[0] // n
+        return x[i * m:(i + 1) * m]
+    loc = x.to_local()
+    m = loc.shape[0] // n
+    if loc.shape[0] % n:
+        raise ValueError(f"a rank's {loc.shape[0]} rows do not split into "
+                         f"{n} micro-batches")
+    from ..dist.spmd import wrap
+    return wrap(loc[i * m:(i + 1) * m], x.device_mesh, x.placements,
+                (x.shape[0] // n,) + tuple(x.shape[1:]))
 
 
 def _make_train_step(loss_fn, optimizer, n_micro: int = 1):
@@ -185,10 +230,9 @@ def _make_train_step(loss_fn, optimizer, n_micro: int = 1):
             if b % n_micro:
                 raise ValueError(f"batch {b} does not split into {n_micro} "
                                  f"micro-batches")
-            m = b // n_micro
             acc, losses = None, []
             for i in range(n_micro):
-                mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+                mb = {k: _micro(v, i, n_micro) for k, v in batch.items()}
                 loss_i, g = grads_of(params, tree, mb)
                 acc = (tree_map(lambda x: x.to(acc_dtype), g) if acc is None
                        else tree_map(lambda a, x: a + x.to(acc_dtype), acc,
@@ -202,7 +246,8 @@ def _make_train_step(loss_fn, optimizer, n_micro: int = 1):
             updates, opt_state = optimizer.update(grads, opt_state, tree,
                                                   step_no)
             tree_map(lambda p, u: p.add_(laid_out_as(u, p)), tree, updates)
-        return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+        return params, opt_state, {"loss": _whole(loss.detach()),
+                                   "grad_norm": gnorm}
     return step
 
 
@@ -217,6 +262,9 @@ def _lm_cell(arch_id, mod, shape: LMShape, smoke: bool, batch: int | None,
 
     is_moe = cfg.moe is not None
     ctx = _ctx_factory("lm")
+
+    def shapes():
+        return transformer.param_shapes(cfg)
 
     def context(mesh):
         return ctx(mesh, is_moe)
@@ -246,7 +294,7 @@ def _lm_cell(arch_id, mod, shape: LMShape, smoke: bool, batch: int | None,
                     "labels": tokens_spec(mesh)}
 
         return Cell(arch_id, shape.name, "lm", "train", cfg, init, init_opt,
-                    step, specs, batch_specs, context)
+                    step, specs, batch_specs, context, shapes)
 
     if shape.mode == "prefill":
         def step(params, batch):
@@ -260,7 +308,7 @@ def _lm_cell(arch_id, mod, shape: LMShape, smoke: bool, batch: int | None,
             return {"tokens": tokens_spec(mesh)}
 
         return Cell(arch_id, shape.name, "lm", "prefill", cfg, init, None,
-                    step, specs, batch_specs, context)
+                    step, specs, batch_specs, context, shapes)
 
     # decode: one new token against a seq_len KV cache
     def step(params, batch):
@@ -283,7 +331,7 @@ def _lm_cell(arch_id, mod, shape: LMShape, smoke: bool, batch: int | None,
                 "cache_len": NamedSharding(mesh, ())}
 
     return Cell(arch_id, shape.name, "lm", "decode", cfg, init, None, step,
-                specs, batch_specs, context)
+                specs, batch_specs, context, shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +352,8 @@ def _gnn_sizes(shape: GraphShape, smoke: bool):
             pad_to(shape.n_edges, 512 * max(shape.edge_chunks, 1)), 1)
 
 
-def _gnn_cell(arch_id, mod, shape: GraphShape, smoke: bool, device) -> Cell:
+def _gnn_cell(arch_id, mod, shape: GraphShape, smoke: bool, device,
+              config=None) -> Cell:
     model = _GNN_MODELS[arch_id]
     geometric = mod.NEEDS_GEOMETRY
     family = "gnn_geometric" if geometric else "gnn_scalar"
@@ -323,11 +372,12 @@ def _gnn_cell(arch_id, mod, shape: GraphShape, smoke: bool, device) -> Cell:
                                   remat=(shape.mode == "full"))
         if shape.n_nodes > 100_000:
             # the reference's billion-edge plan: block-diag channel mixing,
-            # bf16 activations (its shard_map edge routing is not ported)
+            # the per-rank edge programs, bf16 activations
             cfg = dataclasses.replace(cfg, channel_groups=16,
-                                      dtype=torch.bfloat16)
+                                      spmd_edges=True, dtype=torch.bfloat16)
     if arch_id == "equiformer-v2" and not smoke and shape.n_classes:
         cfg = dataclasses.replace(cfg, d_out=shape.n_classes)
+    cfg = config or cfg
 
     def init(seed: int = 0):
         return model.init_params(cfg, seed=seed, device=device)
@@ -390,7 +440,8 @@ def _gnn_cell(arch_id, mod, shape: GraphShape, smoke: bool, device) -> Cell:
     ctx = _ctx_factory(family)
     return Cell(arch_id, shape.name, family, "train", cfg, init, init_opt,
                 _make_train_step(loss, optimizer), specs, batch_specs,
-                lambda mesh: ctx(mesh, False))
+                lambda mesh: ctx(mesh, False),
+                lambda: model.init_params(cfg, device="meta").tree())
 
 
 # ---------------------------------------------------------------------------
@@ -398,8 +449,8 @@ def _gnn_cell(arch_id, mod, shape: GraphShape, smoke: bool, device) -> Cell:
 # ---------------------------------------------------------------------------
 
 def _recsys_cell(arch_id, mod, shape: RecsysShape, smoke: bool,
-                 batch: int | None, device) -> Cell:
-    cfg = mod.smoke_config() if smoke else mod.make_config()
+                 batch: int | None, device, config=None) -> Cell:
+    cfg = config or (mod.smoke_config() if smoke else mod.make_config())
     b = batch or (8 if smoke else shape.batch)
     # the reference pads the candidate matrix to tile every mesh
     nc = 128 if smoke else pad_to(shape.n_candidates, 512)
@@ -424,6 +475,9 @@ def _recsys_cell(arch_id, mod, shape: RecsysShape, smoke: bool,
 
     def context(mesh):
         return ctx(mesh, False)
+
+    def shapes():
+        return recsys_model.init_params(cfg, device="meta").tree()
 
     def batch_specs(mesh):
         da = dist_rules.data_axes(mesh)
@@ -451,7 +505,7 @@ def _recsys_cell(arch_id, mod, shape: RecsysShape, smoke: bool,
 
         return Cell(arch_id, shape.name, "recsys", "train", cfg, init,
                     init_opt, _make_train_step(loss, optimizer), specs,
-                    batch_specs, context)
+                    batch_specs, context, shapes)
 
     if shape.mode == "serve":
         @torch.no_grad()
@@ -463,18 +517,69 @@ def _recsys_cell(arch_id, mod, shape: RecsysShape, smoke: bool,
             return recsys_model.retrieval_topk(params, batch, cfg, k=100)
 
     return Cell(arch_id, shape.name, "recsys", shape.mode, cfg, init, None,
-                step, specs, batch_specs, context)
+                step, specs, batch_specs, context, shapes)
+
+
+def local_shape(shape, sharding) -> tuple:
+    """The first rank's block of a global ``shape`` under a
+    :class:`NamedSharding` (a dim split over axes of total size k keeps
+    ``ceil(dim / k)``: DTensor's and ``torch.chunk``'s first block)."""
+    from ..dist.rules import mesh_sizes
+
+    sizes = mesh_sizes(sharding.mesh)
+    out = list(shape)
+    for d, entry in enumerate(sharding.spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        k = 1
+        for a in axes:
+            k *= sizes[a]
+        out[d] = -(-out[d] // k)
+    return tuple(out)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, Spec):
+        return [x for v in tree for x in _leaves(v)]
+    if isinstance(tree, GraphBatch):
+        return _leaves(tree.fields())
+    return [tree]
+
+
+def rank_shapes(cell: Cell, mesh) -> dict:
+    """The first rank's block of every argument of ``cell.step`` on
+    ``mesh`` (a ``DeviceMesh`` or an ``AbstractMesh``), from meta shapes
+    alone: {"params" | "opt" | "batch": [(global shape, local shape,
+    dtype), ...]} (the optimizer state laid out by ``param_sharding`` of
+    its own tree, as the reference's dry-run lays it out)."""
+    params = cell.param_shapes()
+    groups = {"params": (params, cell.param_shardings(mesh, params))}
+    if cell.init_opt is not None:
+        from ..models.gnn.common import LocalTree
+        opt = cell.init_opt(LocalTree(params))
+        groups["opt"] = (opt, cell.param_shardings(mesh, opt))
+    groups["batch"] = (cell.input_specs(), cell.batch_spec_fn(mesh))
+    out = {}
+    for name, (tree, shard) in groups.items():
+        out[name] = [(tuple(t.shape), local_shape(tuple(t.shape), sh),
+                      t.dtype)
+                     for t, sh in zip(_leaves(tree), _leaves(shard))]
+    return out
 
 
 def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
                batch: int | None = None, device="cuda", config=None) -> Cell:
     """The ``(arch_id, shape_name)`` cell on ``device`` (the GPU unless the
     caller asks for the CPU); ``batch`` cuts an LM or recsys shape's
-    batch; ``config`` replaces an LM's config (a cut depth or dtype)."""
+    batch; ``config`` replaces the config (an LM's cut depth or dtype, a
+    GNN's ``spmd_edges`` and ``channel_groups`` forced on, the two-tower
+    tables' rows)."""
     mod = registry.get_module(arch_id)
     shape = registry.shapes_for(arch_id)[shape_name]
     if mod.FAMILY == "gnn":
-        return _gnn_cell(arch_id, mod, shape, smoke, device)
+        return _gnn_cell(arch_id, mod, shape, smoke, device, config)
     if mod.FAMILY == "recsys":
-        return _recsys_cell(arch_id, mod, shape, smoke, batch, device)
+        return _recsys_cell(arch_id, mod, shape, smoke, batch, device,
+                            config)
     return _lm_cell(arch_id, mod, shape, smoke, batch, device, config)

@@ -40,7 +40,7 @@ import torch
 
 from ..configs import registry
 from ..data.pipeline import Prefetcher, RecsysPipeline, TokenPipeline
-from ..models.gnn.common import GraphBatch
+from ..models.gnn.common import GraphBatch, partition_edges_by_receiver
 from ..models.sampler import SampledBlocks, block_shapes
 from ..runtime.trainer import train_loop
 from .steps import build_cell
@@ -122,12 +122,16 @@ def cell_structure(cell, rng) -> GraphStructure:
 
 
 def gnn_batch(cell, seed: int = 0,
-              structure: GraphStructure | None = None) -> GraphBatch:
+              structure: GraphStructure | None = None,
+              data_shards: int = 1) -> GraphBatch:
     """One seeded host batch (numpy) of a GNN cell's input specs on
     ``structure`` (default: ``cell_structure``), padded to the specs' sizes
     with masks over its real nodes and edges; positions ``normal *
     POSITION_SCALE``, other float fields ``normal * 0.1``, species and
-    class labels inside their ranges."""
+    class labels inside their ranges.  For a ``spmd_edges`` cell on a mesh
+    of ``data_shards`` > 1 data shards the edges are laid out by receiver
+    block (``partition_edges_by_receiver``, each block's share a multiple
+    of ``edge_chunks``): the edge count then differs from the spec's."""
     specs, cfg = cell.input_specs(), cell.config
     rng = np.random.default_rng(seed)
     st = structure or cell_structure(cell, rng)
@@ -160,8 +164,12 @@ def gnn_batch(cell, seed: int = 0,
         scale = POSITION_SCALE if name == "positions" else 0.1
         return (rng.normal(size=spec.shape) * scale).astype(np.float32)
 
-    return GraphBatch(n_nodes=n, n_graphs=specs.n_graphs,
-                      **{k: draw(k, v) for k, v in specs.fields().items()})
+    batch = GraphBatch(n_nodes=n, n_graphs=specs.n_graphs,
+                       **{k: draw(k, v) for k, v in specs.fields().items()})
+    if getattr(cfg, "spmd_edges", False) and data_shards > 1:
+        batch = partition_edges_by_receiver(
+            batch, data_shards, max(getattr(cfg, "edge_chunks", 1), 1))
+    return batch
 
 
 def data_for(cell):

@@ -102,24 +102,56 @@ def apply_rope(x, positions, theta: float = 10000.0):
 def cross_entropy(logits, labels, z_loss: float = 0.0):
     """Mean token cross entropy; logits [..., V] (f32 math), labels int."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
     if isinstance(logits, DTensor):
-        # a gather on a vocab-sharded DTensor has no sound strategy: sum
-        # the label's logit out of each shard (zeros elsewhere, so the
-        # sum is the logit exactly)
-        from torch.distributed.tensor import Replicate
-        vocab = DTensor.from_local(
-            torch.arange(logits.shape[-1], device=logits.device),
-            logits.device_mesh, [Replicate()] * logits.device_mesh.ndim,
-            run_check=False)
-        hit = vocab == labels[..., None].long()
-        ll = torch.where(hit, logits, 0.0).sum(-1)
+        lse, ll = _vocab_terms(logits, labels)
     else:
+        lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     loss = (lse - ll).mean()
     if z_loss:
         loss = loss + z_loss * lse.square().mean()
     return loss
+
+
+def _vocab_terms(logits, labels):
+    """(logsumexp, the label's logit) of a DTensor ``logits`` [..., V],
+    each a DTensor laid out as the logits' leading dims, computed on each
+    rank's own block: its block's logsumexp and the label's logit (zero
+    where another vocab block holds it) are combined over the vocab's mesh
+    dims.  Nothing beyond a rank's block of the logits is
+    made, and their cotangent keeps their layout (DTensor's own
+    ``logsumexp`` gathers the vocab, and a vocab mask's backward splits a
+    whole ``[..., V]`` cotangent one mesh dim at a time)."""
+    from torch.distributed.tensor import Replicate
+
+    from ..dist.sharding import shard_index
+    from ..dist.spmd import pmax, psum, wrap
+
+    mesh, nd = logits.device_mesh, logits.ndim
+    vocab = [i for i, p in enumerate(logits.placements)
+             if p.is_shard(nd - 1)]
+    rest = [Replicate() if i in vocab else p
+            for i, p in enumerate(logits.placements)]
+    if any(p.is_partial() for p in rest):
+        raise ValueError(f"cross entropy of partial logits "
+                         f"{logits.placements}")
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    labels = labels.redistribute(mesh, rest)
+    local = logits.to_local()
+    part = torch.logsumexp(local, dim=-1)          # this vocab block's
+    m = pmax(part, mesh, vocab)
+    lse = m + torch.log(psum(torch.exp(part - m), mesh, vocab))
+    ids = labels.to_local().long()
+    if vocab:
+        ids = ids - shard_index(mesh, vocab) * local.shape[-1]
+    inside = (ids >= 0) & (ids < local.shape[-1])
+    picked = torch.gather(local, -1, ids.clamp(0, local.shape[-1] - 1)
+                          [..., None])[..., 0]
+    ll = psum(torch.where(inside, picked, 0.0), mesh, vocab)
+    shape = tuple(labels.shape)
+    return wrap(lse, mesh, rest, shape), wrap(ll, mesh, rest, shape)
 
 
 ACTIVATIONS = {

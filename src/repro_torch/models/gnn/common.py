@@ -18,8 +18,19 @@ Parameters are the reference's trees (nested dicts and lists, layer leaves
 of gatedgcn and meshgraphnet stacked ``[L, ...]``), held by a
 :class:`Params` module whose :meth:`~Params.tree` returns the reference's
 tree of the module's own tensors: what the optimizer, the train step and
-the snapshots take.  ``logical_constraint`` does nothing on one device and
-is dropped.
+the snapshots take.
+
+Sharded (under ``cell.context(mesh)``, the batch and parameters DTensors
+placed by ``launch/steps.py``): :func:`gather_rows` reads a node table
+replicated over the data axes at each rank's own edge shard (an
+all-gather; its gradient a reduce-scatter), :func:`segment_sum` runs K5 on
+each rank's edge shard into the whole ``[num_segments, F]`` output, laid
+out ``Partial`` over the mesh dims that split the edges, and
+:func:`node_sum` takes its first ``n`` rows to the nodes' layout (a
+reduce-scatter, as GSPMD lowers the reference's ``segment_sum``).  On plain
+tensors nothing changes.  :func:`partition_edges_by_receiver` lays a
+batch's edges out for the receiver-partitioned paths (equiformer-v2's
+``spmd_edges``).
 """
 
 from __future__ import annotations
@@ -32,6 +43,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ...dist.sharding import logical_constraint
+from ...dist.spmd import wrap
 from ...kernels.segment_reduce import SortedIds, segment_sum_sorted_by, \
     sort_ids
 from ..common import dense_init
@@ -39,7 +54,8 @@ from ..common import dense_init
 __all__ = ["GraphBatch", "Params", "layer_views", "mlp_init", "mlp_apply",
            "gather_scatter", "edge_softmax_agg", "layernorm_simple",
            "segment_sum", "segment_sum_plain", "segments", "Segments",
-           "segment_max", "einsum"]
+           "segment_max", "einsum", "gather_rows", "node_sum",
+           "partition_edges_by_receiver"]
 
 _ARRAY_FIELDS = ("senders", "receivers", "nodes", "positions", "species",
                  "edges", "node_mask", "edge_mask", "graph_ids", "labels")
@@ -187,11 +203,20 @@ def einsum(eq: str, *ops):
 # ---------------------------------------------------------------------------
 
 def mlp_init(gen, dims, dtype=torch.float32):
-    """A list of ``{"w", "b"}`` layers drawn from ``gen``."""
+    """A list of ``{"w", "b"}`` layers drawn from ``gen`` (``gen=None``:
+    meta tensors, the shapes alone)."""
+    dev = gen.device if gen is not None else "meta"
     return [{"w": dense_init(gen, (dims[i], dims[i + 1]), 0, dtype=dtype),
-             "b": torch.zeros((dims[i + 1],), dtype=dtype,
-                              device=gen.device)}
+             "b": torch.zeros((dims[i + 1],), dtype=dtype, device=dev)}
             for i in range(len(dims) - 1)]
+
+
+def generator(seed: int, device):
+    """A generator on ``device`` seeded with ``seed``; None on the meta
+    device (``dense_init`` then makes meta tensors)."""
+    if torch.device(device).type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def mlp_apply(layers, x, act=F.silu, final_act=False,
@@ -226,7 +251,9 @@ def segment_sum_plain(values, ids, num_segments: int):
 
 class Segments(NamedTuple):
     """Segment ids [E] for several sums: ``sorted`` holds them sorted once
-    for K5 when they lie on the card (None on the CPU)."""
+    for K5 when they lie on the card (None on the CPU).  For DTensor ids
+    (split over the edges) ``ids`` is the DTensor and ``sorted`` sorts the
+    rank's own block."""
     ids: torch.Tensor
     num_segments: int
     sorted: SortedIds | None
@@ -235,8 +262,9 @@ class Segments(NamedTuple):
 def segments(ids, num_segments: int) -> Segments:
     """``ids`` prepared for several :func:`segment_sum` calls: sorted once
     when on CUDA."""
+    loc = ids.to_local() if isinstance(ids, DTensor) else ids
     return Segments(ids, num_segments,
-                    sort_ids(ids, num_segments) if ids.is_cuda else None)
+                    sort_ids(loc, num_segments) if loc.is_cuda else None)
 
 
 def segment_sum(values, ids, num_segments: int | None = None):
@@ -247,12 +275,75 @@ def segment_sum(values, ids, num_segments: int | None = None):
     outside [0, num_segments) dropped; a flattening that cannot be a view
     copies here); CPU tensors take :func:`segment_sum_plain`."""
     seg = ids if isinstance(ids, Segments) else segments(ids, num_segments)
+    if isinstance(values, DTensor):
+        return _segment_sum_sharded(values, seg, seg.num_segments)
+    return _segment_sum_local(values, seg.ids, seg)
+
+
+def _segment_sum_local(values, ids, seg):
     flat = values.reshape(values.shape[0], -1)
     if seg.sorted is None:
-        out = segment_sum_plain(flat, seg.ids, seg.num_segments)
+        out = segment_sum_plain(flat, ids, seg.num_segments)
     else:
         out = segment_sum_sorted_by(flat, seg.sorted)
     return out.reshape((seg.num_segments,) + tuple(values.shape[1:]))
+
+
+def _segment_sum_sharded(values, seg, rows: int):
+    """:func:`segment_sum` of DTensor ``values`` (edges split over some
+    mesh dims, trailing dims split or not over others) by DTensor ids laid
+    out as its rows: K5 (or ``index_add`` on the CPU) on each rank's own
+    edge block into the whole output, of which the first ``rows`` rows are
+    kept, ``Partial`` over the mesh dims that split the edges."""
+    if not isinstance(seg.ids, DTensor) or \
+            seg.ids.device_mesh != values.device_mesh:
+        raise TypeError("a DTensor segment sum takes DTensor ids on the "
+                        "values' mesh")
+    mesh = values.device_mesh
+    vp, ip = tuple(values.placements), tuple(seg.ids.placements)
+    if any((a == Shard(0)) != (b == Shard(0)) for a, b in zip(vp, ip)):
+        raise ValueError(f"values laid out {vp}, their ids {ip}")
+    out = _segment_sum_local(values.to_local(), seg.ids.to_local(), seg)
+    if rows != seg.num_segments:
+        out = out[:rows]
+    pl = [Partial() if p == Shard(0) else p for p in vp]
+    return wrap(out, mesh, pl, (rows,) + tuple(values.shape[1:]))
+
+
+def node_sum(values, seg: Segments, n: int):
+    """``segment_sum(values, seg)[:n]`` (the sum at the ``n`` real nodes;
+    the rows past them are the masked edges'); DTensor values end in the
+    nodes' layout (``logical_constraint`` "nodes"): a reduce-scatter."""
+    if not isinstance(values, DTensor):
+        return segment_sum(values, seg)[:n]
+    out = _segment_sum_sharded(values, seg, n)
+    return logical_constraint(out, "nodes", *([None] * (out.ndim - 1)))
+
+
+def gather_rows(table, ids):
+    """``table[ids]``.  A DTensor ``table`` (nodes split over the data
+    axes, trailing dims split or not) and DTensor ``ids`` (split over the
+    edges): the table is gathered whole over the mesh dims that split its
+    rows, each rank reads its own ids' rows, and the rows are laid out as
+    the ids along dim 0 and as the table along the rest; the table's
+    gradient is partial over the mesh dims that split the ids (a
+    reduce-scatter back to its rows' layout)."""
+    if not isinstance(table, DTensor):
+        return table[ids.long()]
+    if not isinstance(ids, DTensor) or ids.device_mesh != table.device_mesh:
+        raise TypeError("a DTensor gather takes DTensor ids on the table's "
+                        "mesh")
+    mesh = table.device_mesh
+    whole = [Replicate() if p == Shard(0) else p for p in table.placements]
+    if tuple(whole) != tuple(table.placements):
+        table = table.redistribute(mesh, whole)
+    ip = tuple(ids.placements)
+    if any(a.is_shard() and not b.is_replicate() for a, b in zip(ip, whole)):
+        raise ValueError(f"ids laid out {ip} over the table's {whole}")
+    grad = [Partial() if a.is_shard() else b for a, b in zip(ip, whole)]
+    rows = table.to_local(grad_placements=grad)[ids.to_local().long()]
+    pl = [Shard(0) if a.is_shard() else b for a, b in zip(ip, whole)]
+    return wrap(rows, mesh, pl, tuple(ids.shape) + tuple(table.shape[1:]))
 
 
 def segment_max(values, ids, num_segments: int):
@@ -269,25 +360,23 @@ def gather_scatter(values, senders, receivers, n_nodes, edge_fn=None,
                    edge_mask=None, combine="sum"):
     """The message-passing primitive: m_e = edge_fn(x[senders_e]);
     out_i = combine_e->i m_e."""
-    msgs = values[senders.long()]
+    msgs = gather_rows(values, senders)
     if edge_fn is not None:
         msgs = edge_fn(msgs)
     if edge_mask is not None:
         msgs = torch.where(edge_mask[:, None], msgs, 0)
         receivers = torch.where(edge_mask, receivers, n_nodes)
+    msgs = logical_constraint(msgs, "edges", None)
     if combine == "sum":
-        out = segment_sum(msgs, receivers, n_nodes + 1)
-    elif combine == "mean":
+        return node_sum(msgs, segments(receivers, n_nodes + 1), n_nodes)
+    if combine == "mean":
         seg = segments(receivers, n_nodes + 1)
-        out = segment_sum(msgs, seg)
-        cnt = segment_sum(torch.ones(receivers.shape, dtype=msgs.dtype,
-                                     device=msgs.device), seg)
-        out = out / torch.clamp(cnt, min=1)[:, None]
-    elif combine == "max":
-        out = segment_max(msgs, receivers, n_nodes + 1)
-    else:
-        raise ValueError(combine)
-    return out[:n_nodes]
+        out = node_sum(msgs, seg, n_nodes)
+        cnt = node_sum(torch.ones_like(msgs[:, 0]), seg, n_nodes)
+        return out / torch.clamp(cnt, min=1)[:, None]
+    if combine == "max":
+        return segment_max(msgs, receivers, n_nodes + 1)[:n_nodes]
+    raise ValueError(combine)
 
 
 def edge_softmax_agg(logits, values, receivers, n_nodes, edge_mask=None):
@@ -309,3 +398,114 @@ def edge_softmax_agg(logits, values, receivers, n_nodes, edge_mask=None):
     w = ex / torch.clamp(den[rcv], min=1e-16)
     out = segment_sum(values * w[..., None], seg)
     return out[:n_nodes]
+
+
+def partition_edges_by_receiver(batch: GraphBatch, n_blocks: int,
+                                multiple: int = 1) -> GraphBatch:
+    """``batch`` with its edges laid out for ``n_blocks`` receiver blocks
+    (the nodes split in ``n_blocks`` equal blocks, as the data axes split
+    them): the live edges reordered stably by their receiver's block, each
+    block's share padded with masked edges to one length (a multiple of
+    ``multiple``), so that the i-th of ``n_blocks`` equal edge shards holds
+    exactly the edges whose receivers lie in node block i.  A padding edge
+    reads node 0 into the first node of its block, masked; a masked edge of
+    ``batch`` is dropped.  numpy or torch arrays; the other fields are
+    kept.  The receiver-partitioned paths (equiformer-v2's ``spmd_edges``)
+    see only their own block's receivers: an edge in another block's
+    shard is masked out there, as in the reference."""
+    n = batch.n_nodes
+    if n % n_blocks:
+        raise ValueError(f"{n} nodes do not split into {n_blocks} blocks")
+    block = n // n_blocks
+    is_torch = isinstance(batch.senders, torch.Tensor)
+
+    def host(a):
+        return a.detach().cpu().numpy() if is_torch else np.asarray(a)
+
+    snd, rcv = host(batch.senders), host(batch.receivers)
+    live = (np.ones(snd.shape, bool) if batch.edge_mask is None
+            else host(batch.edge_mask).astype(bool))
+    owner = np.where(live, rcv // block, n_blocks)
+    order = np.argsort(owner, kind="stable")
+    counts = np.bincount(owner[live], minlength=n_blocks)[:n_blocks]
+    length = -(-max(int(counts.max()), 1) // multiple) * multiple
+    take = np.zeros(n_blocks * length, np.int64)
+    keep = np.zeros(n_blocks * length, bool)
+    start = 0
+    for b in range(n_blocks):
+        k = int(counts[b])
+        take[b * length:b * length + k] = order[start:start + k]
+        keep[b * length:b * length + k] = True
+        start += k
+    pad_rcv = np.repeat(np.arange(n_blocks) * block, length)
+
+    def edge_field(a, fill):
+        out = a[take]
+        out[~keep] = fill
+        return out
+
+    fields = {
+        "senders": edge_field(snd, 0),
+        "receivers": np.where(keep, rcv[take], pad_rcv).astype(rcv.dtype),
+        "edge_mask": keep,
+    }
+    if batch.edges is not None:
+        fields["edges"] = edge_field(host(batch.edges), 0)
+    if is_torch:
+        dev = batch.senders.device
+        fields = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                  for k, v in fields.items()}
+    return dataclasses.replace(batch, **fields)
+
+
+class LocalTree:
+    """A params tree of plain tensors where a model takes a module: its
+    :meth:`tree` is the tree."""
+
+    def __init__(self, tree):
+        self._tree = tree
+
+    def tree(self):
+        return self._tree
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_leaves(fn, v) for v in tree]
+    return fn(tree)
+
+
+def sharded_batch(batch) -> bool:
+    """Whether a bound sharding context and a DTensor batch make a model
+    take its sharded path."""
+    from ...dist.sharding import current_context
+    return current_context() is not None and isinstance(batch.senders,
+                                                        DTensor)
+
+
+def replicated_call(fn, params, batch, *args):
+    """``fn(params, batch, *args)`` on every rank over the whole batch and
+    every parameter, its result (a tensor the same on every rank) as a
+    replicated DTensor: each parameter's gradient is then whole on each
+    rank.  A geometric model without ``spmd_edges`` runs so under a
+    sharding context (the reference's GSPMD partitions those small cells;
+    the values are the same).  On a world of one it is the unsharded path
+    on the local tensors, bit for bit."""
+    leaves = []
+    _map_leaves(leaves.append, params.tree())
+    mesh = next(x for x in leaves if isinstance(x, DTensor)).device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def whole(x):
+        if not isinstance(x, DTensor):
+            return x
+        if any(not p.is_replicate() for p in x.placements):
+            x = x.redistribute(mesh, rep)
+        return x.to_local(grad_placements=rep)
+
+    local = LocalTree(_map_leaves(whole, params.tree()))
+    out = fn(local, batch.map(lambda a: a.full_tensor().detach()
+                              if isinstance(a, DTensor) else a), *args)
+    return wrap(out, mesh, rep, tuple(out.shape))

@@ -24,9 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from ..common import dense_init
-from .common import (GraphBatch, Params, layer_views, layernorm_simple,
-                     mlp_apply, mlp_init, segment_sum, segments,
-                     stack_layers)
+from .common import (GraphBatch, Params, gather_rows, generator,
+                     layer_views, layernorm_simple, mlp_apply, mlp_init,
+                     node_sum, segments, stack_layers)
 
 __all__ = ["GatedGCNConfig", "init_params", "apply", "loss_fn",
            "params_from_numpy", "params_to_numpy"]
@@ -47,7 +47,7 @@ def init_params(cfg: GatedGCNConfig, seed: int = 0,
                 device="cuda") -> Params:
     """Random weights with the reference's distributions (not its numbers),
     drawn on ``device`` from a generator seeded with ``seed``."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(seed, device)
     d, dt = cfg.d_hidden, cfg.dtype
     layers = [{k: dense_init(gen, (d, d), 0, dtype=dt)
                for k in ("A", "B", "C", "U", "V")}
@@ -78,8 +78,8 @@ def apply(params, batch: GraphBatch, cfg: GatedGCNConfig):
     e_in = (
         batch.edges
         if batch.edges is not None
-        else torch.ones((snd.shape[0], cfg.d_edge_in), dtype=cfg.dtype,
-                        device=snd.device)
+        else torch.ones_like(snd, dtype=cfg.dtype)[:, None].expand(
+            -1, cfg.d_edge_in)
     )
     e = e_in.to(cfg.dtype) @ p_all["edge_enc"]
     emask = batch.edge_mask
@@ -87,7 +87,7 @@ def apply(params, batch: GraphBatch, cfg: GatedGCNConfig):
     seg = segments(rcv_safe, n + 1)          # sorted once for every layer
 
     for p in layer_views(p_all["layers"]):
-        hi, hj = h[rcv], h[snd]
+        hi, hj = gather_rows(h, rcv), gather_rows(h, snd)
         e_hat = hi @ p["A"] + hj @ p["B"] + e @ p["C"]
         e = e + F.relu(layernorm_simple(e_hat))
         eta = torch.sigmoid(e)
@@ -96,8 +96,8 @@ def apply(params, batch: GraphBatch, cfg: GatedGCNConfig):
             if emask is not None else eta * vh
         den = torch.where(emask[:, None], eta, 0) if emask is not None \
             else eta
-        s_num = segment_sum(num, seg)[:n]
-        s_den = segment_sum(den, seg)[:n]
+        s_num = node_sum(num, seg, n)
+        s_den = node_sum(den, seg, n)
         h_hat = h @ p["U"] + s_num / (s_den + 1e-6)
         h = h + F.relu(layernorm_simple(h_hat))
     return mlp_apply(p_all["head"], h)

@@ -14,8 +14,9 @@ import dataclasses
 
 import torch
 
-from .common import (GraphBatch, Params, layer_views, mlp_apply,
-                     mlp_init, segment_sum, segments, stack_layers)
+from .common import (GraphBatch, Params, gather_rows, generator,
+                     layer_views, mlp_apply, mlp_init, node_sum, segments,
+                     stack_layers)
 
 __all__ = ["MeshGraphNetConfig", "init_params", "apply", "loss_fn",
            "params_from_numpy", "params_to_numpy"]
@@ -43,7 +44,7 @@ def init_params(cfg: MeshGraphNetConfig, seed: int = 0,
                 device="cuda") -> Params:
     """Random weights with the reference's distributions (not its numbers),
     drawn on ``device`` from a generator seeded with ``seed``."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(seed, device)
     d, dt = cfg.d_hidden, cfg.dtype
     layers = [{"edge_mlp": mlp_init(gen, _mlp_dims(cfg, 3 * d), dtype=dt),
                "node_mlp": mlp_init(gen, _mlp_dims(cfg, 2 * d), dtype=dt)}
@@ -79,17 +80,18 @@ def apply(params, batch: GraphBatch, cfg: MeshGraphNetConfig):
     e_in = (
         batch.edges
         if batch.edges is not None
-        else torch.ones((snd.shape[0], cfg.d_edge_in), dtype=cfg.dtype,
-                        device=snd.device)
+        else torch.ones_like(snd, dtype=cfg.dtype)[:, None].expand(
+            -1, cfg.d_edge_in)
     )
     e = mlp_apply(p_all["edge_enc"], e_in.to(cfg.dtype), norm_final=True)
 
     for p in layer_views(p_all["layers"]):
-        msg_in = torch.cat([e, h[snd], h[rcv]], dim=-1)
+        msg_in = torch.cat([e, gather_rows(h, snd), gather_rows(h, rcv)],
+                           dim=-1)
         e = e + mlp_apply(p["edge_mlp"], msg_in, norm_final=True)
         agg_in = torch.where(emask[:, None], e, 0) if emask is not None \
             else e
-        agg = segment_sum(agg_in, seg)[:n]
+        agg = node_sum(agg_in, seg, n)
         h = h + mlp_apply(p["node_mlp"], torch.cat([h, agg], dim=-1),
                           norm_final=True)
     return mlp_apply(p_all["decoder"], h)

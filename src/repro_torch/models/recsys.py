@@ -12,9 +12,17 @@ masked gather and ``index_add``.  A ``"mean"`` bag divides by its live
 slot count.  ``"max"`` bags are plain PyTorch on both devices, as they
 are XLA in the reference.
 
-The reference's ``logical_constraint`` calls (the bags' and the logits'
-batch sharding) do nothing on one device and are dropped; they come back
-with the sharded runtime (ROADMAP).
+Sharded (DTensor parameters and batch under ``cell.context(mesh)``): a
+table split by rows over ``model`` (``param_sharding``: 2,000,000 rows of
+at least 1,024 go on the largest dim) is read by each rank on its own row
+block with local ids (:func:`_bags_sharded`): ids outside the block drop
+like pads, so the K5 bag and its K5 table gradient cover only the slots
+that hit the rank's rows; the partial bags are summed over ``model`` (a
+mean divides by the whole bag's live slots, a max keeps the block that
+holds it).  The bags and the logits keep the reference's batch layout
+(``logical_constraint``); the in-batch softmax takes each rank's rows
+against the gathered items (:func:`_in_batch_loss`), and retrieval ranks
+each rank's candidate block and merges the blocks' top-k.
 
 Shapes served: train_batch (in-batch sampled softmax + logQ correction),
 serve_p99 / serve_bulk (tower forward + dot), retrieval_cand (1 query vs
@@ -26,9 +34,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from ..dist import spmd
+from ..dist.sharding import current_context, logical_constraint
 from ..kernels.segment_reduce import gather_segment_sum
-from .gnn.common import Params, mlp_apply, mlp_init
+from .gnn.common import Params, generator, mlp_apply, mlp_init
 
 __all__ = ["TwoTowerConfig", "init_params", "params_from_numpy",
            "params_to_numpy", "embedding_bag", "embedding_bag_ragged",
@@ -53,10 +64,12 @@ def init_params(cfg: TwoTowerConfig, seed: int = 0, device="cuda") -> Params:
     """Random weights with the reference's distributions (not its numbers):
     tables ``normal * 0.01``, the towers' MLPs as ``mlp_init``, drawn on
     ``device`` from a generator seeded with ``seed``."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(seed, device)
     d = cfg.embed_dim
 
     def table(vocab):
+        if gen is None:
+            return torch.empty((vocab, d), dtype=cfg.dtype, device="meta")
         t = torch.randn((vocab, d), generator=gen, device=device)
         return t.mul_(0.01).to(cfg.dtype)
 
@@ -84,6 +97,8 @@ def embedding_bag(table, ids, combine: str = "sum"):
     """Fixed-size bags: ids [..., L] int32, -1 = padding -> [..., D]; an
     id past the table (>= V) is dropped like a pad (the reference's
     ``jnp.take`` fills its row with NaN)."""
+    if isinstance(table, DTensor):
+        return _bags_sharded(table, ids, combine)
     if combine == "max":
         live = (ids >= 0) & (ids < table.shape[0])
         rows = table[torch.where(live, ids, 0).long()]
@@ -125,6 +140,7 @@ def user_tower(params, user_ids, user_dense, cfg: TwoTowerConfig):
     """user_ids [B, F, L] multi-hot; user_dense [B, n_dense]."""
     b = user_ids.shape[0]
     bags = embedding_bag(params["user_table"], user_ids)     # [B, F, D]
+    bags = logical_constraint(bags, "batch", None, None)
     x = torch.cat([bags.reshape(b, -1), user_dense.to(bags.dtype)], dim=-1)
     return _unit(mlp_apply(params["user_mlp"], x))
 
@@ -132,9 +148,12 @@ def user_tower(params, user_ids, user_dense, cfg: TwoTowerConfig):
 def item_tower(params, item_ids, item_dense, cfg: TwoTowerConfig):
     """item_ids [B] single-hot; item_dense [B, n_dense]."""
     b = item_ids.shape[0]
-    emb, _ = gather_segment_sum(params["item_table"], item_ids,
-                                torch.arange(b, dtype=torch.int32,
-                                             device=item_ids.device), b)
+    if isinstance(params["item_table"], DTensor):
+        emb = _bags_sharded(params["item_table"], item_ids[:, None], "sum")
+    else:
+        emb, _ = gather_segment_sum(params["item_table"], item_ids,
+                                    torch.arange(b, dtype=torch.int32,
+                                                 device=item_ids.device), b)
     x = torch.cat([emb, item_dense.to(emb.dtype)], dim=-1)
     return _unit(mlp_apply(params["item_mlp"], x))
 
@@ -154,7 +173,7 @@ class _InBatchSoftmax(torch.autograd.Function):
     each at B = 65,536."""
 
     @staticmethod
-    def forward(ctx, u, v, logq, temperature):
+    def forward(ctx, u, v, logq, temperature, first=None, total=None):
         logits = (u @ v.T).float()
         logits.div_(temperature).sub_(logq[None, :])
         lse = torch.cat([torch.logsumexp(rows, dim=1)
@@ -162,7 +181,12 @@ class _InBatchSoftmax(torch.autograd.Function):
         ctx.save_for_backward(u, v, logits, lse)
         ctx.temperature = temperature
         ctx.used = False
-        return (lse - logits.diagonal()).mean()
+        ctx.first, ctx.total = first, total
+        if first is None:
+            return (lse - logits.diagonal()).mean()
+        # u is rows [first, first + len(u)) of a batch of ``total``: their
+        # terms' sum over the whole batch's count
+        return (lse - logits.diagonal(first)).sum() / total
 
     @staticmethod
     def backward(ctx, g):
@@ -173,10 +197,10 @@ class _InBatchSoftmax(torch.autograd.Function):
         u, v, logits, lse = ctx.saved_tensors
         for rows, top in zip(logits.split(LOSS_ROWS), lse.split(LOSS_ROWS)):
             rows.sub_(top[:, None]).exp_()
-        logits.diagonal().sub_(1.0)
-        grad = logits.mul_(g / (logits.shape[0] * ctx.temperature)).to(
-            u.dtype)
-        return grad @ v, grad.T @ u, None, None
+        logits.diagonal(ctx.first or 0).sub_(1.0)
+        rows = logits.shape[0] if ctx.first is None else ctx.total
+        grad = logits.mul_(g / (rows * ctx.temperature)).to(u.dtype)
+        return grad @ v, grad.T @ u, None, None, None, None
 
 
 def loss_fn(params, batch, cfg: TwoTowerConfig):
@@ -186,6 +210,8 @@ def loss_fn(params, batch, cfg: TwoTowerConfig):
     """
     u = user_tower(params, batch["user_ids"], batch["user_dense"], cfg)
     v = item_tower(params, batch["item_ids"], batch["item_dense"], cfg)
+    if isinstance(u, DTensor):
+        return _in_batch_loss(u, v, batch["item_logq"], cfg.temperature)
     return _InBatchSoftmax.apply(u, v, batch["item_logq"], cfg.temperature)
 
 
@@ -204,6 +230,112 @@ def retrieval_topk(params, batch, cfg: TwoTowerConfig, k: int = 100):
     ``jax.lax.top_k``; ``torch.topk`` promises no order among equal
     scores."""
     u = user_tower(params, batch["user_ids"], batch["user_dense"], cfg)
+    if isinstance(batch["cand_emb"], DTensor):
+        return _topk_sharded(batch["cand_emb"], u, k)
     scores = (batch["cand_emb"] @ u[0]).float()
     top = torch.topk(scores, k, sorted=True)
     return top.values, top.indices.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# sharded: row-split tables, the batch's rows over the data axes
+# ---------------------------------------------------------------------------
+
+def _bags_sharded(table, ids, combine: str):
+    """:func:`embedding_bag` of a DTensor table (rows split over some mesh
+    dims, or whole) and DTensor ids (bags split over others): each rank
+    bags its ids that fall in its row block (K5 on the card; the others
+    drop like pads), and the partial bags are combined over the row dims
+    (sum; a mean over the whole bag's live slots, counted from the ids
+    every rank holds; a max from the block that holds it).  The bags come
+    out laid out as the ids' bags, whole over the row dims.  The table's
+    gradient on a rank covers the slots that hit its rows (partial over
+    the mesh dims that split the ids)."""
+    if combine not in ("sum", "mean", "max"):
+        raise ValueError(combine)
+    if not isinstance(ids, DTensor) or ids.device_mesh != table.device_mesh:
+        raise TypeError("a DTensor table takes DTensor ids on its mesh")
+    mesh = table.device_mesh
+    tp, ip = tuple(table.placements), tuple(ids.placements)
+    row_dims = tuple(i for i, p in enumerate(tp) if p == Shard(0))
+    if any(p.is_shard() for i, p in enumerate(tp) if i not in row_dims) \
+            or any(ip[i].is_shard() for i in row_dims):
+        raise ValueError(f"a table laid out {tp} with ids {ip}")
+    local = table.to_local(grad_placements=[
+        Shard(0) if i in row_dims else Partial() if ip[i].is_shard()
+        else Replicate() for i in range(mesh.ndim)])
+    v_loc, d = local.shape
+    lo = spmd.axis_index(mesh, row_dims) * v_loc
+    idl = ids.to_local()
+    lead = tuple(idl.shape[:-1])
+    flat = idl.reshape(-1)
+    rows = torch.where(flat >= 0, flat - lo, -1)
+    if combine == "max":
+        inside = (rows >= 0) & (rows < v_loc)
+        got = local[torch.where(inside, rows, 0).long()]
+        got = torch.where(inside[:, None], got, float("-inf"))
+        best = got.reshape(lead + (idl.shape[-1], d)).amax(-2)
+        top = spmd.pmax(best, mesh, row_dims)
+        # the block holding the max keeps it: the lowest such rank
+        me = float(spmd.axis_index(mesh, row_dims))
+        owner = -spmd.pmax(torch.where(best == top, -me, float("-inf")),
+                           mesh, row_dims)
+        out = torch.where((owner == me) & torch.isfinite(top), best, 0.0)
+    else:
+        bags = torch.arange(flat.shape[0], dtype=torch.int32,
+                            device=flat.device) // idl.shape[-1]
+        out, _ = gather_segment_sum(local, rows, bags, flat.shape[0]
+                                    // idl.shape[-1])
+        if combine == "mean":
+            whole = ((idl >= 0) & (idl < table.shape[0])).sum(-1)
+            out = out / torch.clamp(whole.reshape(-1), min=1).to(
+                out.dtype)[:, None]
+        out = out.reshape(lead + (d,))
+    shape = tuple(ids.shape[:-1]) + (d,)
+    part = [Partial() if i in row_dims else ip[i] for i in range(mesh.ndim)]
+    return spmd.wrap(out, mesh, part, shape).redistribute(
+        mesh, [Replicate() if i in row_dims else ip[i]
+               for i in range(mesh.ndim)])
+
+
+def _in_batch_loss(u, v, logq, temperature: float):
+    """:class:`_InBatchSoftmax` on DTensors: the logits' rows over the
+    batch axes (the reference's ``logical_constraint(logits, "batch",
+    None)``), so each rank takes its rows of ``u`` against every row of
+    ``v`` (gathered; its gradient a reduce-scatter), and the rows' terms
+    are summed over those axes."""
+    mesh = u.device_mesh
+    dims = spmd.mesh_dims(mesh, current_context()["rules"]["batch"])
+    if u.shape[0] % spmd.size_of(mesh, dims):
+        dims = ()
+    want = [Shard(0) if i in dims else Replicate()
+            for i in range(mesh.ndim)]
+    u_l, v_l = (x.redistribute(mesh, want).to_local() for x in (u, v))
+    v_all = spmd.all_gather(v_l, mesh, dims, grad_partial=True)
+    q = logq.full_tensor() if isinstance(logq, DTensor) else logq
+    first = spmd.axis_index(mesh, dims) * u_l.shape[0]
+    part = _InBatchSoftmax.apply(u_l, v_all, q, temperature, first,
+                                 u.shape[0])
+    loss = spmd.psum(part, mesh, dims)
+    return spmd.wrap(loss, mesh, [Replicate()] * mesh.ndim, ())
+
+
+def _topk_sharded(cand, u, k: int):
+    """:func:`retrieval_topk` with the candidates split over the mesh:
+    each rank's top-k of its block, then the top-k of the gathered
+    blocks' (replicated DTensors, equal to the unsharded ranking up to the
+    order of equal scores)."""
+    mesh = cand.device_mesh
+    dims = tuple(i for i, p in enumerate(cand.placements) if p == Shard(0))
+    u_l = spmd.replicated_local(u, [Replicate()] * mesh.ndim)
+    c_l = cand.to_local()
+    scores = (c_l @ u_l[0]).float()
+    top = torch.topk(scores, min(k, scores.shape[0]), sorted=True)
+    first = spmd.axis_index(mesh, dims) * c_l.shape[0]
+    vals = spmd.all_gather(top.values, mesh, dims, grad_partial=False)
+    idx = spmd.all_gather(top.indices + first, mesh, dims,
+                          grad_partial=False)
+    best = torch.topk(vals, k, sorted=True)
+    rep = [Replicate()] * mesh.ndim
+    return (spmd.wrap(best.values, mesh, rep, (k,)),
+            spmd.wrap(idx[best.indices].to(torch.int32), mesh, rep, (k,)))

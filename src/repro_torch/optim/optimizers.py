@@ -178,14 +178,18 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0):
             gf = g.float()
             g2 = gf.square() + eps
             if p.dim() >= 2:
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(-2)
+                # each factor in its state's layout before their outer
+                # product, which is then laid out as the leaf (a partial
+                # factor would make the product whole on every rank)
+                vr = laid_out_as(beta * s["vr"] + (1 - beta) * g2.mean(-1),
+                                 s["vr"])
+                vc = laid_out_as(beta * s["vc"] + (1 - beta) * g2.mean(-2),
+                                 s["vc"])
                 denom = (vr[..., None] * vc[..., None, :]
                          / torch.clamp(vr.mean(-1)[..., None, None],
                                        min=eps))
                 u = gf * torch.rsqrt(denom + eps)
-                new_s = {"vr": laid_out_as(vr, s["vr"]),
-                         "vc": laid_out_as(vc, s["vc"])}
+                new_s = {"vr": vr, "vc": vc}
             else:
                 v = beta * s["v"] + (1 - beta) * g2
                 u = gf * torch.rsqrt(v + eps)

@@ -11,12 +11,16 @@ beside ``repro_torch.dist.rules.AbstractMesh``):
   and at full width (meta tensors against ``jax.eval_shape`` of the
   reference's ``init_params``), on the meshes (1, 1), (16, 16) and
   (2, 16, 16);
-* ``batch_spec_fn`` of every cell of the registry;
+* ``batch_spec_fn`` of every cell of the registry, and every cell's
+  per-rank block of each parameter, optimizer-state and batch leaf at
+  full width (the GNN and two-tower trees included) against the shard
+  shapes of the reference's shardings;
 * the spec-to-placement helper: a dim split over ("pod", "data") is
   ``Shard`` on both mesh dims, and DTensor's chunk order on a (2, 2) mesh
   is JAX's device order for ``P(("pod", "data"))`` (4 forced host devices
   in a subprocess)."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -189,3 +193,59 @@ def test_placements_order_is_jax_device_order():
               if ln.strip()]
     assert starts == [(p, d, (p * 2 + d) * 2) for p in range(2)
                       for d in range(2)], out.stderr[-2000:]
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_cell(arch, shape):
+    """(cell, params' and optimizer state's shapes) of the reference at
+    full width, traced once for both meshes."""
+    jcell = jsteps.build_cell(arch, shape)
+    structs = jax.eval_shape(jcell.init_params,
+                             jax.ShapeDtypeStruct((2,), jax.numpy.uint32))
+    opt = (jax.eval_shape(jcell.init_opt, structs)
+           if jcell.mode == "train" else None)
+    return jcell, structs, opt
+
+
+@functools.lru_cache(maxsize=None)
+def _port_cell(arch, shape):
+    return steps.build_cell(arch, shape, device="cuda")
+
+
+def _ref_rank_shapes(arch, shape, mesh):
+    """The reference dry-run's per-device arguments of a cell at full
+    width: {params | opt | batch: sorted (global shape, shard shape,
+    itemsize)} from ``jax.eval_shape`` and its shardings."""
+    import numpy as np
+
+    jcell, structs, opt = _ref_cell(arch, shape)
+    groups = {"params": (structs, jcell.param_shardings(mesh, structs))}
+    if opt is not None:
+        groups["opt"] = (opt, jcell.param_shardings(mesh, opt))
+    groups["batch"] = (jcell.input_specs(), jcell.batch_spec_fn(mesh))
+    out = {}
+    for name, (tree, shard) in groups.items():
+        leaves = jax.tree_util.tree_leaves(tree)
+        out[name] = sorted(
+            (tuple(x.shape), tuple(s.shard_shape(x.shape)),
+             np.dtype(x.dtype).itemsize)
+            for x, s in zip(leaves, jax.tree_util.tree_leaves(shard)))
+    return out
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("cell", [f"{a}:{s}" for a, s, _ in
+                                  registry.cells()])
+def test_rank_shapes_equal_reference(cell, mesh):
+    """Every cell at full width, the GNN and two-tower trees included: the
+    rank's block of each parameter, optimizer-state and batch leaf
+    (``steps.rank_shapes``, from meta shapes) is the shard shape of the
+    reference's ``param_sharding`` / ``batch_spec_fn`` over an
+    ``AbstractMesh``: the dry-run's per-rank argument bytes are the
+    reference's."""
+    arch, shape = cell.split(":")
+    port, ref = _meshes(mesh)
+    got = steps.rank_shapes(_port_cell(arch, shape), port)
+    got = {k: sorted((g, l, d.itemsize) for g, l, d in v)
+           for k, v in got.items()}
+    assert got == _ref_rank_shapes(arch, shape, ref)

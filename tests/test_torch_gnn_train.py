@@ -58,15 +58,10 @@ def test_cells_match_the_reference(arch, shape):
     jcfg, cfg = jcell.config, cell.config
     assert type(cfg).__name__ == type(jcfg).__name__
     names = {f.name for f in dataclasses.fields(jcfg)}
-    assert {f.name for f in dataclasses.fields(cfg)} == names - {"spmd_edges"}
+    assert {f.name for f in dataclasses.fields(cfg)} == names
     for name in names:
         want = getattr(jcfg, name)
-        if name == "spmd_edges":
-            # the reference's shard_map option, set with its bf16 plan; the
-            # port has the one single-device path
-            assert want == (cfg.dtype == torch.bfloat16 and
-                            cfg.channel_groups == 16)
-        elif name == "dtype":
+        if name == "dtype":
             assert getattr(cfg, name) == _jdtype(want)
         else:
             assert getattr(cfg, name) == want, name
