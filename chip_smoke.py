@@ -32,11 +32,15 @@ kernels line and the final result line):
 2c. the generic instances (a program's own emit, payload and monoid op,
    traced by ``emitgen.py``; every library they need built in parallel
    first, the seconds printed) on the same session: K1 and K3 (three
-   frontiers) for the min/max programs, K2 solo (sums), with 4 and 5
-   lanes and in its pre-emitted mode, for every builtin stripped of its
-   KernelEmit, the quickstart's reliability, an int32 sum with a custom
-   op, an emit that reads dst_gid through where, and a min-class monoid
-   with a custom identity, each bitwise its plain version;
+   frontiers) for the min/max programs, K2 solo, with 4 and 5 lanes and
+   in its pre-emitted mode for every program: every builtin stripped of
+   its KernelEmit, the quickstart's reliability, an int32 sum with a
+   custom op, an emit that reads dst_gid through where, a min-class
+   monoid with a custom identity, and the programs beyond the first op
+   set (transcendental ops, rounding and division, integer ops with
+   saturating float-to-int casts, bfloat16 and float16 messages under min
+   with a payload and under sum, a bfloat16 field, a 13-word record),
+   each bitwise its plain version;
 2b. K4 (``flash_attention``) against its plain version: bf16 and f32, head
    dims 64 and 128, causal or not, softcap 0 and 30, GQA groups 1 and 8,
    sq == skv and sq < skv (64 cases, tolerance at ``k4_err``: f32 2e-5,
@@ -123,9 +127,15 @@ kernels line and the final result line):
    actions), 16-lane stripped sssp bitwise phase 3d's lanes, and the
    quickstart's reliability on a session of the same edges at weights
    ``clip(w / w.max(), 0.05, 1)``: push and auto bitwise pull, 8 lanes
-   bitwise solo, a commit's repair bitwise a fresh query; counters zeroed
-   just before and read just after (generic K1, K2, K3 launched; the
-   fixed K1 and K3 not);
+   bitwise solo, a commit's repair bitwise a fresh query; on the same
+   session the log-space most reliable path (min-sum over ``-log(w')``):
+   the same checks and its pull within rel 1e-5 of scipy's Dijkstra on
+   ``-log(w')``; then sssp over bfloat16 messages with its parent payload
+   on phase 2's scale_free graph: the card's pull bitwise the same query
+   on the CPU, push bitwise pull, 4 lanes bitwise solo; counters zeroed
+   just before and read just after (generic K1, K2, K3 launched, by each
+   of reliability, the log-space path and the bfloat16 sssp; the fixed K1
+   and K3 not);
 3f. ``query("triangles")`` on graph500 scale 14 (n = 16384, the bitset's
    ceiling) on the card equal to ``triangle_count_exact`` on the host, and
    recounted after a commit; ``engine="event"`` (the host oracle) on
@@ -147,7 +157,11 @@ kernels line and the final result line):
    ``scatter_reduce_`` amin over the same messages;
 4g. each generic instance at its fixed row's shape (4a, 4f, 4b), on the
    builtin stripped of its KernelEmit: bitwise the fixed instance, then
-   timed in turns with it (the kernels line's ``/generic`` rows);
+   timed in turns with it (the kernels line's ``/generic`` rows); and
+   four programs beyond the first op set, each bitwise its plain version
+   and timed: K1 with the log-space emit and with a 13-word record at
+   4a's sssp shape, K2 with bfloat16 messages under sum and with the
+   13-word record at 4a's pagerank shape;
 4c. K6 (``relax_sorted``) through its entry point ``relax`` on cell 0 of the
    session's destination-sorted stream with phase 3's sssp distances and a
    50 % random active set: launches counted, bitwise against its plain
@@ -392,10 +406,15 @@ MINMAX_CASES = [
 ]
 
 
+_T0 = [time.perf_counter()]          # the run's start (main resets it)
+
+
 def emit(obj) -> None:
     """Print one JSON line, and append it to ``chip_smoke.jsonl`` under
     OUT_DIR, the run's whole record where only the end of the printed
-    output is kept."""
+    output is kept; a phase's line carries the run's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0[0]}
     line = json.dumps(obj)
     print(line, flush=True)
     OUT_DIR.mkdir(exist_ok=True)
@@ -621,8 +640,14 @@ def random_lane_state(prog, shape, seed: int, device):
             v = (rand() < 0.5).int()
         elif k == "rel":
             v = torch.where(rand() < 0.2, 0.0, rand())
-        elif k in ("pending", "hops"):
+        elif k in ("pending", "hops", "q"):
             v = torch.randint(0, 1200, shape, generator=g, dtype=torch.int32)
+        elif k in ("d16", "h16"):           # 16-bit distances
+            v = torch.where(rand() < 0.2, float("inf"), rand() * 40)
+        elif k in ("r16", "r16h"):          # 16-bit residuals
+            v = rand() * 1e-2
+        elif k == "x" or k.startswith("w"):  # positive, finite
+            v = 0.01 + rand() * 10
         else:
             v = torch.randint(-1, 1 << 16, shape, generator=g,
                               dtype=torch.int32)
@@ -884,6 +909,58 @@ def register_reliability() -> str:
     return "reliability"
 
 
+def _min_plus_spec(source: int, dtype, emit, payload=None):
+    """A min-plus program over field ``d`` of ``dtype`` from ``source``
+    (unreached at inf), the payload (if any) into field ``p``."""
+    from repro_torch.core import programs as P
+
+    def receive(s, inbox, has, pay, ok):
+        better = has & (inbox < s["d"]) & ok
+        out = {**s, "d": torch.where(better, inbox, s["d"])}
+        if payload is not None:
+            out["p"] = torch.where(better, pay, s["p"])
+        return out, better
+
+    state = {"d": P.Field(dtype, init=lambda v: torch.where(
+        v.gid == source, 0.0, float("inf")).to(dtype),
+        on_dead=float("inf"))}
+    if payload is not None:
+        state["p"] = P.Field(torch.int32, init=-1, on_dead=-1)
+    return P.DiffusiveProgram(
+        monoid="min", msg_dtype=dtype, state=state,
+        init_active=lambda v: v.gid == source, emit=emit, payload=payload,
+        receive=receive)
+
+
+def register_logrel() -> str:
+    """The most reliable path in log space: min-sum over -log(w) with
+    weights success probabilities in (0, 1] (a transcendental emit on
+    the generic kernels)."""
+    from repro_torch.core import programs as P
+
+    if "logrel" not in P.PROGRAMS:
+        P.diffusive("logrel", value_key="d", monotone=True,
+                    lane_param="source")(
+            lambda source: _min_plus_spec(
+                source, torch.float32,
+                lambda s, w, sg, dg: s["d"] - torch.log(w)))
+    return "logrel"
+
+
+def register_bf16_sssp() -> str:
+    """sssp with bfloat16 distances and messages and its parent payload."""
+    from repro_torch.core import programs as P
+
+    if "sssp_bf16" not in P.PROGRAMS:
+        P.diffusive("sssp_bf16", value_key="d", monotone=True,
+                    lane_param="source")(
+            lambda source: _min_plus_spec(
+                source, torch.bfloat16,
+                lambda s, w, sg, dg: s["d"] + w.to(torch.bfloat16),
+                payload=lambda s, sg: sg))
+    return "sssp_bf16"
+
+
 def user_programs() -> dict:
     """Programs written without a KernelEmit: the quickstart's
     reliability, an int32 sum with a custom op (min(a + b, CAP)), an emit
@@ -893,7 +970,7 @@ def user_programs() -> dict:
     from repro_torch.core.monoid import Monoid
 
     f32, i32 = torch.float32, torch.int32
-    keep = lambda s, ib, h, p, ok: (s, h & ok)  # noqa: E731
+    keep = _keep
     register_reliability()
     return {
         "reliability": P.PROGRAMS["reliability"].factory(source=0),
@@ -914,32 +991,176 @@ def user_programs() -> dict:
     }
 
 
+@contextlib.contextmanager
+def unverified():
+    """``lower`` without the verifier: it refuses a 16-bit sum, as the
+    reference's does (its rounding is not associative on seeded
+    samples), and the generic kernels compute it all the same."""
+    import os
+
+    old = os.environ.get("REPRO_VERIFY")
+    os.environ["REPRO_VERIFY"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_VERIFY")
+        else:
+            os.environ["REPRO_VERIFY"] = old
+
+
+def _keep(s, ib, h, p, ok):
+    return s, h & ok
+
+
+def lower_program(name, state, emit, msg=torch.float32, monoid="min",
+                  payload=None):
+    """``lower`` of a program that only emits (receive keeps the state)."""
+    from repro_torch.core import programs as P
+
+    return P.lower(P.DiffusiveProgram(
+        monoid=monoid, msg_dtype=msg,
+        state={k: P.Field(dt) for k, dt in state.items()}, emit=emit,
+        payload=payload, receive=_keep), name)
+
+
+def emit_programs() -> dict:
+    """The programs beyond the generic kernels' first op set: every new op
+    class (exp/exp2/log/log2/log10/log1p/expm1, the three pow forms,
+    sin/cos/tanh/sigmoid, rsqrt/reciprocal; floor/ceil/round/trunc/sign
+    and the division family; integer shifts, pow and division and the
+    float predicates; float16 floor division, remainder and fmod),
+    float-to-int casts (saturating: ``x * 1e9``),
+    bfloat16 and float16 messages under min with a payload (the float16
+    one cast from a 16-bit value, saturating at inf) and under sum, a bfloat16 field under a
+    float32 message, and a record of 13 words after hoisting (12 fields
+    picked by dst_gid, the payload)."""
+    f32, i32 = torch.float32, torch.int32
+    bf16, f16 = torch.bfloat16, torch.float16
+    prog = lower_program
+
+    def wide(s, w, sg, dg):
+        out = w
+        for k in range(12):
+            out = out + torch.where(dg % 12 == k, s[f"w{k}"], 0.0)
+        return out
+
+    with unverified():
+        sums = {
+            "bf16_sum": prog("bf16_sum", {"r16": bf16, "deg": f32},
+                             lambda s, w, sg, dg: (s["r16"] * 0.85) /
+                             s["deg"].to(bf16), bf16, "sum"),
+            "f16_sum": prog("f16_sum", {"r16h": f16},
+                            lambda s, w, sg, dg: s["r16h"] * w.half(), f16,
+                            "sum")}
+    return {
+        "transcendental": prog(
+            "transcendental", {"dist": f32, "x": f32},
+            lambda s, w, sg, dg: s["dist"] + torch.exp(-s["x"]) +
+            torch.exp2(-w) + torch.log(w) + torch.log2(s["x"]) +
+            torch.log10(w) + torch.log1p(s["x"]) + torch.expm1(-w) +
+            w ** 2.5 + s["x"] ** 2 + torch.pow(s["x"], w * 0.1) +
+            0.5 ** w + torch.sin(w) + torch.cos(s["x"]) + torch.tanh(w) +
+            torch.sigmoid(-s["x"]) + torch.rsqrt(w) +
+            torch.reciprocal(s["x"])),
+        "rounding_division": prog(
+            "rounding_division", {"x": f32},
+            lambda s, w, sg, dg: s["x"] + torch.floor(w * 3) +
+            torch.ceil(w) + torch.round(w * 2.5) + torch.trunc(w * 7) +
+            torch.sign(w - 4.0) + w // 0.3 + w % 0.7 +
+            torch.fmod(s["x"], w) + torch.div(s["x"], w, rounding_mode=
+                                              "trunc") + s["x"] // w +
+            torch.round(w, decimals=2),
+            monoid="max", payload=lambda s, sg: sg),
+        "integer_ops": prog(
+            "integer_ops", {"q": i32, "x": f32},
+            lambda s, w, sg, dg: s["q"] + ((w * 100).int() >> 2) +
+            ((dg % 7) << 1) + (s["q"] // 7) % 5 + torch.fmod(s["q"], 11) +
+            torch.div(s["q"], 3, rounding_mode="trunc") +
+            torch.isfinite(w).int() + (s["q"] & 15) ** 2 +
+            (s["x"] * 1e9).int() // 1000000 + (s["x"] * 1e9).long().int(),
+            i32),
+        "bf16_min_payload": prog(
+            "bf16_min_payload", {"d16": bf16},
+            lambda s, w, sg, dg: s["d16"] + w.to(bf16) * 1.5, bf16,
+            payload=lambda s, sg: sg),
+        "f16_min_payload": prog(
+            "f16_min_payload", {"h16": f16},
+            lambda s, w, sg, dg: s["h16"] + w.half() / 3 +
+            (w.half() // 0.7) % 2.5 + torch.fmod(w.half(), 1.3), f16,
+            payload=lambda s, sg: (s["h16"] * 100).int()),
+        "bf16_field": prog(
+            "bf16_field", {"d16": bf16},
+            lambda s, w, sg, dg: s["d16"].float() + w),
+        "wide_record": prog(
+            "wide_record", {f"w{k}": f32 for k in range(12)}, wide,
+            monoid="max", payload=lambda s, sg: sg),
+        **sums,
+    }
+
+
 def build_generic(progs) -> float:
-    """Compile every generic library the programs need (their own, and a
-    custom monoid's pre-emitted combine) in parallel; seconds taken."""
+    """Compile every generic library the programs need (their own, and
+    the pre-emitted combine of a custom monoid or of 16-bit messages) in
+    parallel; seconds taken."""
     from repro_torch.kernels.edge_relax import emitgen, kernel
 
     trs = [p.kernel_gen for p in progs]
     trs += [emitgen.translate_monoid(p.monoid, p.msg_dtype) for p in progs
-            if kernel._custom(p.monoid)]
+            if kernel._custom(p.monoid) or p.msg_dtype in (torch.bfloat16,
+                                                          torch.float16)]
     t = time.perf_counter()
     if torch.cuda.is_available():
         kernel.build_generic(*trs)
     return time.perf_counter() - t
 
 
-def phase_generic_kernels(sess, device) -> dict:
+def generic_programs() -> list:
+    """Every program whose generic libraries the run builds: phase 2c's,
+    3h's and 4g's (a header does not depend on a query's source)."""
+    from repro_torch.core.programs import PROGRAMS
+
+    progs = [stripped(n, kw) for n, kw in STRIPPED]
+    progs += [*user_programs().values(), *emit_programs().values(),
+              *timing_programs(0)]
+    progs += [PROGRAMS[register_stripped("cc")].factory()]
+    progs += [PROGRAMS[n].factory(source=0) for n in (
+        register_stripped("sssp"), register_stripped("ppr"),
+        register_reliability(), register_logrel(), register_bf16_sssp())]
+    return progs
+
+
+def start_generic_build(device):
+    """On the card: lower :func:`generic_programs` and compile their
+    libraries on a host thread, while phase 2 (which needs none of them)
+    runs; returns the future of the build's seconds, or None."""
+    if device.type != "cuda":
+        return None
+    import concurrent.futures
+
+    progs = generic_programs()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    fut = pool.submit(build_generic, progs)
+    pool.shutdown(wait=False)
+    return fut
+
+
+def phase_generic_kernels(sess, device, gen_build=None) -> dict:
     """Phase 2c: the generic instances against their plain versions,
-    bitwise: K1 and K3 (three frontiers) for the min/max programs, K2 solo
-    (sums), laned (4 and 5 lanes) and pre-emitted, for every builtin
-    stripped of its KernelEmit and for the user programs."""
+    bitwise: K1 and K3 (three frontiers) for the min/max programs, K2
+    solo, laned (4 and 5 lanes) and pre-emitted for every program: every
+    builtin stripped of its KernelEmit, the user programs and the
+    programs beyond the first op set (:func:`emit_programs`)."""
     from repro_torch.kernels.edge_relax import kernel
 
     progs = {f"{n}{kw}": stripped(n, kw) for n, kw in STRIPPED}
     progs.update(user_programs())
-    build_s = build_generic(progs.values())
-    out = {"build_s": build_s, "k1": {}, "k3": {}, "k2": {}, "k2_pre": {},
-           "k2_lanes": {}}
+    progs.update(emit_programs())
+    t = time.perf_counter()
+    build_s = gen_build.result() if gen_build is not None else \
+        build_generic(progs.values())
+    out = {"build_s": build_s, "build_wait_s": time.perf_counter() - t,
+           "k1": {}, "k3": {}, "k2": {}, "k2_pre": {}, "k2_lanes": {}}
     one = torch.zeros_like(sess.sg.node_ok)
     one[sess.ns.resolve(0)] = True
     kernel.reset_launches()
@@ -954,9 +1175,8 @@ def phase_generic_kernels(sess, device) -> dict:
                                ("all", sess.sg.node_ok.clone())):
                 out["k3"][f"{tag}/{f}"] = compare_k3(sess, prog, vstate,
                                                      senders)
-        else:
-            out["k2"][tag] = compare_k2(sess, prog, vstate,
-                                        random_senders(sess, 800 + i))
+        out["k2"][tag] = compare_k2(sess, prog, vstate,
+                                    random_senders(sess, 800 + i))
         out["k2_pre"][tag] = compare_k2_pre(
             sess, prog, vstate, random_senders(sess, 900 + i, p=0.05))
         for lanes in (4, 5):
@@ -1333,11 +1553,13 @@ def phase_generic(args, sess, results, lanes16, roots, sources, data,
     s0 = sources[0]
     names = {b: register_stripped(b) for b in ("sssp", "cc", "ppr")}
     rel = register_reliability()
+    lr, b16 = register_logrel(), register_bf16_sssp()
     build_s = build_generic([
         PROGRAMS[names["sssp"]].factory(source=s0),
         PROGRAMS[names["cc"]].factory(),
         PROGRAMS[names["ppr"]].factory(source=s0),
-        PROGRAMS[rel].factory(source=s0)])
+        PROGRAMS[rel].factory(source=s0),
+        PROGRAMS[lr].factory(source=s0), PROGRAMS[b16].factory(source=0)])
     emit({"phase": "generic_build", "seconds": build_s})
     sync(device)
     kernel.reset_launches()
@@ -1419,6 +1641,11 @@ def phase_generic(args, sess, results, lanes16, roots, sources, data,
         solo, _ = run(rsess, rel, source=r)
         check(same_bits(lane.values, solo.values),
               f"reliability lane {r} differs from its solo query")
+    lr_before = dict(kernel.LAUNCHES)
+    lr_report = logrel_checks(rsess, lr, s0, lroots, data, probs, run, rows)
+    lr_launches = {k: kernel.LAUNCHES[k] - lr_before[k]
+                   for k in kernel.LAUNCHES}
+    rsess.query(lr, source=s0)                  # cached for the commit
     rsess.query(rel, source=s0)                 # cached for the commit
     rng = np.random.default_rng(args.seed + 7)
     live = rng.choice(src.shape[0], 64, replace=False)
@@ -1433,10 +1660,23 @@ def phase_generic(args, sess, results, lanes16, roots, sources, data,
     fresh, _ = run(rsess, rel, source=s0)
     check(same_bits(repaired.values, fresh.values),
           "reliability: the commit's repair differs from a fresh query")
+    repaired = rsess.query(lr, source=s0)
+    fresh, _ = run(rsess, lr, source=s0)
+    check(same_bits(repaired.values, fresh.values),
+          "logrel: the commit's repair differs from a fresh query")
+    lr_report["commit_repairs"] = [v[0] for k, v in info.repairs.items()
+                                   if k[0] == lr]
+    launches = dict(kernel.LAUNCHES)
+    rel_launches = {k: launches[k] - before[k] - lr_launches[k]
+                    for k in launches}
+    del rsess
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    b16_before = dict(kernel.LAUNCHES)
+    b16_report = bf16_sssp_checks(args, b16, device, rows)
     launches = dict(kernel.LAUNCHES)
     scan = dict(kernel.SCAN_LAUNCHES)
-    rel_launches = {k: launches[k] - before[k] for k in launches}
-    del rsess
+    b16_launches = {k: launches[k] - b16_before[k] for k in launches}
     if device.type == "cuda":
         torch.cuda.empty_cache()
         for k in ("edge_relax_blocks/generic", "edge_relax_scan/generic",
@@ -1447,6 +1687,11 @@ def phase_generic(args, sess, results, lanes16, roots, sources, data,
             check(launches[k] == 0, f"phase 3h launched the fixed {k}")
         check(rel_launches["edge_relax_scan"] == 0,
               "reliability launched the fixed K2")
+        for who, book in (("logrel", lr_launches),
+                          ("sssp_bf16", b16_launches)):
+            for k in ("edge_relax_blocks/generic", "edge_relax_scan/generic",
+                      "edge_relax_push_blocks/generic"):
+                check(book[k] > 0, f"{who} launched no {k}")
     for r in rows:
         emit({"phase": "generic_query", **r})
     report = {"phase": "generic_checks", "ok": True, "build_s": build_s,
@@ -1457,9 +1702,109 @@ def phase_generic(args, sess, results, lanes16, roots, sources, data,
               "launches": launches, "scan_variants": {
                   k: v for k, v in scan.items() if v},
               "stripped_launches": stripped_launches,
-              "reliability_launches": rel_launches}
+              "reliability_launches": rel_launches,
+              "logrel": {**lr_report, "launches": lr_launches},
+              "sssp_bf16": {**b16_report, "launches": b16_launches}}
     emit(report)
-    return {**launches, **{f"scan:{k}": v for k, v in scan.items()}}
+    return {**launches, **{f"scan:{k}": v for k, v in scan.items()},
+            **{f"logrel:{k}": v for k, v in lr_launches.items()}}
+
+
+def logrel_checks(rsess, lr, s0, lroots, data, probs, run, rows) -> dict:
+    """Phase 3h's log-space most reliable path on the reliability session
+    (weights ``w' = clip(w / w.max(), 0.05, 1)``): push and auto bitwise
+    pull (values, rounds, local iterations, actions), 8 lanes bitwise
+    their solo queries, and the pull values within rel 1e-5 of scipy's
+    Dijkstra on ``-log(w')`` in float64 (an edge of cost 0, w' = 1, at the
+    least positive float64 so that scipy keeps it)."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+
+    src, dst, _, n = data
+    pull, dt = run(rsess, lr, source=s0)
+    rows.append({"query": lr, "sweep": "pull", "source": s0, "wall_s": dt,
+                 "rounds": int(pull.stats.rounds),
+                 "actions": int(pull.stats.actions)})
+    for sweep in ("push", "auto"):
+        res, dt = run(rsess, lr, source=s0, sweep=sweep)
+        check(same_bits(res.values, pull.values),
+              f"logrel sweep={sweep}: values differ from pull")
+        for f in ("rounds", "local_iters", "actions"):
+            check(int(getattr(res.stats, f)) == int(getattr(pull.stats, f)),
+                  f"logrel sweep={sweep}: stats.{f} differs from pull")
+        rows.append({"query": lr, "sweep": sweep, "source": s0,
+                     "wall_s": dt})
+    t = time.perf_counter()
+    lanes = rsess.query(lr, sources=lroots, refresh=True)
+    rows.append({"query": lr, "lanes": len(lroots),
+                 "wall_s": time.perf_counter() - t})
+    for lane, r in zip(lanes, lroots):
+        solo, _ = run(rsess, lr, source=r)
+        check(same_bits(lane.values, solo.values),
+              f"logrel lane {r} differs from its solo query")
+    cost = -np.log(probs.astype(np.float64))
+    cost = np.where(cost > 0, cost, np.finfo(np.float64).tiny)
+    a = sp.csr_matrix((cost, (src, dst)), shape=(n, n))
+    t = time.perf_counter()
+    want = dijkstra(a, directed=True, indices=s0)
+    scipy_s = time.perf_counter() - t
+    got = pull.values[:n].astype(np.float64)
+    fin = np.isfinite(want)
+    check(np.array_equal(np.isfinite(got), fin),
+          "logrel: reachability differs from scipy")
+    rel = np.abs(got[fin] - want[fin]) / np.maximum(want[fin], 1.0)
+    check(rel.max(initial=0.0) <= 1e-5,
+          f"logrel: rel error {rel.max()} > 1e-5 against scipy")
+    return {"source": s0, "reached": int(fin.sum()),
+            "max_rel_err_vs_scipy": float(rel.max(initial=0.0)),
+            "scipy_s": scipy_s, "rounds": int(pull.stats.rounds),
+            "lanes_bitwise_solo": len(lroots), "push_auto_bitwise": True}
+
+
+def bf16_sssp_checks(args, b16, device, rows) -> dict:
+    """Phase 3h's bfloat16 sssp on phase 2's scale_free graph (4 cells):
+    pull on the card bitwise the same query on the CPU (values, parents,
+    stats), push bitwise pull, 4 lanes bitwise their solo queries."""
+    from repro_torch.core import DiffusionSession
+    from repro_torch.core.generators import make_graph_family
+
+    src, dst, w, n = make_graph_family("scale_free", args.kernel_n, seed=0)
+    gs = DiffusionSession.from_edges(src, dst, n, w, n_cells=4,
+                                     device=device)
+    cs = DiffusionSession.from_edges(src, dst, n, w, n_cells=4,
+                                     device="cpu")
+    out = {"graph": "scale_free", "n": n}
+    sync(device)
+    t = time.perf_counter()
+    got = gs.query(b16, source=0)
+    sync(device)
+    out["card_pull_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    want = cs.query(b16, source=0)
+    out["cpu_pull_s"] = time.perf_counter() - t
+    check(same_bits(got.values, want.values)
+          and all(same_bits(got.extra[k], want.extra[k]) for k in want.extra)
+          and all(int(getattr(got.stats, f)) == int(getattr(want.stats, f))
+                  for f in ("rounds", "local_iters", "actions")),
+          "sssp_bf16: the card's query differs from the CPU's")
+    push = gs.query(b16, source=0, sweep="push", refresh=True)
+    check(same_bits(push.values, got.values),
+          "sssp_bf16 push: values differ from pull")
+    roots = [0, 7, 23, 101]
+    lanes = gs.query(b16, sources=roots, refresh=True)
+    for lane, r in zip(lanes, roots):
+        solo = gs.query(b16, source=r, refresh=True)
+        check(same_bits(lane.values, solo.values)
+              and same_bits(lane.extra["p"], solo.extra["p"]),
+              f"sssp_bf16 lane {r} differs from its solo query")
+    sync(device)
+    out.update(rounds=int(got.stats.rounds),
+               reached=int(np.isfinite(want.values[:n]).sum()),
+               values_dtype=str(got.values.dtype), card_vs_cpu_bitwise=True)
+    rows.append({"query": b16, "sweep": "pull", "source": 0,
+                 "wall_s": out["card_pull_s"]})
+    del gs, cs
+    return out
 
 
 def phase_generic_timing(sess, fixed_rows, gen_launches, sources, roots,
@@ -1551,6 +1896,143 @@ def phase_generic_timing(sess, fixed_rows, gen_launches, sources, roots,
               "record_words": gen.kernel_gen.words,
               **{k: row[k] for k in ("launches", "bound_ms", "plain_ms",
                                      "library_ms")}})
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def timing_programs(source: int) -> tuple:
+    """Phase 4g's programs beyond the first op set: the log-space path
+    from ``source``, a min and a sum program over a 13-word record (12
+    fields picked by dst_gid), and pagerank's share over bfloat16."""
+    from repro_torch.core.programs import PROGRAMS
+
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def pick(s, w, dg):
+        out = w
+        for k in range(12):
+            out = out + torch.where(dg % 12 == k, s[f"w{k}"], 0.0)
+        return out
+
+    ws = {f"w{k}": f32 for k in range(12)}
+    wide_min = lower_program("wide_min", {"d": f32, **ws},
+                             lambda s, w, sg_, dg: s["d"] + pick(s, w, dg))
+    with unverified():
+        bf16_sum = lower_program(
+            "bf16_share", {"residual": bf16, "deg": bf16},
+            lambda s, w, sg_, dg: (s["residual"] * 0.85) / s["deg"], bf16,
+            "sum")
+    wide_sum = lower_program(
+        "wide_share", {"residual": f32, "deg": f32, **ws},
+        lambda s, w, sg_, dg: (s["residual"] * 0.85) / s["deg"] +
+        pick(s, 0.0 * w, dg), f32, "sum")
+    return (PROGRAMS[register_logrel()].factory(source=source), wide_min,
+            bf16_sum, wide_sum)
+
+
+def phase_emit_timing(sess, gen_launches, sources, device,
+                      reps: int) -> list:
+    """Phase 4g's programs beyond the first op set, each bitwise its plain
+    version first, then timed: K1's generic instance with a
+    transcendental emit (the log-space path, -log(w)) and with a record of
+    13 words (12 fields picked by dst_gid) at K1's sssp shape, K2's with
+    bfloat16 messages under sum (pagerank's push share in bfloat16) and
+    with the 13-word record at K2's pagerank shape.  The bound counts
+    each byte once: the stream, the fields the record packs (its bytes at
+    their dtype), the senders, and the outputs at the message dtype.
+    ``library_ms`` is the scatter (``scatter_reduce_`` amin) or segment
+    sum (``segment_reduce``) of the same messages; launches are the
+    generic instance's in phase 3h (the log-space row: its own)."""
+    from repro_torch.core.programs import PROGRAMS
+    from repro_torch.kernels.edge_relax import kernel, ref
+
+    clock = Clock(device)
+    sg = sess.sg
+    S, Np = sg.n_shards, sg.n_per_shard
+    es = sg.sorted_width
+    n_keys = S * Np
+    full = sg.node_ok.clone()
+    kw = {"source": sources[0]}
+    dist = sess.vertex_state("sssp", **kw)["dist"]
+    pr_state, _ = PROGRAMS["pagerank"].factory(eps=1e-7).init(sg)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    fields = {f"w{k}": (0.01 + 4 * torch.rand((S, Np), generator=g)).to(
+        device) for k in range(12)}
+    bf16 = torch.bfloat16
+    lr, wide_min, bf16_sum, wide_sum = timing_programs(sources[0])
+    cases = [
+        ("edge_relax_blocks/generic (log-space emit)", "k1", lr,
+         {"d": dist}, gen_launches.get("logrel:edge_relax_blocks/generic",
+                                       0)),
+        ("edge_relax_blocks/generic (13-word record)", "k1", wide_min,
+         {"d": dist, **fields},
+         gen_launches.get("edge_relax_blocks/generic", 0)),
+        ("edge_relax_scan/generic (bfloat16 sum)", "k2", bf16_sum,
+         {k: pr_state[k].to(bf16) for k in ("residual", "deg")},
+         gen_launches.get("scan:sum/generic", 0)),
+        ("edge_relax_scan/generic (13-word record)", "k2", wide_sum,
+         {"residual": pr_state["residual"], "deg": pr_state["deg"],
+          **fields}, gen_launches.get("scan:sum/generic", 0)),
+    ]
+    rows = []
+    for name, which, prog, vstate, launches in cases:
+        skey, args = stream_inputs(sess, prog, vstate, full)
+        tr = prog.kernel_gen
+        msg_b = prog.msg_dtype.itemsize
+        field_b = sum(vstate[k].element_size() for k, _ in tr.fields)
+        per_pos = 4 + 4 + (4 if which == "k2" else 0) \
+            + 4 * tr.reads_weight + 4 * tr.reads_dst_gid
+        cand, send, _ = ref.edge_messages(*args)
+        if which == "k1":
+            err = hold_k1(args, n_keys, name)
+            fn = lambda a=args: kernel.edge_relax_blocks(*a, n_keys)
+            plain = lambda a=args: ref.combine_blocks(
+                *ref.edge_relax_blocks_ref(*a, block_e=kernel.BLOCK_E),
+                n_keys, prog.combine)
+            ids = torch.where(send, args[4], n_keys).long()
+            ids = ids + torch.arange(S, device=device)[:, None] * (n_keys + 1)
+            flat_c, flat_i = cand.reshape(-1), ids.reshape(-1)
+            table = torch.empty(S * (n_keys + 1), dtype=cand.dtype,
+                                device=device)
+            lib = lambda: table.fill_(float("inf")).scatter_reduce_(
+                0, flat_i, flat_c, "amin")
+            nbytes = S * es * per_pos + S * Np * (1 + field_b) \
+                + S * n_keys * (msg_b + 4)
+        else:
+            err = hold_k2(args, skey, name)
+            fn = lambda a=args, k=skey: kernel.edge_relax_scan(*a, skey=k)
+            plain = lambda a=args, k=skey: ref.edge_relax_scan_ref(*a,
+                                                                   skey=k)
+            k_ = skey.reshape(-1)
+            starts = torch.nonzero(torch.cat([
+                torch.ones(1, dtype=torch.bool, device=device),
+                k_[1:] != k_[:-1]])).reshape(-1)
+            lengths = torch.diff(starts, append=torch.tensor(
+                [k_.numel()], device=device))
+            flat = cand.reshape(-1).contiguous()
+            lib = lambda: torch.segment_reduce(flat, "sum", lengths=lengths)
+            nbytes = S * es * per_pos + S * Np * (1 + field_b) \
+                + S * es * (msg_b + 4)
+        kernel.reset_launches()             # timing launches never count
+        ms1 = clock.ms(fn, reps)
+        p_ms = clock.ms(plain, max(2, reps // 10), warmup=1)
+        ms2 = clock.ms(fn, reps)
+        lib_ms = clock.ms(lib, reps)
+        row = kernel_row(
+            name, "src/repro_torch/kernels/edge_relax/csrc/" + (
+                "edge_relax_tables.cu" if which == "k1" else
+                "edge_relax_scan.cu"),
+            "src/repro/kernels/edge_relax/kernel.py:" + (
+                "220" if which == "k1" else "97"),
+            launches, err, (ms1 + ms2) / 2, p_ms, nbytes, S * es * 6, lib_ms)
+        rows.append(row)
+        emit({"phase": "emit_timing", "kernel": name, "program": prog.name,
+              "ms": [ms1, ms2], "record_words": tr.words,
+              "msg_dtype": str(prog.msg_dtype),
+              **{k: row[k] for k in ("launches", "bound_ms", "plain_ms",
+                                     "library_ms", "bytes")}})
+        del cand, send
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return rows
@@ -6969,6 +7451,7 @@ def main(argv=None) -> int:
                     help="run the path on the CPU with the plain versions "
                          "(tiny sizes); exits 3 and prints no result")
     args = ap.parse_args(argv)
+    _T0[0] = time.perf_counter()
     (OUT_DIR / "chip_smoke.jsonl").unlink(missing_ok=True)
 
     if args.cpu_rehearsal:
@@ -7022,6 +7505,7 @@ def main(argv=None) -> int:
         emit({"phase": "build", "seconds": time.perf_counter() - t,
               "ptxas": ptxas})
         emit({"phase": "k4_sass", "hgmma": k4_sass_check()})
+    gen_build = start_generic_build(device)
 
     src, dst, w, n = make_graph_family("scale_free", args.kernel_n, seed=0)
     ksess = DiffusionSession.from_edges(src, dst, n, w, n_cells=4,
@@ -7029,7 +7513,7 @@ def main(argv=None) -> int:
     errs = phase_kernels(ksess, device)
     emit({"phase": "kernels_vs_plain", "graph": "scale_free",
           "n": args.kernel_n, "cells": 4, "bitwise": True, **errs})
-    gen_errs = phase_generic_kernels(ksess, device)
+    gen_errs = phase_generic_kernels(ksess, device, gen_build)
     emit({"phase": "generic_kernels_vs_plain", "graph": "scale_free",
           "n": args.kernel_n, "cells": 4, "bitwise": True, **gen_errs})
     del ksess
@@ -7063,6 +7547,7 @@ def main(argv=None) -> int:
         sess, rows, gen_launches, sources, roots, device, args.reps,
         ("edge_relax_blocks", "edge_relax_scan",
          "edge_relax_scan (laned, payload)"))
+    rows += phase_emit_timing(sess, gen_launches, sources, device, args.reps)
     k6_row = phase_k6(sess, sources, device, args.reps)
     commit_launches, frontier0, commit_times = phase_commits(
         args, sess, data, sources, roots, device)

@@ -141,6 +141,12 @@ def _seeded(dtype: torch.dtype, shape, rng) -> torch.Tensor:
         .to(dtype)
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array; bfloat16, which numpy lacks, widened to
+    float32 (exact, so equality is as on the 16-bit values)."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def _check_monoid(name: str, monoid: Monoid, dtype):
     """Seeded spot check of the combine's algebra.  Associativity and
     commutativity make delivery order irrelevant; identity makes an empty
@@ -149,23 +155,26 @@ def _check_monoid(name: str, monoid: Monoid, dtype):
     op (logical-or over {0, 1}) is normalized into the values its combine
     tree produces."""
     rng = np.random.default_rng(0)
-    close = np.allclose if dtype.is_floating_point else np.array_equal
+    # as the reference: numpy's floats to tolerance; bfloat16 (not a numpy
+    # floating type under ml_dtypes) and the rest bitwise
+    close = np.allclose if dtype in (torch.float16, torch.float32,
+                                     torch.float64) else np.array_equal
     ident = monoid.identity(dtype)
     full = lambda x: torch.full_like(x, ident)  # noqa: E731
     a, b, c = (monoid.elem(x, full(x)) for x in
                (_seeded(dtype, (32,), rng) for _ in range(3)))
-    ab_c = monoid.elem(monoid.elem(a, b), c).numpy()
-    a_bc = monoid.elem(a, monoid.elem(b, c)).numpy()
+    ab_c = _host(monoid.elem(monoid.elem(a, b), c))
+    a_bc = _host(monoid.elem(a, monoid.elem(b, c)))
     if not close(ab_c, a_bc):
         raise _err(name, "monoid",
                    f"{monoid.name!r} op is not associative on seeded "
                    f"{dtype} samples — unordered mailbox coalescing "
                    f"would depend on delivery order")
-    if not close(monoid.elem(a, b).numpy(), monoid.elem(b, a).numpy()):
+    if not close(_host(monoid.elem(a, b)), _host(monoid.elem(b, a))):
         raise _err(name, "monoid",
                    f"{monoid.name!r} op is not commutative on seeded "
                    f"{dtype} samples")
-    if not close(monoid.elem(a, full(a)).numpy(), a.numpy()):
+    if not close(_host(monoid.elem(a, full(a))), _host(a)):
         raise _err(name, "monoid",
                    f"{monoid.name!r} identity is not neutral: "
                    f"op(x, identity) != x on seeded {dtype} samples")
@@ -300,8 +309,8 @@ def verify_program(spec, name: str = "", traces: dict | None = None) -> None:
             if spec.payload is not None else None)
     out_state, _ = spec.receive(dict(state), ident_in, no_has, pay0, nok)
     for k in schema:
-        got = out_state[k][nok].numpy()
-        want = state[k][nok].numpy()
+        got = _host(out_state[k][nok])
+        want = _host(state[k][nok])
         if not np.array_equal(got, want, equal_nan=True):
             raise _err(name, "receive",
                        f"field {k!r} changes under an empty inbox (has_msg "

@@ -126,6 +126,15 @@ SNAPSHOT_FORMAT = 1
 _JOURNAL_FILE = "journal.bin"
 
 
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host as numpy: a bfloat16 tensor (numpy
+    has no bfloat16, and the port needs no ``ml_dtypes``) as float32,
+    widened exactly; every other dtype as itself (float16 included)."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
 def _json_np(o):
     """json.dumps fallback: numpy scalars in cached query kwargs."""
     if isinstance(o, np.generic):
@@ -331,7 +340,7 @@ class DiffusionSession:
         """[S, Np] shard layout -> [n_ids] gid order, on the host.  Dead
         ids may alias a live vertex's value — mask with :meth:`live_ids`."""
         owner, local = self._layout()
-        return values[owner, local].cpu().numpy()
+        return host_array(values[owner, local])
 
     def live_ids(self) -> np.ndarray:
         """[n_ids] bool: ids currently naming a live vertex."""
@@ -828,7 +837,7 @@ class DiffusionSession:
     def _at(self, values, gids) -> np.ndarray:
         """``values`` [S, Np] at the given gids, in one host read."""
         s, l = self._slots(gids)
-        return values[s, l].cpu().numpy()
+        return host_array(values[s, l])
 
     def _warm_state(self, entry: _Entry, applied: AppliedUpdates,
                     strategy: str):

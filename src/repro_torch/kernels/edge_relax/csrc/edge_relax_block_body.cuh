@@ -27,7 +27,8 @@
 // in `gp`, the payload included) and emits from it with the edge's weight
 // and dst_gid; a valid edge that does not send carries the monoid's own
 // identity gen::ident(), as the plain version masks.  The runs still
-// combine with the class's native op, as the plain version's does.
+// combine with the class's native op, as the plain version's does; 16-bit
+// messages combine as exact float32 values and are stored narrowed.
 //
 // PUSH = false: block slot x of cell s is block x of the stream.
 // PUSH = true:  block slot x reads idx[s * gridDim.x + x] and sweeps block
@@ -51,12 +52,14 @@ __global__ void __launch_bounds__(kBlockE)
 blocks_kernel(const T* __restrict__ field, const bool* __restrict__ senders,
               const int* __restrict__ gid, const int* __restrict__ key,
               const int* __restrict__ src, const float* __restrict__ weight,
-              const int* __restrict__ idx, T* __restrict__ part,
+              const int* __restrict__ idx,
+              typename MsgStore<T, EMIT == kGeneric>::S* __restrict__ part,
               int* __restrict__ cnt, int* __restrict__ uniq,
               int* __restrict__ pay, int np, int nb, long long stride,
               float emit_const, const GenPtrs gp,
               const int* __restrict__ dst_gid) {
   using C = Combine<T, MAX ? kMax : kMin>;
+  using MS = MsgStore<T, EMIT == kGeneric>;
   __shared__ int s_key[kBlockE];
   __shared__ int s_rank[kBlockE];
   __shared__ T s_cand[kBlockE];
@@ -130,7 +133,7 @@ blocks_kernel(const T* __restrict__ field, const bool* __restrict__ senders,
       c += s_send[j];
       ++j;
     }
-    part[ob + rank] = acc;
+    part[ob + rank] = MS::put(acc);
     cnt[ob + rank] = c;
     uniq[ob + rank] = k;
     if constexpr (PAY) {
@@ -142,7 +145,7 @@ blocks_kernel(const T* __restrict__ field, const bool* __restrict__ senders,
     }
   }
   if (t >= runs) {
-    part[ob + t] = C::ident();
+    part[ob + t] = MS::put(C::ident());
     cnt[ob + t] = 0;
     uniq[ob + t] = -1;
     if constexpr (PAY) pay[ob + t] = -1;
@@ -179,7 +182,9 @@ cudaError_t launch(const BlockArgs& a) {
   const dim3 grid((unsigned)a.slots, (unsigned)a.n_cells);
   blocks_kernel<T, MAX, EMIT, PAY, PUSH><<<grid, kBlockE, 0, a.stream>>>(
       static_cast<const T*>(a.field), a.senders, a.gid, a.key, a.src,
-      a.weight, a.idx, static_cast<T*>(a.part), a.cnt, a.uniq, a.pay, a.np,
+      a.weight, a.idx,
+      static_cast<typename MsgStore<T, EMIT == kGeneric>::S*>(a.part), a.cnt,
+      a.uniq, a.pay, a.np,
       a.nb, a.stride, a.emit_const, a.gp, a.dst_gid);
   return cudaGetLastError();
 }

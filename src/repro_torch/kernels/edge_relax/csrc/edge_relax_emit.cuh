@@ -7,12 +7,14 @@
 //
 // The generic instance (kGeneric, kGenComb): a library built with
 // -DREPRO_GENERIC -DREPRO_GEN_HEADER="<file>" includes the header that
-// kernels/edge_relax/emitgen.py generated for one program — namespace gen:
-// its message type, monoid class, record layout, identity, combine op,
-// pack() (a source vertex's record: the fields emit reads, src_gid if
-// read, the payload) and emit() (an edge's message from that record, its
-// weight and dst_gid).  Other builds see the stub below, which no
-// instance they compile reaches.
+// kernels/edge_relax/emitgen.py generated for one program — GenPtrs (the
+// pointers of the state fields it reads) and namespace gen: its message
+// type (float for 16-bit messages, held widened and exact) and the
+// tensors' element type (Store), monoid class, record layouts, identity,
+// combine op, pack() (a source vertex's record: the values emit's
+// edge-dependent part reads, the payload) and emit() (an edge's message
+// from that record, its weight and dst_gid).  Other builds see the stub
+// below, which no instance they compile reaches.
 
 #pragma once
 
@@ -41,11 +43,6 @@ enum EmitForm : int {
 // The scatter class of a program's monoid; kGenComb is the generated
 // combine (gen::op and gen::ident) of the class gen::kKind.
 enum CombineOp : int { kMin = 0, kMax = 1, kSum = 2, kGenComb = 3 };
-
-// The state fields gen::pack reads, in emitgen's pointer order.
-struct GenPtrs {
-  const void* f[8];
-};
 
 template <typename T, int OP>
 struct Combine;
@@ -88,13 +85,23 @@ struct Combine<int, kSum> {
 #else
 #define REPRO_GEN_HAS_EMIT 0
 namespace {
+constexpr int kGenFields = 1;
+struct GenPtrs {
+  const void* f[kGenFields];
+};
 namespace gen {
 using Msg = float;
+using Store = float;
+__device__ __forceinline__ Store to_store(Msg v) { return v; }
+__device__ __forceinline__ Msg from_store(Store v) { return v; }
 constexpr int kKind = kMin;
 constexpr bool kNativeIdent = true;
 constexpr bool kPay = false;
 constexpr int kWords = 0;
 constexpr int kPayWord = -1;
+constexpr int kRecK1 = 2;
+constexpr int kGroupK2 = 4;
+constexpr int kRecK2 = 8;
 constexpr bool kReadsWeight = false;
 constexpr bool kReadsDstGid = false;
 __device__ __forceinline__ Msg ident() { return 0.0f; }
@@ -111,6 +118,22 @@ template <typename T>
 struct Combine<T, kGenComb> {
   static __device__ __forceinline__ T ident() { return gen::ident(); }
   static __device__ __forceinline__ T op(T a, T b) { return gen::op(a, b); }
+};
+
+// A message tensor's element and the conversions to and from the working
+// type T: T itself for the fixed instances, gen::Store for the generic one
+// (GEN), whose 16-bit messages are exact in T and narrow exactly.
+template <typename T, bool GEN>
+struct MsgStore {
+  using S = T;
+  static __device__ __forceinline__ S put(T v) { return v; }
+  static __device__ __forceinline__ T get(S v) { return v; }
+};
+template <typename T>
+struct MsgStore<T, true> {
+  using S = gen::Store;
+  static __device__ __forceinline__ S put(T v) { return gen::to_store(v); }
+  static __device__ __forceinline__ T get(S v) { return gen::from_store(v); }
 };
 
 // The argbest payload of combining (va, pa) on the left with (vb, pb): the

@@ -49,7 +49,8 @@ extern "C" int edge_relax_push_blocks_launch(
 }
 #elif REPRO_GEN_HAS_EMIT
 // The generic instance of one program (see edge_relax_emit.cuh): fields
-// holds the pointers of the state fields gen::pack reads; dst_gid is the
+// holds the kGenFields pointers of the state fields gen::pack reads; part
+// holds gen::Store (16-bit messages narrowed); dst_gid is the
 // push stream's [S, stride] dst_gid rows (nullptr unless gen::emit reads
 // it).  The other arguments are those of the fixed entry point.
 extern "C" int edge_relax_push_blocks_gen_launch(
@@ -66,7 +67,7 @@ extern "C" int edge_relax_push_blocks_gen_launch(
   BlockArgs a{nullptr, senders, gid, key, src, weight, idx, part,
               cnt, uniq, pay, n_cells, np, (int)(width / kBlockE),
               cap, stride, 0.0f, static_cast<cudaStream_t>(stream)};
-  for (int i = 0; i < 8; ++i) a.gp.f[i] = fields[i];
+  for (int i = 0; i < kGenFields; ++i) a.gp.f[i] = fields[i];
   a.dst_gid = dst_gid;
   return (int)launch<gen::Msg, gen::kKind == kMax, kGeneric, gen::kPay,
                      true>(a);

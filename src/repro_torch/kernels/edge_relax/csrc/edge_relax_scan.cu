@@ -86,13 +86,17 @@
 //
 // The generic instance (MODE = kGeneric, OP = kGenComb; a library built
 // for one program, see edge_relax_emit.cuh): a record holds kG lanes' of
-// gen::pack's words (the fields emit reads, src_gid if read, the payload)
-// and the senders bits, kG = min(4, 7 / gen::kWords), 2 at most with the
-// payload, whose per-lane values are staged in shared memory beside the
-// messages; a tile stages dst_gid when gen::emit reads it.  The combine is
-// the program's monoid: its custom op (gen::op) and identity (gen::ident),
-// so a custom op folds in this same fixed order.  A program's library has
-// the emit mode; a monoid's (a header with no emit) the pre-emitted mode.
+// gen::pack's words (the values emit's edge-dependent part reads, the
+// payload) and the senders bits, kG = min(4, 7 / gen::kWords), 2 at most
+// with the payload, whose per-lane values are staged in shared memory
+// beside the messages; a record of more than 7 words holds one lane in
+// whole 32-byte sectors (gen::kRecK2 ints).  A tile stages dst_gid when
+// gen::emit reads it.  The combine is the program's monoid: its custom op
+// (gen::op) and identity (gen::ident), so a custom op folds in this same
+// fixed order; a 16-bit sum rounds to the message dtype after every
+// combine (gen::op), and 16-bit messages are exact float32 values inside
+// and narrowed at the store (gen::Store).  A program's library has the
+// emit mode; a monoid's (a header with no emit) the pre-emitted mode.
 //
 // Compile without fast math: push_share's division must be IEEE.
 
@@ -113,14 +117,18 @@ constexpr int kPre = -1;                    // MODE of the pre-emitted input
 constexpr int kRecord = 8;                  // ints in a packed record
 
 // lanes per packed record: kG fields and the senders bits (push_share:
-// kG fields, kG divisors and the bits)
-// (generic: kGenG)
+// kG fields, kG divisors and the bits; generic: emitgen's
+// Translation.k2_group, in records of gen::kRecK2 ints)
 constexpr int kGenWords = gen::kWords > 0 ? gen::kWords : 1;
-constexpr int kGenG = (gen::kPay ? 2 : 4) < (kRecord - 1) / kGenWords
-                          ? (gen::kPay ? 2 : 4)
-                          : (kRecord - 1) / kGenWords;
 template <int MODE>
-constexpr int kG = MODE == kPushShare ? 3 : (MODE == kGeneric ? kGenG : 4);
+constexpr int kG =
+    MODE == kPushShare ? 3 : (MODE == kGeneric ? gen::kGroupK2 : 4);
+template <int MODE>
+constexpr int kRec = MODE == kGeneric ? gen::kRecK2 : kRecord;
+// the message tensors' element (cand in, v out): gen::Store for the
+// generic instances, whose 16-bit messages are exact float32 inside
+template <typename T, int OP, int MODE>
+using MsgOf = MsgStore<T, MODE == kGeneric || OP == kGenComb>;
 
 // shared-memory index of tile element i: one pad word per 32, so a warp
 // reading 8 consecutive elements per thread hits 32 distinct banks
@@ -239,10 +247,11 @@ __device__ __forceinline__ void wait_at_least(const int* p, int target) {
 // A packing CTA: the records of the flat (cell, vertex) range [q * kTile,
 // (q + 1) * kTile), every lane group; record (cell, g, v) holds lane
 // kG * g + i's field at int i, its divisor at kG + i (push_share), and the
-// group's senders bits at int kRecord - 1.  Then it counts itself done.
+// group's senders bits at int R - 1.  Then it counts itself done.
 template <typename T, int MODE>
 __device__ __forceinline__ void pack_vertices(const ScanArgs& a, int q) {
   constexpr int G = kG<MODE>;
+  constexpr int R = kRec<MODE>;
   const long long n_vert = (long long)a.n_cells * a.np;
 #pragma unroll 1
   for (int k = 0; k < kR; ++k) {
@@ -252,7 +261,9 @@ __device__ __forceinline__ void pack_vertices(const ScanArgs& a, int q) {
     const int v = (int)(idx % a.np);
 #pragma unroll 1
     for (int g = 0; g < a.ng; ++g) {
-      int rec[kRecord] = {0, 0, 0, 0, 0, 0, 0, 0};
+      int rec[R];
+#pragma unroll
+      for (int u = 0; u < R; ++u) rec[u] = 0;
 #pragma unroll
       for (int i = 0; i < G; ++i) {
         const int l = G * g + i;
@@ -266,13 +277,16 @@ __device__ __forceinline__ void pack_vertices(const ScanArgs& a, int q) {
               rec[G + i] = to_bits(a.divisor[at]);
             }
           }
-          rec[kRecord - 1] |= (a.senders[at] ? 1 : 0) << i;
+          rec[R - 1] |= (a.senders[at] ? 1 : 0) << i;
         }
       }
       int4* dst = reinterpret_cast<int4*>(
-          a.pack + ((cell * a.ng + g) * a.np + v) * kRecord);
-      dst[0] = make_int4(rec[0], rec[1], rec[2], rec[3]);
-      dst[1] = make_int4(rec[4], rec[5], rec[6], rec[7]);
+          a.pack + ((cell * a.ng + g) * a.np + v) * R);
+#pragma unroll
+      for (int u = 0; u < R / 4; ++u) {
+        dst[u] = make_int4(rec[4 * u], rec[4 * u + 1], rec[4 * u + 2],
+                           rec[4 * u + 3]);
+      }
     }
   }
   __threadfence();
@@ -294,6 +308,8 @@ __global__ void __launch_bounds__(kThreads, 4) scan_pass(ScanArgs a) {
   constexpr bool kW = kEmit && kEmitReadsWeight<MODE>;
   constexpr bool kDG = kGen && gen::kReadsDstGid;
   constexpr int G = kEmit ? kG<MODE> : 1;
+  constexpr int R = kRec<MODE>;
+  using MS = MsgOf<T, OP, MODE>;
   // s_v: the messages (G lanes; emit mode) or a pre-emitted lane's values,
   // and the outputs' values on their way out; s_c / s_p: the tile's key
   // at first, then a lane's sends and payloads and its outputs' counts and
@@ -401,20 +417,22 @@ __global__ void __launch_bounds__(kThreads, 4) scan_pass(ScanArgs a) {
       if (li == 0) {
         __syncthreads();                    // s_v's last readers are done
         const int* rec_row =
-            a.pack + ((long long)cell * a.ng + l / G) * a.np * kRecord;
+            a.pack + ((long long)cell * a.ng + l / G) * a.np * R;
 #pragma unroll 2
         for (int j = 0; j < kR; ++j) {
           const int at = pad(kR * t + j);
-          int4 lo = make_int4(0, 0, 0, 0), hi = make_int4(0, 0, 0, 0);
-          if ((live >> j) & 1) {
-            const int4* r = reinterpret_cast<const int4*>(
-                rec_row + (long long)s_src[at] * kRecord);
-            lo = __ldcg(r);
-            hi = __ldcg(r + 1);
+          int rec[R];
+#pragma unroll
+          for (int u = 0; u < R / 4; ++u) {
+            int4 r4 = make_int4(0, 0, 0, 0);
+            if ((live >> j) & 1) {
+              r4 = __ldcg(reinterpret_cast<const int4*>(
+                              rec_row + (long long)s_src[at] * R) + u);
+            }
+            rec[4 * u] = r4.x; rec[4 * u + 1] = r4.y;
+            rec[4 * u + 2] = r4.z; rec[4 * u + 3] = r4.w;
           }
-          const int rec[kRecord] = {lo.x, lo.y, lo.z, lo.w,
-                                    hi.x, hi.y, hi.z, hi.w};
-          const int bits = rec[kRecord - 1];
+          const int bits = rec[R - 1];
           float w = 0.0f;
           if constexpr (kW) w = s_w[at];
 #pragma unroll
@@ -452,7 +470,8 @@ __global__ void __launch_bounds__(kThreads, 4) scan_pass(ScanArgs a) {
       for (int k = 0; k < kR; ++k) {
         const int i = t + kThreads * k;
         if (i < n) {
-          cv[k] = to_bits(__ldcs(static_cast<const T*>(a.cand) + m0 + i));
+          cv[k] = to_bits(MS::get(__ldcs(
+              static_cast<const typename MS::S*>(a.cand) + m0 + i)));
           cs[k] = a.send[m0 + i];
           if constexpr (PAY) cp[k] = __ldcs(a.pay_in + m0 + i);
         }
@@ -596,7 +615,8 @@ __global__ void __launch_bounds__(kThreads, 4) scan_pass(ScanArgs a) {
     for (int k = 0; k < kR; ++k) {
       const int i = t + kThreads * k;
       if (i < n) {
-        __stcs(static_cast<T*>(a.v_out) + o0 + i, from_bits<T>(sv[pad(i)]));
+        __stcs(static_cast<typename MS::S*>(a.v_out) + o0 + i,
+               MS::put(from_bits<T>(sv[pad(i)])));
         __stcs(a.c_out + o0 + i, s_c[pad(i)]);
         if constexpr (PAY) __stcs(a.p_out + o0 + i, s_p[pad(i)]);
       }
@@ -757,8 +777,8 @@ extern "C" int edge_relax_scan_pre_launch(
 // The generic instance of one program's emit mode: fields holds the
 // pointers of the state fields gen::pack reads ([S, L, np] each); dst_gid
 // is [S, stride] rows like key (nullptr unless gen::emit reads it); pack is
-// [S, ceil(L / kGenG), np, 8] ints.  The other arguments are those of
-// edge_relax_scan_launch.
+// [S, ceil(L / gen::kGroupK2), np, gen::kRecK2] ints; v_out holds
+// gen::Store.  The other arguments are those of edge_relax_scan_launch.
 extern "C" int edge_relax_scan_gen_launch(
     const void* const* fields, const bool* senders, const int* gid,
     const int* key, const int* skey, const int* src, const float* weight,
@@ -770,7 +790,7 @@ extern "C" int edge_relax_scan_gen_launch(
     return (int)cudaErrorInvalidValue;
   }
   ScanArgs a{};
-  for (int i = 0; i < 8; ++i) a.gp.f[i] = fields[i];
+  for (int i = 0; i < kGenFields; ++i) a.gp.f[i] = fields[i];
   a.senders = senders;
   a.gid = gid;
   a.key = key;
@@ -795,8 +815,9 @@ extern "C" int edge_relax_scan_gen_launch(
 }
 #else
 // The pre-emitted mode under a monoid's generated combine (its custom op
-// and identity; emitgen.translate_monoid's header, which has no emit);
-// arguments as edge_relax_scan_pre_launch's.
+// and identity, or any monoid over 16-bit messages, which cand and v_out
+// hold as gen::Store; emitgen.translate_monoid's header, which has no
+// emit); arguments as edge_relax_scan_pre_launch's.
 extern "C" int edge_relax_scan_pre_gen_launch(
     const void* cand, const bool* send, const int* pay, const int* skey,
     void* v_out, int* c_out, int* p_out, void* agg_v, int* agg_c, int* agg_p,

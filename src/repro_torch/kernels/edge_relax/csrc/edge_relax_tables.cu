@@ -60,10 +60,13 @@
 // 64-bit keys' round trip.
 //
 // EMIT = kGeneric (a program's generated gen::emit, edge_relax_emit.cuh):
-// the prologue packs each vertex as gen::pack's words (the fields emit
-// reads, src_gid if read, the payload) and the senders flag, in a record
-// of kGenRec = 2, 4 or 8 ints (one 8-, 16- or 32-byte gather); a tile
-// loads dst_gid like the weight when emit reads it.  A valid edge that
+// the prologue packs each vertex as gen::pack's words (the values emit's
+// edge-dependent part reads, the payload) and the senders flag, in a
+// record of kGenRec = 2, 4 or 8k ints (one 8- or 16-byte gather, or k
+// 32-byte sectors); a tile loads dst_gid like the weight when emit reads
+// it.  16-bit messages combine as exact float32 values in a float32
+// table (min and max pick one of them) and an epilogue narrows the table
+// to the message dtype, exactly (or unpack does, with the payload).  A valid edge that
 // does not send carries the monoid's own identity, as the plain version
 // masks; where that identity is not the class's native one, its runs
 // (count 0) go through the atomics too and the epilogue decodes every
@@ -72,6 +75,7 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <type_traits>
 
 #include "edge_relax_emit.cuh"
 
@@ -81,9 +85,12 @@ constexpr int kR = 8;                    // consecutive positions a thread
 constexpr int kThreads = 128;
 constexpr int kTile = kR * kThreads;     // 1024
 constexpr int kWarps = kThreads / 32;
-// ints in a generic instance's vertex record: gen::kWords and senders
-constexpr int kGenRec =
-    gen::kWords + 1 <= 2 ? 2 : (gen::kWords + 1 <= 4 ? 4 : 8);
+// ints in a generic instance's vertex record: gen::kWords and senders,
+// rounded up to 2, 4 or a multiple of 8 (emitgen.Translation.k1_record)
+constexpr int kGenRec = gen::kRecK1;
+// a generic instance whose message tensors hold another type than its
+// working type (16-bit messages)
+constexpr bool kGenNarrow = !std::is_same<gen::Msg, gen::Store>::value;
 // a generic instance whose identity is not the class's native one
 template <int EMIT>
 constexpr bool kFlushEmpty = EMIT == kGeneric && !gen::kNativeIdent;
@@ -180,7 +187,7 @@ struct TableArgs {
   const int* src;
   const float* weight;
   int* pack;              // [S, Np] records (4 ints with the payload, else 2)
-  void* table;            // [S, n_keys]
+  void* table;            // [S, n_keys] (the atomics' table)
   int* cnt;               // [S, n_keys]
   unsigned long long* best;  // [S, n_keys] keys (payload only)
   int* pay;               // [S, n_keys] (payload only)
@@ -192,6 +199,8 @@ struct TableArgs {
   float emit_const;
   GenPtrs gp;             // generic instance: the fields gen::pack reads
   const int* dst_gid;     // generic instance: [S, stride] rows, if read
+  void* out;              // [S, n_keys] the output table (= table, or the
+                          // narrowed one of a 16-bit generic instance)
 };
 
 // A generic vertex record: kGenRec ints at record v.
@@ -202,11 +211,11 @@ __device__ __forceinline__ void load_rec(const int* pack, long long v,
     rec[0] = r.x; rec[1] = r.y;
   } else {
     const int4* p = reinterpret_cast<const int4*>(pack) + v * (kGenRec / 4);
-    const int4 lo = p[0];
-    rec[0] = lo.x; rec[1] = lo.y; rec[2] = lo.z; rec[3] = lo.w;
-    if constexpr (kGenRec == 8) {
-      const int4 hi = p[1];
-      rec[4] = hi.x; rec[5] = hi.y; rec[6] = hi.z; rec[7] = hi.w;
+#pragma unroll
+    for (int q = 0; q < kGenRec / 4; ++q) {
+      const int4 r = p[q];
+      rec[4 * q] = r.x; rec[4 * q + 1] = r.y;
+      rec[4 * q + 2] = r.z; rec[4 * q + 3] = r.w;
     }
   }
 }
@@ -232,16 +241,19 @@ __global__ void __launch_bounds__(256) prep(TableArgs a) {
     }
     if (i < n_vert) {
       if constexpr (EMIT == kGeneric) {
-        int rec[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+        int rec[kGenRec];
+#pragma unroll
+        for (int q = 0; q < kGenRec; ++q) rec[q] = 0;
         gen::pack(a.gp, i, a.gid[i], rec);
         rec[gen::kWords] = a.senders[i] ? 1 : 0;
         if constexpr (kGenRec == 2) {
           reinterpret_cast<int2*>(a.pack)[i] = make_int2(rec[0], rec[1]);
         } else {
           int4* p = reinterpret_cast<int4*>(a.pack) + i * (kGenRec / 4);
-          p[0] = make_int4(rec[0], rec[1], rec[2], rec[3]);
-          if constexpr (kGenRec == 8) {
-            p[1] = make_int4(rec[4], rec[5], rec[6], rec[7]);
+#pragma unroll
+          for (int q = 0; q < kGenRec / 4; ++q) {
+            p[q] = make_int4(rec[4 * q], rec[4 * q + 1], rec[4 * q + 2],
+                             rec[4 * q + 3]);
           }
         }
       } else {
@@ -331,7 +343,7 @@ __global__ void __launch_bounds__(kThreads) tables_kernel(TableArgs a) {
     x[j] = B::ident();
     if constexpr (EMIT == kGeneric) {
       if (k[j] >= 0) {
-        int rec[8];
+        int rec[kGenRec];
         load_rec(a.pack, vbase + sv[j], rec);
         if (rec[gen::kWords] != 0) {
           int p = -1;
@@ -463,11 +475,12 @@ __global__ void __launch_bounds__(kThreads) tables_kernel(TableArgs a) {
   if (closes) flush_run(k[kR - 1], v, cc);
 }
 
-// The epilogue of the payload instances: the 64-bit keys back into table
-// and pay (FLUSH: a key that only runs of count 0 touched holds the custom
-// identity and payload -1).
-template <typename T, bool MAX, bool FLUSH>
+// The epilogue of the payload instances: the 64-bit keys back into the
+// output table and pay (FLUSH: a key that only runs of count 0 touched
+// holds the custom identity and payload -1).
+template <typename T, bool MAX, int EMIT, bool FLUSH>
 __global__ void __launch_bounds__(256) unpack(TableArgs a) {
+  using MS = MsgStore<T, EMIT == kGeneric>;
   const long long n = (long long)a.n_cells * a.n_keys;
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -486,8 +499,22 @@ __global__ void __launch_bounds__(256) unpack(TableArgs a) {
       v = from_ord<T>((unsigned)(b >> 32));
       p = (int)((MAX ? lo : ~lo) ^ 0x80000000u);
     }
-    static_cast<T*>(a.table)[i] = v;
+    static_cast<typename MS::S*>(a.out)[i] = MS::put(v);
     a.pay[i] = p;
+  }
+}
+
+// The epilogue of a 16-bit generic instance without the payload: the
+// float32 table narrowed into the output table (exact: every entry is a
+// 16-bit value or the identity).
+template <int EMIT>
+__global__ void __launch_bounds__(256) narrow(TableArgs a) {
+  const long long n = (long long)a.n_cells * a.n_keys;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += step) {
+    static_cast<gen::Store*>(a.out)[i] =
+        gen::to_store(static_cast<const gen::Msg*>(a.table)[i]);
   }
 }
 
@@ -514,8 +541,11 @@ cudaError_t launch(const TableArgs& a, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
   }
   if constexpr (PAY) {
-    unpack<T, MAX, kFlushEmpty<EMIT>><<<flat_blocks(n_tab), 256, 0,
-                                        stream>>>(a);
+    unpack<T, MAX, EMIT, kFlushEmpty<EMIT>><<<flat_blocks(n_tab), 256, 0,
+                                              stream>>>(a);
+    err = cudaGetLastError();
+  } else if constexpr (EMIT == kGeneric && kGenNarrow) {
+    narrow<EMIT><<<flat_blocks(n_tab), 256, 0, stream>>>(a);
     err = cudaGetLastError();
   }
   return err;
@@ -555,9 +585,9 @@ extern "C" int edge_relax_tables_launch(
       (with_payload && (best == nullptr || pay == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  const TableArgs a{field, senders, gid, key, src, weight, pack, table, cnt,
-                    best, pay, n_cells, np, n_keys, width, stride,
-                    emit_const};
+  TableArgs a{field, senders, gid, key, src, weight, pack, table, cnt,
+              best, pay, n_cells, np, n_keys, width, stride, emit_const};
+  a.out = table;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (msg_is_int) {
     if (emit_form != kCopy) return (int)cudaErrorInvalidValue;
@@ -582,27 +612,33 @@ extern "C" int edge_relax_tables_launch(
 }
 #elif REPRO_GEN_HAS_EMIT
 // The generic instance of one program (see edge_relax_emit.cuh): fields
-// holds the pointers of the state fields gen::pack reads; dst_gid is [S,
-// stride] rows like key (nullptr unless gen::emit reads it); pack is [S,
-// np] records of kGenRec ints.  The other arguments are those of the
-// fixed entry point.
+// holds the kGenFields pointers of the state fields gen::pack reads;
+// dst_gid is [S, stride] rows like key (nullptr unless gen::emit reads
+// it); pack is [S, np] records of kGenRec ints; table is [S, n_keys] of
+// gen::Store, and wide [S, n_keys] float32 scratch for a 16-bit instance
+// without the payload (else nullptr).  The other arguments are those of
+// the fixed entry point.
 extern "C" int edge_relax_tables_gen_launch(
     const void* const* fields, const bool* senders, const int* gid,
     const int* key, const int* src, const float* weight, const int* dst_gid,
-    int* pack, void* table, int* cnt, unsigned long long* best, int* pay,
-    int n_cells, int np, long long n_keys, long long width, long long stride,
-    void* stream) {
+    int* pack, void* table, float* wide, int* cnt, unsigned long long* best,
+    int* pay, int n_cells, int np, long long n_keys, long long width,
+    long long stride, void* stream) {
   if (n_cells <= 0 || n_cells > 65535 || np <= 0 || n_keys <= 0 ||
       n_keys > INT_MAX || width < 0 || width % kR != 0 || stride < width ||
       stride % 4 != 0 || pack == nullptr || gen::kKind == kSum ||
       (gen::kPay && (best == nullptr || pay == nullptr)) ||
-      (gen::kReadsDstGid && dst_gid == nullptr)) {
+      (gen::kReadsDstGid && dst_gid == nullptr) ||
+      (kGenNarrow && !gen::kPay && wide == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  TableArgs a{nullptr, senders, gid, key, src, weight, pack, table, cnt,
-              best, pay, n_cells, np, n_keys, width, stride, 0.0f};
-  for (int i = 0; i < 8; ++i) a.gp.f[i] = fields[i];
+  const bool narrowed = kGenNarrow && !gen::kPay;
+  TableArgs a{nullptr, senders, gid, key, src, weight, pack,
+              narrowed ? static_cast<void*>(wide) : table, cnt, best, pay,
+              n_cells, np, n_keys, width, stride, 0.0f};
+  for (int i = 0; i < kGenFields; ++i) a.gp.f[i] = fields[i];
   a.dst_gid = dst_gid;
+  a.out = table;
   return (int)launch<gen::Msg, gen::kKind == kMax, kGeneric, gen::kPay>(
       a, static_cast<cudaStream_t>(stream));
 }

@@ -50,12 +50,14 @@ forms of ``csrc/edge_relax_emit.cuh``, compiled into the libraries above.
 Any other program — no descriptor, or a monoid with a custom ``op`` or
 ``identity_of`` — takes the generic instance: the device functions that
 ``emitgen.py`` generated from its own ``emit``, ``payload`` and op at
-``lower`` (``prog.kernel_gen``), compiled with the three sources into one
-set of libraries per distinct generated header (:func:`build_generic`),
-at its first launch.  A program the translator refused raises its
+``lower`` (``prog.kernel_gen``), compiled with the three sources (K2's
+alone for a sum program) into one set of libraries per distinct
+generated header (:func:`build_generic`), at its first launch.  A program the translator refused raises its
 recorded :class:`~.emitgen.GenericEmitError` there.  K2's pre-emitted
 mode takes a generated combine (:func:`~.emitgen.translate_monoid`) for a
-custom monoid.  :data:`LAUNCHES` counts each instance under its own key
+custom monoid and for 16-bit messages.  A 16-bit message is computed as
+an exact float32 value inside the kernels and stored in its own dtype:
+K1 combines it in a float32 table (scratch) that its epilogue narrows.  :data:`LAUNCHES` counts each instance under its own key
 (``<kernel>/generic``); K2 also counts its launches per variant in
 :data:`SCAN_LAUNCHES`.
 """
@@ -102,6 +104,7 @@ SCAN_LAUNCHES = {f"{k}{lane}{g}": 0 for k in ("sum", "min/max",
 _EMIT_CODE = {"add_weight": 0, "add_const": 1, "copy": 2, "min_weight": 3,
               "push_share": 4}
 
+_HALF = (torch.float16, torch.bfloat16)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
@@ -125,7 +128,7 @@ _FNS: dict = {}
 # bound entry points per generated header (Translation.key)
 _GEN_SYMBOLS = {
     "edge_relax_blocks": {
-        "edge_relax_tables_gen_launch": [_P] * 12 + [_I, _I, _LL, _LL, _LL,
+        "edge_relax_tables_gen_launch": [_P] * 13 + [_I, _I, _LL, _LL, _LL,
                                                      _P]},
     "edge_relax_scan": {
         "edge_relax_scan_gen_launch": [_P] * 16 + [_I, _I, _I, _LL, _I, _P],
@@ -197,24 +200,30 @@ def _header_path(tr) -> Path:
 
 def _generic_libraries(tr) -> dict:
     """The libraries of one translation's generic instance: name ->
-    :class:`~.._build.Library` (K1, K2 and K3 for a program; K2 alone for
-    a monoid's combine)."""
+    :class:`~.._build.Library` (K1, K2 and K3 for a min/max program; K2
+    alone for a sum program, which K1 and K3 do not serve, and for a
+    monoid's combine)."""
     hdr = _header_path(tr)
     flags = ("-DREPRO_GENERIC", f'-DREPRO_GEN_HEADER="{hdr}"')
-    names = KERNEL_SOURCES if tr.has_emit else ["edge_relax_scan"]
+    names = KERNEL_SOURCES if tr.has_emit and tr.kind != "sum" else \
+        ["edge_relax_scan"]
     return {f"{n}-gen-{tr.key}": _build.Library(
         tuple(KERNEL_SOURCES[n]), flags, (hdr,)) for n in names}
 
 
-def build_generic(*translations) -> None:  # analysis: allow(host-loop): builds once per program structure
+def build_generic(*translations, kernels=None) -> None:  # analysis: allow(host-loop): builds once per program structure
     """Write the generated headers, then compile (all in parallel) and
-    bind the generic libraries of every translation not bound yet.
+    bind the generic libraries of every translation not bound yet (only
+    those of ``kernels``, names of :data:`KERNEL_SOURCES`, if given).
     Called by a generic instance's first launch; a caller may build
     several programs' instances at once before."""
     todo = {}
     for tr in translations:
         tr.require()
-        if tr.key in _GEN_FNS:
+        libs = {n: lib for n, lib in _generic_libraries(tr).items()
+                if n not in _GEN_FNS.get(tr.key, {}) and
+                (kernels is None or n.split("-gen-")[0] in kernels)}
+        if not libs:
             continue
         hdr = _header_path(tr)
         if not hdr.exists():
@@ -222,26 +231,27 @@ def build_generic(*translations) -> None:  # analysis: allow(host-loop): builds 
             tmp = hdr.with_suffix(f".{os.getpid()}.tmp")
             tmp.write_text(tr.header)
             os.replace(tmp, hdr)
-        todo[tr.key] = _generic_libraries(tr)
+        todo[tr.key] = libs
     built = _build.build({n: lib for libs in todo.values()
                           for n, lib in libs.items()})
     for key, libs in todo.items():
-        fns = {}
+        fns = _GEN_FNS.setdefault(key, {})
         for name in libs:
+            fns[name] = {}
             for sym, argtypes in _GEN_SYMBOLS[name.split("-gen-")[0]].items():
                 if not hasattr(built[name], sym):
                     continue
                 fn = getattr(built[name], sym)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-                fns[sym] = fn
-        _GEN_FNS[key] = fns
+                fns[name][sym] = fn
 
 
-def _gen_fn(tr, sym: str):
-    if tr.key not in _GEN_FNS:
+def _gen_fn(tr, kernel: str, sym: str):
+    name = f"{kernel}-gen-{tr.key}"
+    if name not in _GEN_FNS.get(tr.key, {}):
         build_generic(tr)
-    return _GEN_FNS[tr.key][sym]
+    return _GEN_FNS[tr.key][name][sym]
 
 
 def _gen_fields(tr, vstate, shape, device):
@@ -251,7 +261,7 @@ def _gen_fields(tr, vstate, shape, device):
     for k, dt in tr.fields:  # analysis: allow(host-loop): static over the state schema
         _check(f"vstate[{k!r}]", vstate[k], dt, shape, device)
         ptrs.append(vstate[k].data_ptr())
-    return (ctypes.c_void_p * 8)(*ptrs)
+    return (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
 
 
 def edge_relax_blocks(prog, vstate, senders, gid, key, src, weight, dst_gid,
@@ -305,11 +315,14 @@ def edge_relax_blocks(prog, vstate, senders, gid, key, src, weight, dst_gid,
     else:
         pack = torch.empty((a["s"], a["np"], tr.k1_record),
                            dtype=torch.int32, device=dev)
-        err = _gen_fn(tr, "edge_relax_tables_gen_launch")(
+        wide = None                 # a 16-bit table's float32 atomics
+        if a["msg"] in _HALF and not a["payload"]:
+            wide = torch.empty(shape, dtype=torch.float32, device=dev)
+        err = _gen_fn(tr, "edge_relax_blocks", "edge_relax_tables_gen_launch")(
             a["fields"], senders.data_ptr(), gid.data_ptr(), key.data_ptr(),
             src.data_ptr(), weight.data_ptr(), ptr(a["dst_gid"]),
-            pack.data_ptr(), table.data_ptr(), cnt.data_ptr(), ptr(best),
-            ptr(pay), a["s"], a["np"], n_keys, a["w"], a["row"],
+            pack.data_ptr(), table.data_ptr(), ptr(wide), cnt.data_ptr(),
+            ptr(best), ptr(pay), a["s"], a["np"], n_keys, a["w"], a["row"],
             _build.stream())
         counter = "edge_relax_blocks/generic"
     _build.raise_on(counter, err)
@@ -413,7 +426,8 @@ def edge_relax_push_blocks(prog, vstate, senders, gid, key, src, weight,
             cap, *a["flags"], _build.stream())
         counter = "edge_relax_push_blocks"
     else:
-        err = _gen_fn(tr, "edge_relax_push_blocks_gen_launch")(
+        err = _gen_fn(tr, "edge_relax_push_blocks",
+                      "edge_relax_push_blocks_gen_launch")(
             a["fields"], senders.data_ptr(), gid.data_ptr(), key.data_ptr(),
             src.data_ptr(), weight.data_ptr(), ptr(a["dst_gid"]),
             idx.data_ptr(), part.data_ptr(), cnt.data_ptr(),
@@ -452,14 +466,15 @@ def _scan_outputs(msg, rows_shape, es, payload, dev):
     return v, c, p, scratch, [base + k * step for k in range(4)]
 
 
-def _pack_records(g: int, cells: int, lanes: int, np_: int, dev):
+def _pack_records(g: int, cells: int, lanes: int, np_: int, dev,
+                  ints: int = 8):
     """The emit mode's scratch of packed vertex records: ``[S, ceil(L /
-    g), Np, 8]`` int32, one 32-byte record per (cell, lane group, vertex)
+    g), Np, ints]`` int32, one record per (cell, lane group, vertex)
     holding g lanes' emit fields (and divisors) and senders bits; g = 3
     for ``push_share``, the translation's ``k2_group`` for a generic
-    instance, else 4."""
-    return torch.empty((cells, -(-lanes // g), np_, 8), dtype=torch.int32,
-                       device=dev)
+    instance (in its ``k2_record`` ints), else 4."""
+    return torch.empty((cells, -(-lanes // g), np_, ints),
+                       dtype=torch.int32, device=dev)
 
 
 def _check_scan_instance(kind: str, msg, form: str | None) -> None:
@@ -563,9 +578,9 @@ def _scan_generic(tr, prog, vstate, senders, gid, key, src, weight, dst_gid,
     row = _scan_streams(key, skey, src, weight, dst_gid, tr.reads_dst_gid)
     v, c, p, _scratch, ptrs = _scan_outputs(prog.msg_dtype, rows_shape, es,
                                             prog.with_payload, dev)
-    pack = _pack_records(tr.k2_group, s_, lanes, np_, dev)
+    pack = _pack_records(tr.k2_group, s_, lanes, np_, dev, tr.k2_record)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _gen_fn(tr, "edge_relax_scan_gen_launch")(
+    err = _gen_fn(tr, "edge_relax_scan", "edge_relax_scan_gen_launch")(
         fields, senders.data_ptr(), gid.data_ptr(), key.data_ptr(),
         skey.data_ptr(), src.data_ptr(), weight.data_ptr(),
         ptr(dst_gid) if tr.reads_dst_gid else None, pack.data_ptr(),
@@ -591,9 +606,11 @@ def edge_relax_scan_pre(monoid, cand, send, skey, pay=None):
     """
     if not cand.is_cuda:
         return ref.stream_scan(monoid, cand, send, skey, pay)
-    tr = emitgen.translate_monoid(monoid, cand.dtype).require() \
-        if _custom(monoid) else None
-    _check_scan_instance(monoid.kind, cand.dtype, None)
+    tr = None
+    if _custom(monoid) or cand.dtype in _HALF:
+        tr = emitgen.translate_monoid(monoid, cand.dtype).require()
+    else:
+        _check_scan_instance(monoid.kind, cand.dtype, None)
     if pay is not None and monoid.payload != "argbest":
         raise ValueError(f"a payload scan needs an argbest monoid, not "
                          f"{monoid.name!r}")
@@ -625,7 +642,7 @@ def edge_relax_scan_pre(monoid, cand, send, skey, pay=None):
             _COMBINE_CODE[monoid.kind], int(pay is not None),
             _build.stream())
     else:
-        err = _gen_fn(tr, "edge_relax_scan_pre_gen_launch")(
+        err = _gen_fn(tr, "edge_relax_scan", "edge_relax_scan_pre_gen_launch")(
             cand.data_ptr(), send.data_ptr(), ptr(pay), skey.data_ptr(),
             v.data_ptr(), c.data_ptr(), ptr(p), *ptrs, s_, lanes, krows[0],
             st[-2], es, int(pay is not None), _build.stream())

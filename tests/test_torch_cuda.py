@@ -954,6 +954,45 @@ def _user_program(name):
             monoid=m, msg_dtype=i32, state={"hops": P.Field(i32, init=0)},
             emit=lambda s, w, sg, dg: torch.clamp_max(s["hops"] + 1, 1000),
             receive=keep), name)
+    bf16 = torch.bfloat16
+    if name == "logrel":
+        return P.lower(P.DiffusiveProgram(
+            monoid="min", msg_dtype=f32, state={"dist": P.Field(f32)},
+            emit=lambda s, w, sg, dg: s["dist"] - torch.log(w),
+            receive=keep), name)
+    if name == "bf16_min_payload":
+        return P.lower(P.DiffusiveProgram(
+            monoid="min", msg_dtype=bf16, state={"dist": P.Field(bf16)},
+            emit=lambda s, w, sg, dg: s["dist"] + w.to(bf16) * 1.5,
+            payload=lambda s, sg: sg, receive=keep), name)
+    if name == "bf16_sum":
+        # both verifiers refuse a 16-bit sum (not associative on their
+        # samples); the kernels compute it in a fixed order all the same
+        import os
+        old = os.environ.get("REPRO_VERIFY")
+        os.environ["REPRO_VERIFY"] = "0"
+        try:
+            return P.lower(P.DiffusiveProgram(
+                monoid="sum", msg_dtype=bf16,
+                state={"residual": P.Field(bf16), "deg": P.Field(bf16)},
+                emit=lambda s, w, sg, dg: (s["residual"] * 0.85) / s["deg"],
+                receive=keep), name)
+        finally:
+            if old is None:
+                os.environ.pop("REPRO_VERIFY")
+            else:
+                os.environ["REPRO_VERIFY"] = old
+    if name == "wide_record":
+        def pick(s, w, sg, dg):
+            out = s["dist"] + w
+            for k in range(12):
+                out = out + torch.where(dg % 12 == k, s[f"f{k}"], 0.0)
+            return out
+        return P.lower(P.DiffusiveProgram(
+            monoid="max", msg_dtype=f32,
+            state={"dist": P.Field(f32),
+                   **{f"f{k}": P.Field(f32) for k in range(12)}},
+            emit=pick, payload=lambda s, sg: sg, receive=keep), name)
     assert name == "capsum"
     return P.lower(P.DiffusiveProgram(
         monoid=Monoid("capsum", "sum", op=_capped), msg_dtype=i32, state={"pending": P.Field(i32)},
@@ -967,7 +1006,9 @@ def _capped(a, b):
 GENERIC = ([("strip", n, kw) for n, kw in MINMAX + [("ppr", {"source": 1}),
                                                     ("pagerank", {})]]
            + [("user", n, {}) for n in ("reliability", "dst_where",
-                                        "ident_min", "capsum")])
+                                        "ident_min", "capsum", "logrel",
+                                        "bf16_min_payload", "bf16_sum",
+                                        "wide_record")])
 
 
 def _generic_prog(kind, name, kw):
@@ -978,7 +1019,7 @@ def _generic_state(prog, shape, seed):
     g = torch.Generator(device="cpu").manual_seed(seed)
     out = {}
     for k, f in prog.fields:
-        if f.dtype == torch.float32:
+        if f.dtype.is_floating_point:
             v = torch.rand(shape, generator=g) * 40
             v = torch.where(torch.rand(shape, generator=g) < 0.1,
                             float("inf"), v)

@@ -17,6 +17,7 @@ and user programs without a ``KernelEmit``, on the CPU.
 """
 
 import dataclasses
+import re
 import zlib
 
 import jax.numpy as jnp
@@ -52,9 +53,11 @@ STAT_FIELDS = ("rounds", "local_iters", "actions", "remote_actions",
 
 def seeded(dtype, shape, rng):
     """Random values of ``dtype`` with a third of the entries drawn from
-    the specials."""
+    the specials (16-bit floats: the float32 draw rounded)."""
     if dtype == torch.bool:
         return torch.from_numpy(rng.random(shape) < 0.5)
+    if dtype in (torch.float16, torch.bfloat16):
+        return seeded(torch.float32, shape, rng).to(dtype)
     if dtype == torch.float32:
         v = (rng.standard_normal(shape) * 10).astype(np.float32)
         pick = np.array(F32_SPECIALS, np.float32)
@@ -76,8 +79,9 @@ def assert_bits(got, want, what=""):
     if got.dtype.is_floating_point:
         gn, wn = torch.isnan(got), torch.isnan(want)
         assert torch.equal(gn, wn), f"{what}: NaN positions differ"
-        g = got.view(torch.int32)[~gn]
-        w = want.view(torch.int32)[~wn]
+        bits = torch.int32 if got.dtype == torch.float32 else torch.int16
+        g = got.view(bits)[~gn]
+        w = want.view(bits)[~wn]
         assert torch.equal(g, w), f"{what}: bits differ"
     else:
         assert torch.equal(got, want), f"{what}: values differ"
@@ -95,6 +99,14 @@ def spec_of(state, emit, msg=torch.float32, monoid="min", payload=None):
 
 
 F, I, L, B = torch.float32, torch.int32, torch.int64, torch.bool
+H, BF = torch.float16, torch.bfloat16
+
+
+def nz(t, c=3):
+    """``t`` with its zeros and -1s replaced by ``c`` and ``-c``: an
+    integer divisor (on the CPU torch raises on a division by zero, and
+    the int minimum over -1 traps)."""
+    return torch.where(t == 0, c, torch.where(t == -1, -c, t))
 # (id, state dtypes, emit, message dtype): every op of the set
 OP_CASES = [
     ("add", {"x": F, "y": F}, lambda s, w, sg, dg: s["x"] + s["y"] + w, F),
@@ -157,6 +169,83 @@ OP_CASES = [
     ("gids", {"x": F},
      lambda s, w, sg, dg: torch.where(dg > sg, w, s["x"]) + (sg + dg).float(),
      F),
+    ("exp_log", {"x": F},
+     lambda s, w, sg, dg: torch.exp(s["x"]) + torch.exp2(w) + torch.log(w) +
+     torch.log2(s["x"]) + torch.log10(w) + torch.log1p(s["x"]) +
+     torch.expm1(w), F),
+    ("trig_sigmoid", {"x": F},
+     lambda s, w, sg, dg: torch.sin(s["x"]) + torch.cos(w) +
+     torch.tanh(s["x"] * w) + torch.sigmoid(w), F),
+    ("rsqrt_reciprocal", {"x": F, "i": I},
+     lambda s, w, sg, dg: torch.rsqrt(s["x"]) + torch.reciprocal(w) +
+     torch.reciprocal(s["i"]), F),
+    ("pow_scalar_exponents", {"x": F},
+     lambda s, w, sg, dg: s["x"] ** 2.5 + w ** 2 + s["x"] ** 3 + w ** 0.5 +
+     s["x"] ** -0.5 + w ** -1 + s["x"] ** -2 + w ** 0 + s["x"] ** -1.5, F),
+    ("pow_tensor_and_scalar_base", {"x": F, "y": F},
+     lambda s, w, sg, dg: torch.pow(s["x"], s["y"]) + 2.0 ** w +
+     1.0 ** s["x"] + torch.pow(w, s["x"]), F),
+    ("pow_int", {"i": I, "j": I, "l": L},
+     lambda s, w, sg, dg: s["i"] ** 2 + s["i"] ** 3 + s["i"] ** 5 +
+     torch.pow(s["i"], s["j"].clamp(-3, 12)) + (s["l"] ** 3).int(), I),
+    ("rounding_sign", {"x": F, "i": I},
+     lambda s, w, sg, dg: torch.floor(s["x"]) + torch.ceil(w) +
+     torch.round(s["x"] * 0.5) + torch.trunc(w) + torch.sign(s["x"]) +
+     torch.round(w, decimals=0) + (torch.floor(s["i"]) + torch.sign(s["i"]) +
+                                   torch.round(s["i"])).float(), F),
+    ("floor_divide_float", {"x": F, "y": F},
+     lambda s, w, sg, dg: s["x"] // s["y"] + w // 3.0 + s["x"] // -2.5 +
+     w // 0.0 + torch.div(s["x"], w, rounding_mode="floor"), F),
+    ("floor_divide_int", {"i": I, "j": I},
+     lambda s, w, sg, dg: s["i"] // nz(s["j"]) + s["i"] // 3 +
+     s["i"] // -3 + torch.div(s["j"], nz(s["i"]), rounding_mode="floor"), I),
+    ("remainder_fmod_float", {"x": F, "y": F},
+     lambda s, w, sg, dg: s["x"] % s["y"] + w % 2.0 + s["x"] % -1.5 +
+     torch.fmod(s["x"], s["y"]) + torch.fmod(w, -3.0) + 5.0 % s["x"], F),
+    ("remainder_fmod_int", {"i": I, "j": I},
+     lambda s, w, sg, dg: s["i"] % nz(s["j"]) + s["i"] % 5 + s["i"] % -7 +
+     torch.fmod(s["i"], nz(s["j"])) + torch.fmod(s["j"], 4), I),
+    ("div_trunc", {"x": F, "i": I, "j": I},
+     lambda s, w, sg, dg: torch.div(s["x"], w, rounding_mode="trunc") +
+     torch.div(w, 3.0, rounding_mode="trunc") +
+     torch.div(s["i"], nz(s["j"]), rounding_mode="trunc").float(), F),
+    ("shifts", {"i": I, "j": I, "l": L},
+     lambda s, w, sg, dg: (s["i"] << 3) + (s["i"] >> 2) + (s["i"] << s["j"]) +
+     (s["i"] >> s["j"]) + torch.bitwise_left_shift(3, s["j"]) +
+     ((s["l"] << 40) >> 35).int(), I),
+    ("predicates", {"x": F, "i": I, "h": BF},
+     lambda s, w, sg, dg: torch.isnan(s["x"]).int() +
+     torch.isinf(w).int() * 2 + torch.isfinite(s["x"]).int() * 4 +
+     torch.isnan(s["i"]).int() * 8 + torch.isfinite(s["i"]).int() * 16 +
+     torch.isinf(s["h"]).int() * 32, I),
+    ("float_to_int", {"x": F, "h": H},
+     lambda s, w, sg, dg: s["x"].int() + (w * 100).long().int() +
+     s["h"].int() + s["x"].to(torch.int64).int(), I),
+    ("bfloat16_values", {"h": BF, "x": F, "i": I},
+     lambda s, w, sg, dg: s["h"] * 2.5 + s["h"] / 3 + s["x"].to(BF) +
+     (s["h"] < 2.51).to(BF) + torch.where(s["h"] > 0, s["h"], 1.5) +
+     torch.exp(s["h"]) + s["h"] ** 2 + torch.clamp(s["h"], -1.0, 2.51) +
+     torch.minimum(s["h"], w.to(BF)) + s["i"].to(BF) + s["h"].half().to(BF),
+     BF),
+    ("float16_values", {"h": H, "x": F, "l": L},
+     lambda s, w, sg, dg: (s["h"] * 2.5 - s["h"] / 3) * w.half() +
+     torch.sigmoid(s["h"]) + torch.log(s["h"]) + s["h"] ** 3 +
+     torch.maximum(s["h"], s["x"].half()) + s["l"].half() +
+     torch.sqrt(s["h"]) + s["h"] ** -1, H),
+    ("half_division_and_rounding", {"h": BF, "g": BF, "f": H, "x": F},
+     lambda s, w, sg, dg: (s["h"] // s["g"] + s["h"] // 2.51 +
+                           s["h"] % s["g"] + 1.7 % s["g"] +
+                           torch.fmod(s["h"], -0.3) +
+                           torch.div(s["h"], s["g"], rounding_mode="trunc") +
+                           torch.round(s["h"], decimals=1)).float() +
+     (s["f"] // 0.7 + torch.div(s["f"], 3.0, rounding_mode="trunc")).float()
+     + torch.round(s["x"], decimals=2) + torch.round(w, decimals=-1), F),
+    ("half_to_float32", {"h": H, "g": BF},
+     lambda s, w, sg, dg: s["h"].float() * w + s["g"] + w, F),
+    ("bool_arith_and_fills", {"b": B, "c": B, "x": F, "i": I},
+     lambda s, w, sg, dg: (s["b"] + s["c"]).float() +
+     (s["b"] * s["c"]).float() + torch.ones_like(s["x"]) +
+     torch.zeros_like(s["i"]) + torch.full_like(w, 2.5) / 3, F),
 ]
 
 
@@ -192,8 +281,8 @@ def test_div_by_a_constant_follows_torch_on_cuda():
                            name="div3")
     recip = np.float32(1.0) / np.float32(3.0)
     bits = int(np.array(recip, np.float32).view(np.uint32))
-    assert f"__fmul_rn(e0, __int_as_float(0x{bits:08x}))" in \
-        prog.kernel_gen.header.replace("e1", "e0")
+    assert re.search(rf"__fmul_rn\(\w+, __int_as_float\(0x{bits:08x}\)\)",
+                     prog.kernel_gen.header)
 
 
 def _reliability_spec(pkg, source):
@@ -340,61 +429,60 @@ def test_every_builtin_emit_and_payload_evaluate_bitwise(name, kw):
                         f"{name} payload")
 
 
-_CAPTURED = torch.tensor(2.0)
-# (id, spec kwargs, component, what the error names)
+_CAPTURED = torch.tensor(2.0)           # 0-d: a constant, as in the reference
+_TABLE = torch.arange(7, dtype=torch.float32)
+_JTABLE = jnp.arange(7, dtype=jnp.float32)
+# (id, spec kwargs, component, what the error names): what stays refused
 REFUSED = [
     ("reduction", dict(emit=lambda s, w, sg, dg: s["x"] + s["x"].sum()),
      "emit", r"aten\.sum\.default \(a reduction\)"),
     ("indexing", dict(emit=lambda s, w, sg, dg: s["x"] + s["x"][0]),
      "emit", r"aten\.select\.int \(indexing\)"),
     ("captured_tensor",
-     dict(emit=lambda s, w, sg, dg: torch.minimum(s["x"], _CAPTURED)),
-     "emit", "a captured tensor"),
+     dict(emit=lambda s, w, sg, dg: s["x"] + _TABLE[dg % 7]),
+     "emit", r"a captured tensor of shape \(7,\)"),
     ("control_flow",
      dict(emit=lambda s, w, sg, dg: s["x"] + (w if bool((w > 0).any())
                                               else 1.0)),
      "emit", "Python control flow on a traced value"),
-    ("exp", dict(emit=lambda s, w, sg, dg: torch.exp(s["x"])), "emit",
-     r"aten\.exp\.default"),
-    ("log", dict(emit=lambda s, w, sg, dg: torch.log(s["x"])), "emit",
-     r"aten\.log\.default"),
-    ("pow", dict(emit=lambda s, w, sg, dg: s["x"] ** 3), "emit",
-     r"aten\.pow"),
-    ("float16", dict(emit=lambda s, w, sg, dg: (s["x"].half() + 1).float()),
-     "emit", "float16/bfloat16 values"),
-    ("float_to_int", dict(emit=lambda s, w, sg, dg: s["x"].int(),
-                          msg=torch.int32), "emit",
-     "a cast from float32 to torch.int32"),
-    ("floor_divide", dict(emit=lambda s, w, sg, dg: s["i"] // 2,
-                          msg=torch.int32), "emit",
-     r"aten\.floor_divide"),
-    ("record_too_wide",
-     dict(state={f"f{k}": F for k in range(8)},
-          emit=lambda s, w, sg, dg: sum(s[f"f{k}"] for k in range(8))),
-     "record", "a source record of 8 words"),
     ("payload_reduction",
      dict(payload=lambda s, sg: sg + s["i"].amax()), "payload",
      r"aten\.amax"),
+]
+# (id, spec kwargs): constructs the translator refused before the op set
+# grew; now accepted, evaluated bitwise and translated
+FORMERLY_REFUSED = [
+    ("exp", dict(emit=lambda s, w, sg, dg: torch.exp(s["x"]))),
+    ("log", dict(emit=lambda s, w, sg, dg: torch.log(s["x"]))),
+    ("pow", dict(emit=lambda s, w, sg, dg: s["x"] ** 3)),
+    ("float16", dict(emit=lambda s, w, sg, dg: (s["x"].half() + 1).float())),
+    ("float_to_int", dict(emit=lambda s, w, sg, dg: s["x"].int(),
+                          msg=torch.int32)),
+    ("floor_divide", dict(emit=lambda s, w, sg, dg: s["i"] // 2,
+                          msg=torch.int32)),
+    # 8 fields summed: one word once the vertex-only sum is hoisted
+    ("record_too_wide",
+     dict(state={f"f{k}": F for k in range(8)},
+          emit=lambda s, w, sg, dg: sum(s[f"f{k}"] for k in range(8)))),
     ("monoid_not_elementwise",
      dict(monoid=TMonoid("stackmax", "max", op=lambda a, b: torch.stack(
-         [a, b]).amax(0))), "monoid", r"aten\.stack\.default"),
+         [a, b]).amax(0)))),
+    ("captured_scalar",
+     dict(emit=lambda s, w, sg, dg: torch.minimum(s["x"], _CAPTURED))),
 ]
 
 
-@pytest.mark.parametrize("case", REFUSED, ids=[c[0] for c in REFUSED])
-def test_refused_constructs_name_program_component_and_op(case):
-    name, kw, component, what = case
+def _lower_case(name, kw, prefix):
     kw = dict(kw)
     state = kw.pop("state", {"x": F, "i": I})
     emit = kw.pop("emit", lambda s, w, sg, dg: s["x"] + w)
     monoid = kw.pop("monoid", "max" if "payload" in kw else "min")
     prog = tprograms.lower(spec_of(state, emit, monoid=monoid, **kw),
-                           name=f"refused_{name}")
-    assert prog.kernel_gen.error is not None
-    pattern = f"program 'refused_{name}': {component}: .*{what}"
-    with pytest.raises(emitgen.GenericEmitError, match=pattern):
-        tkernel._generic(prog)
-    # the same program runs on the CPU through its own functions
+                           name=f"{prefix}_{name}")
+    return prog, state, emit
+
+
+def _runs_on_the_cpu(prog):
     src, dst, w, n = make_graph_family("scale_free", 120, seed=2)
     sess = TSession.from_edges(src, dst, n, w, n_cells=2, device="cpu")
     sgd = _sg_as_dict(sess.sg)
@@ -405,6 +493,98 @@ def test_refused_constructs_name_program_component_and_op(case):
                           sgd["csr_dst_gid"], n_keys=2 * sess.sg.n_per_shard,
                           block_e=128)
     assert out[0].shape == (2, 2 * sess.sg.n_per_shard)
+
+
+@pytest.mark.parametrize("case", REFUSED, ids=[c[0] for c in REFUSED])
+def test_refused_constructs_name_program_component_and_op(case):
+    name, kw, component, what = case
+    prog, _, _ = _lower_case(name, kw, "refused")
+    assert prog.kernel_gen.error is not None
+    pattern = f"program 'refused_{name}': {component}: .*{what}"
+    with pytest.raises(emitgen.GenericEmitError, match=pattern):
+        tkernel._generic(prog)
+    # the same program runs on the CPU through its own functions
+    _runs_on_the_cpu(prog)
+
+
+@pytest.mark.parametrize("case", FORMERLY_REFUSED,
+                         ids=[c[0] for c in FORMERLY_REFUSED])
+def test_formerly_refused_constructs_translate(case):
+    name, kw = case
+    prog, state, emit = _lower_case(name, kw, "accepted")
+    tr = prog.kernel_gen
+    assert tr.error is None, tr.error
+    assert tkernel._generic(prog) is tr and tr.header
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    s, w, sg, dg = _inputs(state, (E,), (E,), rng)
+    assert_bits(emitgen.evaluate_emit(tr, s, w, sg, dg), emit(s, w, sg, dg),
+                name)
+    if prog.monoid.op is not None:
+        a, b = (seeded(F, (E,), rng) for _ in range(2))
+        assert_bits(emitgen.evaluate_op(tr, a, b), prog.monoid.op(a, b),
+                    f"{name} op")
+    if name == "record_too_wide":
+        assert (tr.words, len(tr.fields)) == (1, 8)
+    _runs_on_the_cpu(prog)
+
+
+def _jax_min_program(kind, source):
+    """The kept refusals written on the JAX package: a min-plus program
+    whose emit (or payload) holds the refused construct."""
+    def receive(s, inbox, has, pay, ok):
+        better = has & (inbox < s["d"]) & ok
+        return ({"d": jnp.where(better, inbox, s["d"]),
+                 "p": jnp.where(better, pay if pay is not None else 0,
+                                s["p"])}, better)
+
+    plain = lambda s, w, sg, dg: s["d"] + w  # noqa: E731
+    emit = {"reduction": lambda s, w, sg, dg: s["d"] + jnp.min(w),
+            "indexing": lambda s, w, sg, dg: s["d"] + w[0],
+            "captured_tensor": lambda s, w, sg, dg: s["d"] + w +
+            _JTABLE[dg % 7],
+            "control_flow": lambda s, w, sg, dg: s["d"] + (
+                w if bool((w > 0).any()) else 1.0)}.get(kind, plain)
+    payload = (lambda s, sg: sg + jnp.max(s["p"])) \
+        if kind == "payload_reduction" else None
+    return jprograms.DiffusiveProgram(
+        monoid="min", msg_dtype=jnp.float32,
+        state={"d": jprograms.Field(jnp.float32, init=lambda v: jnp.where(
+                   v.gid == source, 0.0, jnp.inf), on_dead=jnp.inf),
+               "p": jprograms.Field(jnp.int32, init=0, on_dead=0)},
+        init_active=lambda v: v.gid == source, emit=emit, receive=receive,
+        payload=payload)
+
+
+@pytest.mark.parametrize("case", REFUSED, ids=[c[0] for c in REFUSED])
+def test_kept_refusals_are_the_references_behaviour(case):
+    """Beside each kept refusal, what the JAX package does with the same
+    construct: its Pallas kernels refuse a captured array and its trace a
+    branch on a traced value; a reduction or an indexing across edges
+    runs over one 128-edge block in its Pallas kernels and over the whole
+    stream on its XLA path, so the answer depends on the blocking."""
+    name = case[0]
+    src, dst, w, n = make_graph_family("scale_free", 120, seed=2)
+    pname = f"port_test_kept_{name}"
+    jprograms.diffusive(pname, value_key="d", monotone=True,
+                        lane_param="source")(
+        lambda source: _jax_min_program(name, source))
+    try:
+        def run(backend):
+            sess = JSession.from_edges(src, dst, n, w, n_cells=2,
+                                       backend=backend)
+            res = sess.query(pname, source=3)
+            return np.concatenate([np.asarray(res.values, np.float64),
+                                   np.asarray(res.extra["p"], np.float64)])
+        if name == "captured_tensor":
+            with pytest.raises(ValueError, match="captures constants"):
+                run("pallas")
+        elif name == "control_flow":
+            with pytest.raises(Exception, match="(?i)concret|tracer"):
+                run("pallas")
+        else:
+            assert not np.array_equal(run("pallas"), run("xla"))
+    finally:
+        jprograms.PROGRAMS.pop(pname, None)
 
 
 def test_headers_are_keyed_by_their_text():

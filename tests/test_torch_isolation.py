@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and not the ``chip_k*_ablation.py`` scripts import
-``jax`` or the JAX package ``repro`` (only the tests import both)."""
+``chip_smoke.py``, ``chip_emit_ops.py`` and not the
+``chip_k*_ablation.py`` scripts import ``jax`` or the JAX package
+``repro`` (only the tests import both)."""
 
 import ast
 from pathlib import Path
@@ -14,6 +15,7 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_emit_ops.py",
                                          ROOT / "chip_k1_ablation.py",
                                          ROOT / "chip_k2_ablation.py",
                                          ROOT / "chip_k5_ablation.py"]
